@@ -1,0 +1,200 @@
+"""Config system: model architecture, input shapes and run options.
+
+A plain-Python copy of ``repro.configs.base`` (the port imports nothing of
+the JAX package).  Every architecture is a ``ModelConfig`` in its own module
+(``repro_torch/configs/<arch>.py``) plus a reduced ``smoke()`` variant of
+the same family for CPU tests.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
+
+
+def _pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int          # 0 for attention-free (pure SSM)
+    n_kv_heads: int
+    d_ff: int             # per-expert d_ff for MoE
+    vocab_size: int
+    head_dim: int = 0     # 0 -> d_model // n_heads
+
+    # attention flavour
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False                 # qwen1.5
+    sliding_window: int = 0                # mixtral SWA (0 = full)
+    local_global: bool = False             # gemma2 alternating local/global
+    local_window: int = 4096
+    attn_softcap: float = 0.0              # gemma2 (50.0 on logits -> attn 30)
+    final_softcap: float = 0.0
+    post_block_norms: bool = False         # gemma2 pre+post norms
+
+    # MLP
+    act: str = "silu"                      # silu (swiglu) | gelu (geglu)
+
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_period: int = 1                    # MoE every k-th layer (jamba: 2)
+    capacity_factor: float = 1.25
+
+    # SSM (mamba-1)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_dt_rank: int = 0                   # 0 -> ceil(d_model / 16)
+    attn_period: int = 0                   # hybrid: attention every k-th layer
+    attn_offset: int = 0                   # ... at (i % period) == offset
+
+    # modality frontend stub
+    frontend: str = ""                     # "" | "audio_frames" | "vision_patches"
+    n_frontend_tokens: int = 256           # patch/frame embeddings per sample
+
+    tie_embeddings: bool = True
+    embed_scale: bool = False              # gemma2: x *= sqrt(d_model)
+    norm_eps: float = 1e-5
+    max_seq_len: int = 1 << 20
+
+    # ----- derived -----
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        """Vocab padded for clean TP sharding (Megatron-style)."""
+        return _pad_to(self.vocab_size, multiple)
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' | 'ssm' for the mixer at layer i."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            return ("attn" if (i % self.attn_period) == self.attn_offset
+                    else "ssm")
+        return "attn"
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return (i % self.moe_period) == (self.moe_period - 1)
+
+    def block_pattern(self) -> tuple[tuple[str, bool], ...]:
+        """The repeating (mixer, is_moe) pattern of one scan super-block.
+
+        The layer stack is ``n_layers / len(pattern)`` scanned super-blocks.
+        """
+        period = 1
+        if self.family == "hybrid":
+            period = self.attn_period
+        if self.n_experts:
+            period = max(period, self.moe_period)
+        if self.local_global:
+            period = max(period, 2)
+        assert self.n_layers % period == 0, (self.name, period)
+        return tuple((self.layer_kind(i), self.is_moe_layer(i))
+                     for i in range(period))
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.n_layers // len(self.block_pattern())
+
+    # ----- parameter counting (for roofline MODEL_FLOPS) -----
+    def param_counts(self) -> dict:
+        """Returns dict with total and active (per-token) parameter counts."""
+        d, hd = self.d_model, self.hd
+        emb = self.padded_vocab() * d
+        total = active = 0
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                qo = d * self.n_heads * hd * 2
+                kv = d * self.n_kv_heads * hd * 2
+                mix = qo + kv + (self.n_heads * hd + 2 * self.n_kv_heads * hd
+                                 if self.qkv_bias else 0)
+            else:
+                di, st, dtr = self.d_inner, self.ssm_state, self.dt_rank
+                mix = (d * 2 * di            # in_proj
+                       + di * self.ssm_conv  # depthwise conv
+                       + di * (dtr + 2 * st) # x_proj
+                       + dtr * di + di       # dt_proj
+                       + di * st + di        # A_log, D
+                       + di * d)             # out_proj
+            if self.is_moe_layer(i):
+                ff_tot = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+                ff_act = self.experts_per_token * 3 * d * self.d_ff
+            else:
+                ff_tot = ff_act = 3 * d * self.d_ff
+            total += mix + ff_tot
+            active += mix + ff_act
+        total += emb * (1 if self.tie_embeddings else 2)
+        active += emb * (1 if self.tie_embeddings else 2)
+        return {"total": total, "active": active, "embedding": emb}
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Distribution / training options (the §Perf knobs)."""
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # sharding
+    fsdp_axis: str = "data"        # 2D weight sharding row axis ("" = off)
+    tp_axis: str = "model"
+    zero1: bool = True             # shard optimizer state over fsdp axis
+    seq_parallel: bool = False     # Megatron-SP on the residual stream
+    # memory
+    remat: str = "full"            # full | dots | none
+    microbatches: int = 1
+    # attention
+    attn_impl: str = "auto"        # auto | dense | flash
+    flash_block: int = 1024
+    # moe
+    moe_impl: str = "gshard"       # gshard (einsum) | scatter
+    moe_legacy_shard: bool = False # True: expert-axis-only activation
+                                   # constraint (replicates dispatch buffers
+                                   # when E doesn't divide TP — §Perf A0)
+    # loss
+    ce_impl: str = "sharded"       # sharded (vocab-TP, never materializes
+                                   # unsharded logits) | dense (naive)
+    # optimizer
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    schedule: str = "wsd"          # wsd | cosine | const
+    grad_clip: float = 1.0
+    # comms
+    grad_compression: str = "none" # none | int8_ef

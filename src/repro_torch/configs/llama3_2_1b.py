@@ -1,0 +1,19 @@
+"""Llama 3.2 1B — small llama3 [hf:meta-llama/Llama-3.2-1B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, d_ff=8192,
+    vocab_size=128256, head_dim=64,
+    rope_theta=500000.0,
+    tie_embeddings=True,
+)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=512,
+        tie_embeddings=True,
+    )

@@ -28,3 +28,9 @@ def _trace_contracts_checked():
     from repro.analysis.contracts import checking
     with checking():
         yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels); skips on a machine without one")
