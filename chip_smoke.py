@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
-CUDA card: the quickest proof that the port builds and serves on the GPU.
+CUDA card: the quickest proof that the port builds, serves and reproduces
+the paper's Tables II and III on the GPU.
 
     python3 chip_smoke.py
 
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
-  1. build   — compile ``src/repro_torch/csrc/banked_rows.cu`` with
-               ``nvcc`` and print the build seconds;
+  1. build   — compile every ``src/repro_torch/csrc/*.cu`` with ``nvcc``,
+               one compiler per source, one after another, and print
+               the build seconds;
   2. kernels — ``banked_gather`` / ``banked_scatter`` against their plain
                PyTorch versions on the card, bit-equal (tolerance 0: the
                kernels copy bytes), over every bank map, f32 and bf16, full
@@ -37,7 +39,26 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                from Python (CUDA events over back-to-back calls) and, for
                the kernel and the yardstick, device time alone (calls
                replayed from one CUDA graph);
-  6. profile — ``torch.profiler`` over a short generation: device busy
+  6. tables  — the paper tables' path through its CLI entry point
+               (``repro_torch.bench.paper_tables.main``): Tables II and III
+               priced on the card equal the CPU pricing, the 16B pins
+               1613 / 5791 / 26087 (transpose) and 64216 (fft4096r4) and
+               the reproduction tolerances hold, the VM's ``func_err`` and
+               the kernels' ``kernel_err`` are within tolerance, and the
+               launches are the path's (3 transposes for Table II, 6 FFT
+               passes per radix-4 transform, one transform per Table III
+               workload); then both kernels against their plain versions
+               at the path's shapes (the N×N f32 inputs for N in
+               32/64/128, bit-equal; every pass of the 4096-point input,
+               rtol = atol = 1e-5, and the whole transform, 2e-3·max|X|);
+  7. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
+               (32, 32) × f32/bf16/int32, bit-equal, and the FFT passes
+               (4096, 0/3/5), (1024, 2) and whole transforms n = 256, 1024,
+               4096 at the reference tests' tolerances;
+  8. times   — the transpose (8192 x 8192 f32) and the FFT (1024 transforms
+               of 4096 points, and its first and last pass alone) beside
+               their byte bounds, plain versions and library calls;
+  9. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -67,20 +88,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage")
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import cuda_lib
-    t0 = time.perf_counter()
-    cuda_lib.library("banked_rows")
-    secs = time.perf_counter() - t0
-    text = cuda_lib.build_log("banked_rows")
-    regs = sorted({int(line.split("Used ")[1].split()[0])
-                   for line in text.splitlines() if "registers" in line})
-    spills = [line.strip() for line in text.splitlines()
-              if "spill" in line and not line.strip().startswith("0 ")]
-    log(f"[build] csrc/banked_rows.cu: {secs:.2f} s; ptxas: {regs} "
-        f"registers per thread over the kernels' instances; spills: "
-        f"{spills or 'none'}")
-    return {"build_s": secs}
+
+    secs = {}
+    for name in LIBRARIES:
+        t0 = time.perf_counter()
+        cuda_lib.library(name)
+        secs[name] = time.perf_counter() - t0
+    wall = sum(secs.values())
+    for name in LIBRARIES:
+        text = cuda_lib.build_log(name)
+        regs = sorted({int(line.split("Used ")[1].split()[0])
+                       for line in text.splitlines() if "registers" in line})
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line and not line.strip().startswith("0 ")]
+        log(f"[build] csrc/{name}.cu: {secs[name]:.2f} s; ptxas: {regs} "
+            f"registers per thread over the kernels' instances; spills: "
+            f"{spills or 'none'}")
+    log(f"[build] {len(LIBRARIES)} sources in {wall:.2f} s")
+    return {"build_s": wall, "per_source_s": secs}
 
 
 def phase_kernels() -> dict:
@@ -452,6 +482,290 @@ def phase_times(engine) -> dict:
     return out
 
 
+def phase_tables() -> dict:
+    """The paper tables' path through its CLI entry point, held to the CPU
+    pricing, the pins, the reproduction tolerances and the path's launch
+    counts."""
+    import torch
+
+    from repro_torch.bench import paper_tables as PT
+    from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
+    from repro_torch.kernels.fft_stage.ops import STAGE
+
+    TRANSPOSE.launches = STAGE.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = PT.main(["table2", "table3"])          # prints the rows
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"banked_transpose": TRANSPOSE.launches,
+                "fft_stage": STAGE.launches}
+    want = {"banked_transpose": len(PT.SIZES),
+            "fft_stage": 6 * len(PT.RADICES)}
+    log(f"[tables] Tables II and III through the CLI on the card in "
+        f"{secs:.2f} s; launches on the path: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+
+    host = {"table2": PT.table2_rows("cpu"), "table3": PT.table3_rows("cpu")}
+    for table in ("table2", "table3"):
+        for c, h in zip(card[table], host[table], strict=True):
+            c0 = {k: v for k, v in c.items() if k != "kernel_err"}
+            h0 = {k: v for k, v in h.items() if k != "kernel_err"}
+            if c0 != h0:
+                raise AssertionError(f"card row {c0} != CPU row {h0}")
+    log(f"[tables] card pricing == CPU pricing on all "
+        f"{len(card['table2']) + len(card['table3'])} cells (and the VM's "
+        f"func_err equal)")
+
+    t2 = [r for r in card["table2"] if r["delta_pct"] != ""]
+    t3 = [r for r in card["table3"] if r["delta_pct"] != ""]
+    totals = {r["name"]: r["total"] for r in card["table2"] + card["table3"]}
+    pins = {"transpose32_16B": 1613, "transpose64_16B": 5791,
+            "transpose128_16B": 26087, "fft4096r4_16B": 64216}
+    got_pins = {k: totals[k] for k in pins}
+    r16 = next(r for r in t3 if r["name"] == "fft4096r16_4R-2W")
+    checks = {
+        "pins": got_pins == pins,
+        "table2 |d| <= 1.1 %": max(abs(r["delta_pct"]) for r in t2) <= 1.1,
+        "table2 >= 6 exact": sum(r["delta_pct"] == 0.0 for r in t2) >= 6,
+        "table3 |d| <= 5 % (non-VB)": max(
+            abs(r["delta_pct"]) for r in t3 if "VB" not in r["name"]) <= 5,
+        "table3 |d| <= 8.5 % (VB)": max(
+            abs(r["delta_pct"]) for r in t3 if "VB" in r["name"]) <= 8.5,
+        "4R-2W r16 eff 33.3 +- 0.2": abs(r16["efficiency_pct"] - 33.3)
+        <= 0.2,
+        # the VM's float32 FFT and the kernel transform against the numpy
+        # oracle: 2e-3·max|X| (tests/test_programs.py, test_kernels.py)
+        "func_err <= 2e-3": all(r["func_rel_err"] <= 2e-3 for r in t3),
+        "fft kernel_err <= 2e-3": all(r["kernel_err"] <= 2e-3 for r in t3),
+        # the transpose moves bytes: exact
+        "transpose kernel_err == 0": all(r["kernel_err"] == 0.0 for r in t2),
+    }
+    log(f"[tables] 16B pins {got_pins}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"table checks failed: {checks}")
+    return {"launches": launches, "seconds": secs, "pins": got_pins,
+            "table2": card["table2"], "table3": card["table3"],
+            "kernel_err": {
+                "banked_transpose": max(r["kernel_err"]
+                                        for r in card["table2"]),
+                "fft_stage": max(r["kernel_err"] for r in card["table3"])},
+            "func_err": max(r["func_rel_err"] for r in card["table3"])}
+
+
+def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
+    """The kernel pass and the plain pass on the same CUDA planes, rtol =
+    atol = 1e-5 (tests/test_kernels.py:140-143); returns the plain output,
+    the input of the next pass."""
+    import torch
+
+    from repro_torch.kernels.fft_stage.ops import (fft_stage_radix4,
+                                                   stage_twiddles)
+    from repro_torch.kernels.fft_stage.ref import fft_stage_ref
+    got = fft_stage_radix4(xr, xi, n, p)
+    sub = n // 4 ** (p + 1)
+    twr, twi = stage_twiddles(n, p, xr.device)
+    want = fft_stage_ref(xr.reshape(-1, 4, sub), xi.reshape(-1, 4, sub),
+                         twr, twi)
+    want = tuple(w.reshape(xr.shape) for w in want)
+    torch.cuda.synchronize()
+    e = max((g - w).abs().max().item() for g, w in zip(got, want))
+    close = all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+                for g, w in zip(got, want))
+    err["fft_stage"] = max(err["fft_stage"], e)
+    log(f"[{what}] fft_stage pass {p} of n={n} on {tuple(xr.shape)}: max "
+        f"|kernel - plain| {e:.3g} (rtol = atol = 1e-5: {close})")
+    if not close:
+        raise AssertionError(f"fft_stage pass {p} of n={n} != plain")
+    return want
+
+
+def _check_fft_full(x, err, what) -> None:
+    """The kernel transform against the plain passes and the numpy oracle,
+    atol 2e-3·max|X| (tests/test_kernels.py:153-154)."""
+    import torch
+
+    from repro_torch.kernels.fft_stage import (fft4096_radix4,
+                                               fft_oracle_digit_reversed,
+                                               fft_radix4_ref)
+    n = x.shape[-1]
+    got = fft4096_radix4(x, n=n)
+    plain = fft_radix4_ref(x, n=n)
+    torch.cuda.synchronize()
+    xs = x.cpu().numpy()
+    oracle = np.stack([fft_oracle_digit_reversed(row, 4) for row in xs])
+    tol = 2e-3 * np.abs(oracle).max()
+    e_plain = (got - plain).abs().max().item()
+    e_oracle = float(np.abs(got.cpu().numpy() - oracle).max())
+    err["fft_stage"] = max(err["fft_stage"], e_plain)
+    log(f"[{what}] fft4096_radix4 n={n} on {tuple(x.shape)}: max |kernel - "
+        f"plain| {e_plain:.3g}, max |kernel - oracle| {e_oracle:.3g} "
+        f"(tolerance {tol:.3g})")
+    if e_plain > tol or e_oracle > tol:
+        raise AssertionError(f"fft transform n={n} off by {e_plain:.3g} / "
+                             f"{e_oracle:.3g} > {tol:.3g}")
+
+
+def _check_transpose(x, err, what) -> None:
+    import torch
+
+    from repro_torch.kernels.banked_transpose.ops import banked_transpose
+    from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
+    got, want = banked_transpose(x), banked_transpose_ref(x)
+    torch.cuda.synchronize()
+    e = (got.float() - want.float()).abs().max().item()
+    err["banked_transpose"] = max(err["banked_transpose"], e)
+    same = torch.equal(got, want) and got.is_contiguous()
+    log(f"[{what}] banked_transpose {tuple(x.shape)} {x.dtype}: bit-equal "
+        f"to plain: {same}")
+    if not same:
+        raise AssertionError(f"banked_transpose != plain at "
+                             f"{tuple(x.shape)} {x.dtype} (err {e})")
+
+
+def phase_table_kernels() -> dict:
+    """Both kernels against their plain versions at the shapes the tables'
+    path gives them: the N×N f32 inputs of the Table II memory images and
+    every pass of the Table III 4096-point input."""
+    import torch
+
+    from repro_torch.bench import paper_tables as PT
+    from repro_torch.bench.workloads import fft_workload, transpose_workload
+    err = {"banked_transpose": 0.0, "fft_stage": 0.0}
+    for n in PT.SIZES:
+        mem = transpose_workload(n).init_memory
+        _check_transpose(torch.from_numpy(mem[:n * n].reshape(n, n)).cuda(),
+                         err, "path")
+    mem, n = fft_workload(PT.FFT_N, 4).init_memory, PT.FFT_N
+    x = torch.from_numpy((mem[0:2 * n:2] + 1j * mem[1:2 * n:2]).astype(
+        np.complex64)[None]).cuda()
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    for p in range(6):
+        xr, xi = _check_fft_pass(xr, xi, n, p, err, "path")
+    _check_fft_full(x, err, "path")
+    return {"max_abs_err": err}
+
+
+def phase_table_sweep() -> dict:
+    """The reference tests' layouts (tests/test_kernels.py:130-166)."""
+    import torch
+    err = {"banked_transpose": 0.0, "fft_stage": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape in ((128, 128), (256, 512), (512, 128), (32, 32)):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            x = torch.randint(-1000, 1000, shape, device="cuda",
+                              generator=gen).to(dtype)
+            _check_transpose(x, err, "sweep")
+    for n, p in ((4096, 0), (4096, 3), (4096, 5), (1024, 2)):
+        xr = torch.randn((2, n), device="cuda", generator=gen)
+        xi = torch.randn((2, n), device="cuda", generator=gen)
+        _check_fft_pass(xr, xi, n, p, err, "sweep")
+    rng = np.random.default_rng(0)
+    for n in (256, 1024, 4096):
+        x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+             ).astype(np.complex64)
+        _check_fft_full(torch.from_numpy(x).cuda(), err, "sweep")
+    return {"max_abs_err": err}
+
+
+TRANSPOSE_TIMING = (8192, 8192)     # f32: 512 MiB moved
+FFT_TIMING = (1024, 4096)           # complex64 transforms: 64 MiB moved
+F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
+
+
+def _bound_ms(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and flops over the f32
+    rate, in ms, and which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed(kern, plain, lib, bound, graph_iters: int, iters: int) -> dict:
+    """Per call from Python (plain, kernel, kernel, plain in turns), the
+    library call, and device times from a CUDA graph."""
+    p1, k1, k2, p2 = (_time_ms(plain, iters), _time_ms(kern, iters),
+                      _time_ms(kern, iters), _time_ms(plain, iters))
+    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2],
+            "library_ms": _time_ms(lib, iters) if lib else None,
+            "device_ms": _graph_ms(kern, graph_iters),
+            "library_device_ms": (_graph_ms(lib, graph_iters) if lib
+                                  else None),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def phase_table_times() -> dict:
+    import torch
+
+    from repro_torch.kernels.banked_transpose.ops import banked_transpose
+    from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
+    from repro_torch.kernels.fft_stage import (fft4096_radix4,
+                                               fft_radix4_ref)
+    from repro_torch.kernels.fft_stage.ops import (fft_stage,
+                                                   stage_twiddles)
+    from repro_torch.kernels.fft_stage.ref import fft_stage_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+
+    n, m = TRANSPOSE_TIMING
+    x = torch.randn((n, m), device="cuda", generator=gen)
+    out["banked_transpose"] = _timed(
+        lambda: banked_transpose(x), lambda: banked_transpose_ref(x),
+        lambda: x.t().contiguous(), _bound_ms(2 * n * m * 4),
+        graph_iters=20, iters=50)
+    out["banked_transpose"]["shape"] = [n, m]
+
+    batch, nf = FFT_TIMING
+    z = torch.complex(torch.randn((batch, nf), device="cuda", generator=gen),
+                      torch.randn((batch, nf), device="cuda", generator=gen))
+    passes = 6
+    # the function: each complex64 input read once, each output written
+    # once; 40 flops per radix-4 butterfly column, nf/4 columns per pass
+    flops = batch * passes * (nf // 4) * 40
+    out["fft_stage"] = _timed(
+        lambda: fft4096_radix4(z, n=nf), lambda: fft_radix4_ref(z, n=nf),
+        lambda: torch.fft.fft(z), _bound_ms(2 * batch * nf * 8, flops),
+        graph_iters=20, iters=50)
+    out["fft_stage"]["shape"] = [batch, nf]
+    # one pass alone (the kernel's own unit): two f32 planes in and out
+    # plus the pass's twiddles
+    xr, xi = z.real.contiguous(), z.imag.contiguous()
+    per_pass = {}
+    for p in (0, passes - 1):
+        sub = nf // 4 ** (p + 1)
+        twr, twi = stage_twiddles(nf, p, xr.device)
+        vr, vi = xr.reshape(-1, 4, sub), xi.reshape(-1, 4, sub)
+        per_pass[p] = _timed(
+            lambda: fft_stage(vr, vi, twr, twi),
+            lambda: fft_stage_ref(vr, vi, twr, twi), None,
+            _bound_ms(4 * batch * nf * 4 + 2 * 4 * sub * 4,
+                      batch * (nf // 4) * 40), graph_iters=20, iters=50)
+    out["fft_stage"]["passes"] = per_pass
+    # what the six-launch design must move at least: six passes' bytes
+    out["fft_stage"]["design_bound_ms"] = sum(
+        _bound_ms(4 * batch * nf * 4 + 2 * 4 * (nf // 4 ** (p + 1)) * 4)[0]
+        for p in range(passes))
+    for name, r in out.items():
+        us = {k: (v * 1e3 if isinstance(v, float) else v)
+              for k, v in r.items() if k.endswith("ms")}
+        lib = "library" if name == "banked_transpose" else "torch.fft.fft"
+        log(f"[times] {name} at {r['shape']}: per call from Python: kernel "
+            f"{us['ms']:.2f} us, plain {us['plain_ms']:.2f} us, {lib} "
+            f"{us['library_ms']:.2f} us; device time in a CUDA graph: kernel "
+            f"{us['device_ms']:.3f} us, {lib} {us['library_device_ms']:.3f} "
+            f"us; bound {us['bound_ms']:.3f} us ({r['bound_by']})")
+    for p, r in per_pass.items():
+        log(f"[times] fft_stage pass {p} alone at {list(FFT_TIMING)}: per "
+            f"call kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us; device {r['device_ms'] * 1e3:.3f}"
+            f" us; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    log(f"[times] fft_stage: six passes' bytes bound the six-launch design "
+        f"at {out['fft_stage']['design_bound_ms'] * 1e3:.3f} us")
+    return out
+
+
 def phase_profile(engine) -> dict:
     """Where a decode step's time goes: ``torch.profiler`` over a short
     generation (3 decode steps) at the serving point."""
@@ -508,7 +822,11 @@ def main() -> int:
     record["serve"] = serve
     record["path_kernels"] = phase_path_kernels(engine)
     record["cost"] = phase_cost(engine)
+    record["tables"] = phase_tables()
+    record["table_kernels"] = phase_table_kernels()
+    record["table_sweep"] = phase_table_sweep()
     record["times"] = phase_times(engine)
+    record["table_times"] = phase_table_times()
     record["profile"] = phase_profile(engine)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -519,9 +837,12 @@ def main() -> int:
     record["cuda"] = torch.version.cuda
     record["wall_s"] = time.perf_counter() - t_start
 
-    replaces = {"banked_gather": "src/repro/kernels/banked_gather/kernel.py:74",
-                "banked_scatter":
-                    "src/repro/kernels/banked_scatter/kernel.py:66"}
+    replaces = {
+        "banked_gather": "src/repro/kernels/banked_gather/kernel.py:74",
+        "banked_scatter": "src/repro/kernels/banked_scatter/kernel.py:66",
+        "banked_transpose":
+            "src/repro/kernels/banked_transpose/kernel.py:31",
+        "fft_stage": "src/repro/kernels/fft_stage/kernel.py:54"}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/banked_rows.cu",
                 "replaces": replaces[name],
@@ -533,6 +854,17 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]}
                for name, t in record["times"].items()]
+    kernels += [{"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/csrc/{name}.cu",
+                 "replaces": replaces[name],
+                 "launches": record["tables"]["launches"][name],
+                 "max_abs_err": max(
+                     record["table_kernels"]["max_abs_err"][name],
+                     record["table_sweep"]["max_abs_err"][name]),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"]}
+                for name, t in record["table_times"].items()]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -6,6 +6,7 @@
     §I/§III, wrapping a frozen ``MemSpec``; banked memories own the
     ``BankedLayout`` logical↔physical row math the KV pool and the CUDA
     gather/scatter kernels share.
+  * ``run_program`` — an ISA program on the SIMT VM, priced on the card;
   * a string-keyed registry: ``get("16B-offset")`` resolves the nine paper
     architectures and parses constructible names (``"32B-xor"``,
     ``"12B"``, ``"8R-1W"``, ``"16B-offset-s2"``, ``"16B-bcast"``).
@@ -198,6 +199,22 @@ class MemoryArchitecture:
         return cost_many([self], addr_trace, block_ops=block_ops,
                          device=device)[0]
 
+    def run_program(self, program, init_memory=None, execute: bool = True,
+                    device="cuda"):
+        """Run (and/or cost) an ISA program on this memory (see isa.vm):
+        priced on ``device``, executed functionally on the host."""
+        import numpy as np
+
+        from repro_torch.isa.assembler import MemLoad, MemStore
+        from repro_torch.isa.vm import run_program as _run
+        if init_memory is None:
+            n_words = 1 + max(
+                [int(np.max(i.addrs)) for i in program.instrs
+                 if isinstance(i, (MemLoad, MemStore))] or [0])
+            init_memory = np.zeros(n_words, np.float32)
+        return _run(program, self.spec, init_memory, execute=execute,
+                    device=device)
+
 
 class BankedMemory(MemoryArchitecture):
     """B-bank arbitrated memory (paper §III): per-op cycles = max per-bank
@@ -388,6 +405,10 @@ def resolve(arch) -> MemoryArchitecture:
 #: The nine architectures benchmarked in the paper (Tables II/III).
 PAPER_ARCHITECTURES: tuple[MemoryArchitecture, ...] = tuple(
     register(from_spec(s)) for s in PAPER_MEMORIES)
+
+#: Table II uses the 8 memories without the VB variant.
+TRANSPOSE_ARCHITECTURES: tuple[MemoryArchitecture, ...] = tuple(
+    a for a in PAPER_ARCHITECTURES if a.name != "4R-1W-VB")
 
 #: Beyond-paper non-power-of-two lattice points (the two-level points of
 #: the reference lattice come with the two-level slice).

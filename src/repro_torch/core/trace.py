@@ -35,10 +35,10 @@ plus the compute-side metadata needed to report full Table II/III rows:
                              (``fp`` / ``int`` / ``imm`` / ``other``)
 
 Construction: ``AddressTrace.from_stream`` (one instruction from a flat
-request stream), ``AddressTrace.from_ops`` (pre-shaped operation matrices), or
-incrementally through ``TraceBuilder``.  (``from_program``, the ISA
-lowering, comes with the ISA slice.)  Traces compose
-with ``+`` and slice with ``[start:stop]`` over operations.
+request stream), ``AddressTrace.from_ops`` (pre-shaped operation matrices),
+``AddressTrace.from_program`` (an ISA macro-op program), or incrementally
+through ``TraceBuilder``.  Traces compose with ``+`` and slice with
+``[start:stop]`` over operations.
 
 The Trace protocol
 ==================
@@ -225,6 +225,24 @@ class AddressTrace:
 
     #: alias — a flat per-thread request stream is just the (T,) case
     from_stream = from_ops
+
+    @classmethod
+    def from_program(cls, program) -> "AddressTrace":
+        """The exact trace an ISA macro-op ``Program`` emits (see isa.vm —
+        the VM costs this very object, so kernel- and VM-derived cycles are
+        cross-validated by construction)."""
+        from repro_torch.isa.assembler import Compute, MemLoad, MemStore
+        b = TraceBuilder(n_threads=program.n_threads)
+        for ins in program.instrs:
+            if isinstance(ins, MemLoad):
+                b.load(ins.addrs, space=ins.space)
+            elif isinstance(ins, MemStore):
+                b.store(ins.addrs)
+            elif isinstance(ins, Compute):
+                b.compute(ins.counts, scalar=ins.scalar)
+            else:  # pragma: no cover
+                raise TypeError(f"unknown instruction {ins!r}")
+        return b.build(meta={"program": program.name, **program.meta})
 
     @classmethod
     def concat(cls, *traces: "AddressTrace") -> "AddressTrace":

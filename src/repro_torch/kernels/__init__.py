@@ -8,6 +8,8 @@ first use (``cuda_lib``).  Packages self-register with ``registry``.
 Kernels (ported slices):
   banked_gather  — bank-major row gather (paged-KV read path)
   banked_scatter — bank-major row scatter, in place (paged-KV write path)
+  banked_transpose — shared-memory tiled transpose (Table II data path)
+  fft_stage      — radix-4 DIF FFT pass (Table III data path)
 """
 from repro_torch.kernels import registry
 from repro_torch.kernels.registry import Kernel, register

@@ -66,7 +66,8 @@ _KERNELS: dict[str, Kernel] = {}
 
 #: kernel packages that self-register on import (those of the ported
 #: slices; the reference has seven)
-_BUILTIN_PACKAGES = ("banked_gather", "banked_scatter")
+_BUILTIN_PACKAGES = ("banked_gather", "banked_scatter",
+                     "banked_transpose", "fft_stage")
 
 
 def register(kernel: Kernel) -> Kernel:

@@ -1,6 +1,8 @@
 """The port on the CUDA card: the hand-written kernels against their plain
-PyTorch versions (bit-equal: they copy bytes), and the serving path and
-the cost engine on the card against the same code on the host.  Every
+PyTorch versions (the row kernels and the transpose bit-equal: they copy
+bytes; the FFT pass within rtol = atol = 1e-5 per pass and 2e-3·max|X| per
+transform, the reference's tolerances), and the serving path, the paper
+tables and the cost engine on the card against the same code on the host.  Every
 test here needs a card and skips without one; the file imports no JAX, so
 it runs where only the port is installed:
 
@@ -124,3 +126,96 @@ def test_simulation_on_the_card_matches_the_host(cuda):
     assert cost_many(["16B"], simulate_serving_stream(
         "16B", 4, 16, 8, page_len=4, n_kv_layers=2, device=cuda),
         device=cuda)[0].total_cycles == 2596
+
+
+# -------------------------------------------------- the paper tables' path --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_transpose_kernel_bit_equal_to_plain(cuda, dtype):
+    from repro_torch.kernels.banked_transpose.ops import (TRANSPOSE,
+                                                          banked_transpose)
+    from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for shape in ((32, 32), (64, 64), (128, 128), (256, 512), (512, 128),
+                  (16, 48)):
+        x = torch.randint(-1000, 1000, shape, device=cuda,
+                          generator=gen).to(dtype)
+        before = TRANSPOSE.launches
+        got = banked_transpose(x)
+        assert TRANSPOSE.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == shape[::-1]
+        assert torch.equal(got, banked_transpose_ref(x))
+
+
+@pytest.mark.parametrize("n,p", [(4096, 0), (4096, 3), (4096, 5),
+                                 (1024, 2)])
+def test_fft_stage_kernel_close_to_plain(cuda, n, p):
+    from repro_torch.kernels.fft_stage.ops import (STAGE, fft_stage_radix4,
+                                                   stage_twiddles)
+    from repro_torch.kernels.fft_stage.ref import fft_stage_ref
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    xr = torch.randn((2, n), device=cuda, generator=gen)
+    xi = torch.randn((2, n), device=cuda, generator=gen)
+    before = STAGE.launches
+    got = fft_stage_radix4(xr, xi, n, p)
+    assert STAGE.launches == before + 1
+    sub = n // 4 ** (p + 1)
+    twr, twi = stage_twiddles(n, p, xr.device)
+    want = fft_stage_ref(xr.reshape(-1, 4, sub), xi.reshape(-1, 4, sub),
+                         twr, twi)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.reshape(2, n), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_fft_kernel_transform_close_to_plain_and_oracle(cuda, n):
+    from repro_torch.kernels.fft_stage import (fft4096_radix4,
+                                               fft_oracle_digit_reversed,
+                                               fft_radix4_ref)
+    from repro_torch.kernels.fft_stage.ops import STAGE
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+         ).astype(np.complex64)
+    before = STAGE.launches
+    got = fft4096_radix4(torch.from_numpy(x).to(cuda), n=n)
+    passes = int(round(np.log(n) / np.log(4)))
+    assert STAGE.launches == before + passes
+    want = np.stack([fft_oracle_digit_reversed(x[b], 4) for b in range(2)])
+    tol = 2e-3 * np.abs(want).max()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=tol)
+    plain = fft_radix4_ref(torch.from_numpy(x).to(cuda), n=n)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=0, atol=tol)
+
+
+def test_fft_wrapper_refuses_mixed_devices(cuda):
+    from repro_torch.kernels.fft_stage.ops import fft_stage
+    planes = torch.zeros((8, 4, 16), device=cuda)
+    with pytest.raises(ValueError):
+        fft_stage(planes, planes, torch.zeros((1, 4, 16)),
+                  torch.zeros((1, 4, 16)))
+
+
+def test_paper_tables_on_the_card_match_the_host(cuda):
+    """Both tables priced on the card equal the host pricing; the kernel
+    step launches 3 transposes (Table II) and 6 passes per radix-4
+    transform, one transform per Table III workload (18)."""
+    from repro_torch.bench import paper_tables as PT
+    from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
+    from repro_torch.kernels.fft_stage.ops import STAGE
+    t0, s0 = TRANSPOSE.launches, STAGE.launches
+    card2, card3 = PT.table2_rows("cuda"), PT.table3_rows("cuda")
+    assert (TRANSPOSE.launches - t0, STAGE.launches - s0) == (3, 18)
+    host2, host3 = PT.table2_rows("cpu"), PT.table3_rows("cpu")
+    for card, host in ((card2, host2), (card3, host3)):
+        for c, h in zip(card, host):
+            assert {k: v for k, v in c.items() if k != "kernel_err"} == {
+                k: v for k, v in h.items() if k != "kernel_err"}
+    assert all(r["kernel_err"] == 0.0 for r in card2)
+    assert all(r["kernel_err"] <= 2e-3 for r in card3)
+    totals = {r["name"]: r["total"] for r in card2 + card3}
+    assert [totals[k] for k in ("transpose32_16B", "transpose64_16B",
+                                "transpose128_16B", "fft4096r4_16B")] == [
+        1613, 5791, 26087, 64216]

@@ -1,6 +1,7 @@
-"""repro_torch stands alone: no module of the port imports JAX or the
-reference package ``repro``, and a CPU smoke generation (through the
-serving CLI) runs with both blocked from import."""
+"""repro_torch stands alone: no module of the port (nor chip_smoke.py)
+imports JAX, the reference package ``repro`` or the reference's
+``benchmarks``, and a CPU smoke generation (through the serving CLI) and
+the Table II CLI run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -21,29 +22,52 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
+FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
+
+
 def test_no_port_module_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py"))
-    assert len(files) > 20
-    bad = {str(f.relative_to(SRC)): sorted(_imported_roots(f)
-                                           & {"jax", "jaxlib", "repro"})
-           for f in files}
+    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = {str(f): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {k: v for k, v in bad.items() if v}
 
 
-def test_cpu_serving_runs_with_jax_and_repro_blocked():
+def _run_blocked(body: str) -> subprocess.CompletedProcess:
+    """Run ``body`` in a fresh interpreter with the reference blocked."""
     script = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
         "    sys.modules[name] = None\n"
-        "from repro_torch.launch import serve\n"
-        "serve.main(['--smoke', '--device', 'cpu', '--cost', '--batch', '2',"
-        " '--prompt-len', '12', '--new-tokens', '4'])\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        + body +
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.',\n"
+        "                                           'benchmarks.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('isolated ok')\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    out = subprocess.run([sys.executable, "-c", script], env=env,
-                         capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_table2_cli_runs_with_the_reference_blocked():
+    """``python -m repro_torch.bench.paper_tables --device cpu table2``,
+    run as ``-m`` runs it, with JAX, ``repro`` and ``benchmarks`` blocked."""
+    out = _run_blocked(
+        "import runpy\n"
+        "sys.argv = ['paper_tables', '--device', 'cpu', 'table2']\n"
+        "runpy.run_module('repro_torch.bench.paper_tables',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("transp")]
+    assert len(lines) == 24
+    assert "transpose128_16B,33.835,total=26087|" in out.stdout
+
+
+def test_cpu_serving_runs_with_jax_and_repro_blocked():
+    out = _run_blocked(
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--smoke', '--device', 'cpu', '--cost', '--batch', '2',"
+        " '--prompt-len', '12', '--new-tokens', '4'])\n")
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
     assert "16B" in out.stdout and "4R-2W" in out.stdout
