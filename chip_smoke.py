@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card: the quickest proof that the port builds, serves and reproduces
-the paper's Tables II and III on the GPU.
+the paper's Tables II and III and runs the kernel micro-bench on the
+GPU.
 
     python3 chip_smoke.py
 
@@ -34,12 +35,7 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                pricing on the 9 paper memories, and the 16B serving pins
                22168 (b8 p64 d64, page_len 8) and 2596 (b4 p16 d8,
                page_len 4) hold;
-  5. times   — each kernel at the serving shapes, beside its bound, its
-               plain version and the one-call PyTorch yardstick: per call
-               from Python (CUDA events over back-to-back calls) and, for
-               the kernel and the yardstick, device time alone (calls
-               replayed from one CUDA graph);
-  6. tables  — the paper tables' path through its CLI entry point
+  5. tables  — the paper tables' path through its CLI entry point
                (``repro_torch.bench.paper_tables.main``): Tables II and III
                priced on the card equal the CPU pricing, the 16B pins
                1613 / 5791 / 26087 (transpose) and 64216 (fft4096r4) and
@@ -51,14 +47,28 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                at the path's shapes (the N×N f32 inputs for N in
                32/64/128, bit-equal; every pass of the 4096-point input,
                rtol = atol = 1e-5, and the whole transform, 2e-3·max|X|);
-  7. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
+  6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
                (32, 32) × f32/bf16/int32, bit-equal, and the FFT passes
                (4096, 0/3/5), (1024, 2) and whole transforms n = 256, 1024,
                4096 at the reference tests' tolerances;
-  8. times   — the transpose (8192 x 8192 f32) and the FFT (1024 transforms
-               of 4096 points, and its first and last pass alone) beside
-               their byte bounds, plain versions and library calls;
-  9. profile — ``torch.profiler`` over a short generation: device busy
+  7. controllers — ``conflict_popcount`` and ``carry_arbiter`` against
+               their plain versions, bit-equal and one launch a call: popcount
+               over n_ops 8/256/1024 x B 4/8/16, ids outside [0, B) (negative
+               ones too), B = 32, 12 and 6, (8, 12) and (8, 40) lane
+               counts and rows off 16-byte alignment; the arbiter at (8, 16),
+               (128, 16), (256, 8) and (384, 6), the bank-0 drain, 32-bit
+               words that do not drain and int32 words;
+  8. bench   — the kernel micro-bench through its CLI entry point
+               (``repro_torch.bench.kernel_bench.main``) on the card: the
+               five rows in the reference's order, each with err 0, each
+               row's kernel launched;
+  9. times   — the row kernels at the serving shapes, the transpose (8192 x
+               8192 f32) and the FFT (1024 transforms of 4096 points, and its
+               first and last pass alone) beside their byte bounds, plain
+               versions and library calls; the popcount at 4096 and 2^20 ops
+               and the arbiter at 1024 and 2^18 ops (B = 16) beside their
+               bounds and plain versions (no library call computes either);
+ 10. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -78,7 +88,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
 PROMPT, NEW, BATCH, PAGE_LEN = 64, 16, 4, 8
 MAX_SEQ = PROMPT + NEW         # a whole number of pages: paged and dense
                                # attention then run the same shapes
@@ -88,7 +97,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage")
+LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers")
 
 
 def phase_build() -> dict:
@@ -325,45 +334,6 @@ def phase_cost(engine) -> dict:
     return {"live_total_cycles": totals, "pins": pins}
 
 
-def _time_ms(fn, iters: int = 200) -> float:
-    import torch
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph_ms(fn, iters: int = 100) -> float:
-    """Device time per call: ``iters`` calls captured in one CUDA graph and
-    replayed, so no host dispatch sits between the launches."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _serving_inputs(engine) -> dict:
     """The row kernels' inputs at the serve phase's shapes: its pool
     (n_pages x row_width, compute dtype, random contents), the batch's
@@ -426,6 +396,7 @@ def phase_path_kernels(engine) -> dict:
 def phase_times(engine) -> dict:
     import torch
 
+    from repro_torch.bench.kernel_bench import bound_ms, graph_ms, time_ms
     from repro_torch.core.arch import physical_row_of
     from repro_torch.kernels.banked_gather.ops import (banked_gather,
                                                        banked_gather_plain)
@@ -448,7 +419,7 @@ def phase_times(engine) -> dict:
     def bound(n: int) -> float:
         # each input read once, each output written once: n rows in, n rows
         # out, n int64 indices
-        return (2 * n * kv.row_width * elt + 8 * n) / HBM_BYTES_PER_S * 1e3
+        return bound_ms(2 * n * kv.row_width * elt + 8 * n)[0]
 
     out = {}
     for name, n, kern, plain, lib in (
@@ -462,14 +433,14 @@ def phase_times(engine) -> dict:
              lambda: pool.index_copy_(0, cur_phys, upd))):
         # per call from Python, back to back: plain, kernel, kernel, plain
         # (and the yardstick) in one call; then the device time alone
-        p1, k1, k2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
-                          _time_ms(plain))
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
+                          time_ms(plain))
         out[name] = {"rows": int(n), "row_width": kv.row_width,
                      "dtype": str(dtype), "ms": min(k1, k2),
                      "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
-                     "plain_ms_runs": [p1, p2], "library_ms": _time_ms(lib),
-                     "device_ms": _graph_ms(kern),
-                     "library_device_ms": _graph_ms(lib),
+                     "plain_ms_runs": [p1, p2], "library_ms": time_ms(lib),
+                     "device_ms": graph_ms(kern),
+                     "library_device_ms": graph_ms(lib),
                      "bound_ms": bound(n)}
         r = out[name]
         us = {k: v * 1e3 for k, v in r.items() if k.endswith("ms")}
@@ -671,34 +642,12 @@ def phase_table_sweep() -> dict:
 
 TRANSPOSE_TIMING = (8192, 8192)     # f32: 512 MiB moved
 FFT_TIMING = (1024, 4096)           # complex64 transforms: 64 MiB moved
-F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
-
-
-def _bound_ms(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
-    """The larger of bytes over the memory rate and flops over the f32
-    rate, in ms, and which one it is."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _timed(kern, plain, lib, bound, graph_iters: int, iters: int) -> dict:
-    """Per call from Python (plain, kernel, kernel, plain in turns), the
-    library call, and device times from a CUDA graph."""
-    p1, k1, k2, p2 = (_time_ms(plain, iters), _time_ms(kern, iters),
-                      _time_ms(kern, iters), _time_ms(plain, iters))
-    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
-            "plain_ms_runs": [p1, p2],
-            "library_ms": _time_ms(lib, iters) if lib else None,
-            "device_ms": _graph_ms(kern, graph_iters),
-            "library_device_ms": (_graph_ms(lib, graph_iters) if lib
-                                  else None),
-            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def phase_table_times() -> dict:
     import torch
 
+    from repro_torch.bench.kernel_bench import bound_ms, timed
     from repro_torch.kernels.banked_transpose.ops import banked_transpose
     from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
     from repro_torch.kernels.fft_stage import (fft4096_radix4,
@@ -711,9 +660,9 @@ def phase_table_times() -> dict:
 
     n, m = TRANSPOSE_TIMING
     x = torch.randn((n, m), device="cuda", generator=gen)
-    out["banked_transpose"] = _timed(
+    out["banked_transpose"] = timed(
         lambda: banked_transpose(x), lambda: banked_transpose_ref(x),
-        lambda: x.t().contiguous(), _bound_ms(2 * n * m * 4),
+        lambda: x.t().contiguous(), bound_ms(2 * n * m * 4),
         graph_iters=20, iters=50)
     out["banked_transpose"]["shape"] = [n, m]
 
@@ -724,9 +673,9 @@ def phase_table_times() -> dict:
     # the function: each complex64 input read once, each output written
     # once; 40 flops per radix-4 butterfly column, nf/4 columns per pass
     flops = batch * passes * (nf // 4) * 40
-    out["fft_stage"] = _timed(
+    out["fft_stage"] = timed(
         lambda: fft4096_radix4(z, n=nf), lambda: fft_radix4_ref(z, n=nf),
-        lambda: torch.fft.fft(z), _bound_ms(2 * batch * nf * 8, flops),
+        lambda: torch.fft.fft(z), bound_ms(2 * batch * nf * 8, flops),
         graph_iters=20, iters=50)
     out["fft_stage"]["shape"] = [batch, nf]
     # one pass alone (the kernel's own unit): two f32 planes in and out
@@ -737,15 +686,15 @@ def phase_table_times() -> dict:
         sub = nf // 4 ** (p + 1)
         twr, twi = stage_twiddles(nf, p, xr.device)
         vr, vi = xr.reshape(-1, 4, sub), xi.reshape(-1, 4, sub)
-        per_pass[p] = _timed(
+        per_pass[p] = timed(
             lambda: fft_stage(vr, vi, twr, twi),
             lambda: fft_stage_ref(vr, vi, twr, twi), None,
-            _bound_ms(4 * batch * nf * 4 + 2 * 4 * sub * 4,
+            bound_ms(4 * batch * nf * 4 + 2 * 4 * sub * 4,
                       batch * (nf // 4) * 40), graph_iters=20, iters=50)
     out["fft_stage"]["passes"] = per_pass
     # what the six-launch design must move at least: six passes' bytes
     out["fft_stage"]["design_bound_ms"] = sum(
-        _bound_ms(4 * batch * nf * 4 + 2 * 4 * (nf // 4 ** (p + 1)) * 4)[0]
+        bound_ms(4 * batch * nf * 4 + 2 * 4 * (nf // 4 ** (p + 1)) * 4)[0]
         for p in range(passes))
     for name, r in out.items():
         us = {k: (v * 1e3 if isinstance(v, float) else v)
@@ -764,6 +713,206 @@ def phase_table_times() -> dict:
     log(f"[times] fft_stage: six passes' bytes bound the six-launch design "
         f"at {out['fft_stage']['design_bound_ms'] * 1e3:.3f} us")
     return out
+
+
+def _held(name, entry, what, kern, plain, err) -> None:
+    """One call of the kernel against its plain version on the same CUDA
+    inputs: bit-equal (integers: tolerance 0) and exactly one launch."""
+    import torch
+    before = entry.launches
+    got = kern()
+    ran = entry.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    same = all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want, strict=True))
+    e = max((g - w).abs().max().item() for g, w in zip(got, want))
+    err[name] = max(err[name], float(e))
+    log(f"[controllers] {name}, {what}: bit-equal to plain: {same}, "
+        f"launches {ran}")
+    if not same or ran != 1:
+        raise AssertionError(f"{name} at {what}: equal {same}, max |diff| "
+                             f"{e}, launches {ran}")
+
+
+def phase_controllers() -> dict:
+    """Both controller kernels against their plain versions on the card:
+    the reference tests' sweeps (tests/test_kernels.py:58-97) and the edge
+    cases (ids outside [0, B), lane counts other than 16, unaligned rows,
+    bank counts without a template, words that do not drain)."""
+    import torch
+
+    from repro_torch.core.arbiter import pack_requests
+    from repro_torch.core.conflicts import bank_onehot
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, carry_arbiter,
+                                                       carry_arbiter_plain)
+    from repro_torch.kernels.conflict_popcount.ops import (
+        POPCOUNT, conflict_popcount, conflict_popcount_plain)
+    rng = np.random.default_rng(5)
+    err = {"conflict_popcount": 0.0, "carry_arbiter": 0.0}
+
+    def cuda(a):
+        return torch.as_tensor(a, device="cuda")
+
+    flat = cuda(rng.integers(0, 16, 16 * 8 + 1).astype(np.int32))
+    pop = [(f"sweep ({n}, 16) B={b}", cuda(rng.integers(0, b, (n, 16))), b)
+           for n in (8, 256, 1024) for b in (4, 8, 16)]
+    pop += [
+        ("ids [0, 1, 17, -1, 2 x 12]",
+         cuda(np.array([[0, 1, 17, -1] + [2] * 12] * 8)), 16),
+        ("ids in [-4, 36), B=32", cuda(rng.integers(-4, 36, (256, 16))), 32),
+        ("B=12 (no template)", cuda(rng.integers(0, 12, (512, 16))), 12),
+        ("B=6 with ids in [-1, 8)", cuda(rng.integers(-1, 8, (256, 16))), 6),
+        ("(8, 12) zeros", cuda(np.zeros((8, 12), np.int32)), 16),
+        ("(8, 40): the first 16 lanes count",
+         cuda(rng.integers(0, 16, (8, 40))), 16),
+        ("rows 4 bytes off 16-byte alignment", flat[1:].view(8, 16), 16),
+    ]
+    for what, banks, b in pop:
+        _held("conflict_popcount", POPCOUNT, what,
+              lambda: conflict_popcount(banks, b),
+              lambda: conflict_popcount_plain(banks, b), err)
+
+    arb = []
+    for n, b in ((8, 16), (128, 16), (256, 8)):
+        banks = torch.as_tensor(rng.integers(0, b, (n, 16)))
+        arb.append((f"sweep ({n}, {b})", cuda(pack_requests(
+            bank_onehot(banks, b).transpose(-1, -2)))))
+    drain = cuda(np.zeros((8, 16), np.int64))
+    drain[:, 0] = 0xFFFF                      # all 16 lanes on bank 0
+    arb += [("all 16 lanes on bank 0", drain),
+            ("32-bit words (do not drain)",
+             cuda(rng.integers(0, 2 ** 32, (128, 16)))),
+            ("int32 words, 0xFFFFFFFF as -1",
+             cuda(np.full((4, 12), -1, np.int32))),
+            ("(384, 6)", cuda(rng.integers(0, 2 ** 16, (384, 6))))]
+    for what, reqs in arb:
+        _held("carry_arbiter", ARBITER, what, lambda: carry_arbiter(reqs),
+              lambda: carry_arbiter_plain(reqs), err)
+    bank0 = carry_arbiter(drain)[0, :, 0].cpu()
+    ones = ((bank0 & (bank0 - 1)) == 0) & (bank0 != 0)
+    drained = bool(ones.all()) and int(np.bitwise_or.reduce(
+        bank0.numpy())) == 0xFFFF
+    log(f"[controllers] bank 0 grants one distinct lane a cycle for 16 "
+        f"cycles: {drained}")
+    if not drained:
+        raise AssertionError("the arbiter does not drain 16 requests")
+    return {"max_abs_err": err, "cases": {"conflict_popcount": len(pop),
+                                          "carry_arbiter": len(arb)}}
+
+
+def _entries() -> dict:
+    """Every kernel's C entry (its launch count), by kernel name."""
+    from repro_torch.kernels.banked_gather.ops import GATHER
+    from repro_torch.kernels.banked_scatter.ops import SCATTER
+    from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
+    from repro_torch.kernels.carry_arbiter.ops import ARBITER
+    from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
+    from repro_torch.kernels.fft_stage.ops import STAGE
+    return {"banked_gather": GATHER, "banked_scatter": SCATTER,
+            "banked_transpose": TRANSPOSE, "fft_stage": STAGE,
+            "conflict_popcount": POPCOUNT, "carry_arbiter": ARBITER}
+
+
+#: the kernel bench's rows (``benchmarks/kernel_bench.py`` less the MoE row)
+#: and the kernel each one runs
+BENCH_ROWS = {"banked_gather_1024x512_r256": "banked_gather",
+              "conflict_popcount_4096ops": "conflict_popcount",
+              "carry_arbiter_1024ops": "carry_arbiter",
+              "fft4096_radix4_b4": "fft_stage",
+              "banked_transpose_512": "banked_transpose"}
+
+
+def phase_bench() -> dict:
+    """The kernel micro-bench through its CLI entry point on the card: five
+    rows in the reference's order, each bit-equal to its plain version
+    (err 0), each row's kernel launched."""
+    import torch
+
+    from repro_torch.bench import kernel_bench as KB
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = KB.main([])                            # prints the rows
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: e.launches for name, e in entries.items()}
+    log(f"[bench] {len(rows)} rows through the CLI on the card in "
+        f"{secs:.2f} s; launches on the path: {launches}")
+    names = [r["name"] for r in rows]
+    if names != list(BENCH_ROWS):
+        raise AssertionError(f"bench rows {names} != {list(BENCH_ROWS)}")
+    if any(r["err"] != 0 for r in rows):
+        raise AssertionError(f"bench err: {[r['err'] for r in rows]}")
+    missed = [k for k in BENCH_ROWS.values() if launches[k] == 0]
+    if missed:
+        raise AssertionError(f"the bench never launched {missed}")
+    return {"rows": rows, "launches": launches, "seconds": secs}
+
+
+POPCOUNT_TIMING = (1 << 20, 16)     # ops, banks: 138,412,032 bytes moved
+ARBITER_TIMING = (1 << 18, 16)      # ops, banks: 285,212,672 bytes moved
+
+
+def phase_controller_times() -> dict:
+    """Both controller kernels at the bench's shape and at a shape where
+    bytes, not the launch, set the time; held to the plain version first."""
+    import torch
+
+    from repro_torch.bench.kernel_bench import bound_ms, graph_ms, timed
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER,
+                                                       arbiter_words,
+                                                       carry_arbiter,
+                                                       carry_arbiter_plain)
+    from repro_torch.kernels.conflict_popcount.ops import (
+        POPCOUNT, conflict_popcount, conflict_popcount_plain)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {"conflict_popcount": {}, "carry_arbiter": {}}
+    err = {"conflict_popcount": 0.0, "carry_arbiter": 0.0}
+    for n in (4096, POPCOUNT_TIMING[0]):
+        b = POPCOUNT_TIMING[1]
+        banks = torch.randint(0, b, (n, 16), device="cuda", generator=gen,
+                              dtype=torch.int32)
+        _held("conflict_popcount", POPCOUNT, f"({n}, 16) B={b}",
+              lambda: conflict_popcount(banks, b),
+              lambda: conflict_popcount_plain(banks, b), err)
+        # (n, 16) int32 ids in; (n, b) counts and n cycles out
+        out["conflict_popcount"][n] = timed(
+            lambda: conflict_popcount(banks, b),
+            lambda: conflict_popcount_plain(banks, b), None,
+            bound_ms(n * 16 * 4 + n * b * 4 + n * 4), graph_iters=20,
+            iters=50)
+    for n in (1024, ARBITER_TIMING[0]):
+        b = ARBITER_TIMING[1]
+        reqs = torch.randint(0, 2 ** 16, (n, b), device="cuda", generator=gen)
+        words = reqs.to(torch.int32)
+        _held("carry_arbiter", ARBITER, f"({n}, {b})",
+              lambda: carry_arbiter(reqs),
+              lambda: carry_arbiter_plain(reqs), err)
+        # the function on 32-bit words: (n, b) in, (n, 16, b) out
+        r = timed(lambda: carry_arbiter(reqs),
+                  lambda: carry_arbiter_plain(reqs), None,
+                  bound_ms(n * b * 4 + n * 16 * b * 4), graph_iters=20,
+                  iters=50)
+        # the kernel alone on 32-bit words, without the wrapper's int64
+        # conversions at its boundary
+        r["kernel_device_ms"] = graph_ms(lambda: arbiter_words(words), 20)
+        out["carry_arbiter"][n] = r
+    for name, shapes in out.items():
+        for n, r in shapes.items():
+            us = {k: (v * 1e3 if isinstance(v, float) else v)
+                  for k, v in r.items() if k.endswith("ms")}
+            alone = (f", the kernel alone {us['kernel_device_ms']:.3f} us"
+                     if "kernel_device_ms" in us else "")
+            log(f"[times] {name} at {n} ops: per call from Python: kernel "
+                f"{us['ms']:.2f} us, plain {us['plain_ms']:.2f} us; device "
+                f"time in a CUDA graph: kernel {us['device_ms']:.3f} us"
+                f"{alone}; bound {us['bound_ms']:.3f} us ({r['bound_by']}); "
+                f"library: none")
+    return {"shapes": out, "max_abs_err": err}
 
 
 def phase_profile(engine) -> dict:
@@ -825,8 +974,11 @@ def main() -> int:
     record["tables"] = phase_tables()
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
+    record["controllers"] = phase_controllers()
+    record["bench"] = phase_bench()
     record["times"] = phase_times(engine)
     record["table_times"] = phase_table_times()
+    record["controller_times"] = phase_controller_times()
     record["profile"] = phase_profile(engine)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -842,7 +994,10 @@ def main() -> int:
         "banked_scatter": "src/repro/kernels/banked_scatter/kernel.py:66",
         "banked_transpose":
             "src/repro/kernels/banked_transpose/kernel.py:31",
-        "fft_stage": "src/repro/kernels/fft_stage/kernel.py:54"}
+        "fft_stage": "src/repro/kernels/fft_stage/kernel.py:54",
+        "conflict_popcount":
+            "src/repro/kernels/conflict_popcount/kernel.py:43",
+        "carry_arbiter": "src/repro/kernels/carry_arbiter/kernel.py:41"}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/banked_rows.cu",
                 "replaces": replaces[name],
@@ -865,6 +1020,26 @@ def main() -> int:
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]}
                 for name, t in record["table_times"].items()]
+    # the controllers: launches of the bench path, times at the shape where
+    # bytes set the time
+    bench_err = {BENCH_ROWS[r["name"]]: r["err"]
+                 for r in record["bench"]["rows"]}
+    big = {"conflict_popcount": POPCOUNT_TIMING[0],
+           "carry_arbiter": ARBITER_TIMING[0]}
+    for name, shapes in record["controller_times"]["shapes"].items():
+        t = shapes[big[name]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/controllers.cu",
+            "replaces": replaces[name],
+            "launches": record["bench"]["launches"][name],
+            "max_abs_err": max(
+                record["controllers"]["max_abs_err"][name],
+                record["controller_times"]["max_abs_err"][name],
+                bench_err[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -10,11 +10,15 @@ Kernels (ported slices):
   banked_scatter — bank-major row scatter, in place (paged-KV write path)
   banked_transpose — shared-memory tiled transpose (Table II data path)
   fft_stage      — radix-4 DIF FFT pass (Table III data path)
+  conflict_popcount — issue-controller conflict counting (one-hot popcount
+                   + max) over operation batches
+  carry_arbiter  — the carry-chain arbiter's grant schedule
 """
 from repro_torch.kernels import registry
-from repro_torch.kernels.registry import Kernel, register
+from repro_torch.kernels.registry import Kernel, register, register_kernel
 
 get = registry.get
 names = registry.names
 
-__all__ = ["registry", "Kernel", "register", "get", "names"]
+__all__ = ["registry", "Kernel", "register", "register_kernel", "get",
+           "names"]

@@ -10,7 +10,16 @@ whose first argument is a ``MemoryArchitecture`` (or a name
   * ``ref(arch, *args)``   — the logical-table oracle;
   * ``trace(arch, *args)`` — the call's exact ``AddressTrace``;
   * ``blocks(arch, *args, block_ops=…)`` — the same request stream as
-    ``TraceStream`` source blocks, built in O(block) memory.
+    ``TraceStream`` source blocks, built in O(block) memory;
+  * ``cost(arch, *args)`` — an opaque cycle count, for a kernel with no
+    trace; ``cost_cycles`` prices the trace when there is one.
+
+New kernels are one decorator away::
+
+    @register_kernel("my_kernel", ref=my_ref, trace=my_trace,
+                     blocks=my_trace_blocks)
+    def my_cuda(arch, x):
+        ...
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ class Kernel:
     ref: Callable
     trace: Callable | None = None
     blocks: Callable | None = None
+    cost: Callable | None = None
     description: str = ""
 
     def run(self, arch, *args, **kwargs):
@@ -61,18 +71,45 @@ class Kernel:
         t = self.address_trace(a, *args, **kwargs)
         return TraceStream(functools.partial(t.blocks, block_ops), meta=meta)
 
+    def cost_cycles(self, arch, *args, device="cuda", **kwargs):
+        """Cycles this operation costs under ``arch``'s timing model
+        (= ``arch.cost(self.trace(arch, *args)).total_cycles``, priced on
+        ``device``); a kernel without a trace answers with its ``cost``."""
+        a = _arch.resolve(arch)
+        if self.trace is not None:
+            return a.cost(self.trace(a, *args, **kwargs),
+                          device=device).total_cycles
+        if self.cost is not None:
+            return self.cost(a, *args, **kwargs)
+        raise NotImplementedError(
+            f"kernel {self.name!r} has no cost model")
+
 
 _KERNELS: dict[str, Kernel] = {}
 
 #: kernel packages that self-register on import (those of the ported
 #: slices; the reference has seven)
-_BUILTIN_PACKAGES = ("banked_gather", "banked_scatter",
-                     "banked_transpose", "fft_stage")
+_BUILTIN_PACKAGES = ("banked_gather", "banked_scatter", "banked_transpose",
+                     "carry_arbiter", "conflict_popcount", "fft_stage")
 
 
 def register(kernel: Kernel) -> Kernel:
     _KERNELS[kernel.name] = kernel
     return kernel
+
+
+def register_kernel(name: str, *, ref: Callable,
+                    trace: Callable | None = None,
+                    blocks: Callable | None = None,
+                    cost: Callable | None = None,
+                    description: str = "") -> Callable:
+    """Decorator form: registers the decorated function as the kernel
+    entry point of a new Kernel and returns the Kernel."""
+    def deco(cuda: Callable) -> Kernel:
+        return register(Kernel(name=name, cuda=cuda, ref=ref, trace=trace,
+                               blocks=blocks, cost=cost,
+                               description=description))
+    return deco
 
 
 def _ensure_builtins() -> None:
@@ -97,7 +134,7 @@ def names() -> tuple[str, ...]:
     return tuple(sorted(_KERNELS))
 
 
-def _host(idx):
+def host_array(idx):
     """Trace construction is host work: index tensors come to numpy here."""
     import torch
     return idx.cpu().numpy() if isinstance(idx, torch.Tensor) else idx
@@ -109,7 +146,7 @@ def row_stream_trace(idx, kind: str = "load", mask=None):
     address stream); ``mask`` predicates lanes off (e.g. unmapped paged-KV
     pages)."""
     from repro_torch.core.trace import AddressTrace
-    return AddressTrace.from_stream(_host(idx), kind=kind, mask=mask)
+    return AddressTrace.from_stream(host_array(idx), kind=kind, mask=mask)
 
 
 def row_stream_blocks(idx, kind: str = "load", mask=None,
@@ -118,4 +155,12 @@ def row_stream_blocks(idx, kind: str = "load", mask=None,
     as at-most-``block_ops``-op blocks (continuation chunks
     ``instr_carry``-marked, so the overhead is charged once)."""
     from repro_torch.core.trace import iter_op_chunks
-    return iter_op_chunks(_host(idx), kind, mask=mask, block_ops=block_ops)
+    return iter_op_chunks(host_array(idx), kind, mask=mask,
+                          block_ops=block_ops)
+
+
+def row_stream_cost(arch, idx, is_write: bool, device="cuda") -> int:
+    """Cost a row-index request stream under ``arch``, priced on ``device``
+    (= ``arch.cost(row_stream_trace(idx, ...)).total_cycles``)."""
+    kind = "store" if is_write else "load"
+    return arch.cost(row_stream_trace(idx, kind), device=device).total_cycles

@@ -1,10 +1,11 @@
 """The port on the CUDA card: the hand-written kernels against their plain
 PyTorch versions (the row kernels and the transpose bit-equal: they copy
-bytes; the FFT pass within rtol = atol = 1e-5 per pass and 2e-3·max|X| per
-transform, the reference's tolerances), and the serving path, the paper
-tables and the cost engine on the card against the same code on the host.  Every
-test here needs a card and skips without one; the file imports no JAX, so
-it runs where only the port is installed:
+bytes; the controller kernels bit-equal: integers; the FFT pass within
+rtol = atol = 1e-5 per pass and 2e-3·max|X| per transform, the reference's
+tolerances), one launch a call, and the serving path, the paper tables,
+the kernel micro-bench and the cost engine on the card against the same
+code on the host.  Every test here needs a card and skips without one; the
+file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -219,3 +220,94 @@ def test_paper_tables_on_the_card_match_the_host(cuda):
     assert [totals[k] for k in ("transpose32_16B", "transpose64_16B",
                                 "transpose128_16B", "fft4096r4_16B")] == [
         1613, 5791, 26087, 64216]
+
+
+# ------------------------------------------------ the controller kernels --
+
+POPCOUNT_CASES = {
+    "sweep_8_b4": ((8, 16), 0, 4, 4), "sweep_256_b8": ((256, 16), 0, 8, 8),
+    "sweep_1024_b16": ((1024, 16), 0, 16, 16),
+    "ids_out_of_range_b32": ((256, 16), -4, 36, 32),
+    "b12": ((512, 16), 0, 12, 12), "b6": ((256, 16), -1, 8, 6),
+    "lanes12": ((8, 12), 0, 16, 16), "lanes40": ((8, 40), 0, 16, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(POPCOUNT_CASES))
+def test_popcount_kernel_bit_equal_to_plain(cuda, case):
+    from repro_torch.kernels.conflict_popcount.ops import (
+        POPCOUNT, conflict_popcount, conflict_popcount_plain)
+    shape, lo, hi, n_banks = POPCOUNT_CASES[case]
+    banks = torch.as_tensor(np.random.default_rng(0).integers(lo, hi, shape),
+                            device=cuda)
+    before = POPCOUNT.launches
+    got = conflict_popcount(banks, n_banks)
+    assert POPCOUNT.launches == before + 1
+    want = conflict_popcount_plain(banks, n_banks)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype == torch.int32
+        assert torch.equal(g, w)
+
+
+def test_popcount_kernel_reads_unaligned_rows(cuda):
+    from repro_torch.kernels.conflict_popcount.ops import (
+        conflict_popcount, conflict_popcount_plain)
+    flat = torch.randint(0, 16, (16 * 8 + 1,), dtype=torch.int32,
+                         device=cuda)
+    banks = flat[1:].view(8, 16)               # rows 4 bytes off 16-byte
+    for g, w in zip(conflict_popcount(banks), conflict_popcount_plain(banks)):
+        assert torch.equal(g, w)
+
+
+ARBITER_CASES = {
+    "sweep_8_16": ((8, 16), 2 ** 16), "sweep_128_16": ((128, 16), 2 ** 16),
+    "sweep_256_8": ((256, 8), 2 ** 16), "words_32bit": ((128, 16), 2 ** 32),
+    "ops384_b6": ((384, 6), 2 ** 16),
+}
+
+
+@pytest.mark.parametrize("case", list(ARBITER_CASES))
+def test_arbiter_kernel_bit_equal_to_plain(cuda, case):
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER,
+                                                       carry_arbiter,
+                                                       carry_arbiter_plain)
+    shape, hi = ARBITER_CASES[case]
+    reqs = torch.as_tensor(np.random.default_rng(1).integers(0, hi, shape),
+                           device=cuda)
+    before = ARBITER.launches
+    got = carry_arbiter(reqs)
+    assert ARBITER.launches == before + 1
+    want = carry_arbiter_plain(reqs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_arbiter_kernel_drains_and_takes_int32_words(cuda):
+    from repro_torch.kernels.carry_arbiter.ops import carry_arbiter
+    drain = torch.zeros((8, 16), dtype=torch.int64, device=cuda)
+    drain[:, 0] = 0xFFFF
+    assert carry_arbiter(drain)[0, :, 0].tolist() == [1 << c
+                                                       for c in range(16)]
+    full = torch.full((4, 12), -1, dtype=torch.int32, device=cuda)
+    assert carry_arbiter(full)[3, :, 11].tolist() == [1 << c
+                                                      for c in range(16)]
+
+
+def test_kernel_bench_cli_on_the_card(cuda):
+    """``python -m repro_torch.bench.kernel_bench`` on the card: the five
+    rows, each bit-equal to its plain version, each row's kernel
+    launched."""
+    from repro_torch.bench import kernel_bench as KB
+    from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
+    from repro_torch.kernels.carry_arbiter.ops import ARBITER
+    from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
+    from repro_torch.kernels.fft_stage.ops import STAGE
+    entries = (GATHER, POPCOUNT, ARBITER, STAGE, TRANSPOSE)
+    before = [e.launches for e in entries]
+    rows = KB.main([])
+    assert [r["name"] for r in rows] == [
+        "banked_gather_1024x512_r256", "conflict_popcount_4096ops",
+        "carry_arbiter_1024ops", "fft4096_radix4_b4", "banked_transpose_512"]
+    assert all(r["err"] == 0 and r["device_us"] > 0 for r in rows)
+    assert all(e.launches > b for e, b in zip(entries, before))

@@ -1,7 +1,8 @@
 """repro_torch stands alone: no module of the port (nor chip_smoke.py)
 imports JAX, the reference package ``repro`` or the reference's
-``benchmarks``, and a CPU smoke generation (through the serving CLI) and
-the Table II CLI run with all three blocked from import."""
+``benchmarks``, and a CPU smoke generation (through the serving CLI), the
+Table II CLI and the kernel micro-bench CLI run with all three blocked
+from import."""
 import ast
 import os
 import subprocess
@@ -61,6 +62,34 @@ def test_table2_cli_runs_with_the_reference_blocked():
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("transp")]
     assert len(lines) == 24
     assert "transpose128_16B,33.835,total=26087|" in out.stdout
+
+
+def test_kernel_bench_cli_runs_with_the_reference_blocked():
+    """``python -m repro_torch.bench.kernel_bench --device cpu``, run as
+    ``-m`` runs it, with JAX, ``repro`` and ``benchmarks`` blocked: its rows
+    are the reference bench's (``benchmarks/kernel_bench.py``) less the MoE
+    row, in the reference's order."""
+    out = _run_blocked(
+        "import runpy\n"
+        "sys.argv = ['kernel_bench', '--device', 'cpu']\n"
+        "runpy.run_module('repro_torch.bench.kernel_bench',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    rows = [ln.split(",") for ln in out.stdout.splitlines() if "," in ln]
+    # the reference's row names: each ``out.append((name, ...))`` of its
+    # ``rows()``, read from the source (the file imports JAX)
+    tree = ast.parse((SRC.parent / "benchmarks" / "kernel_bench.py")
+                     .read_text())
+    reference = [node.args[0].elts[0].value for node in ast.walk(tree)
+                 if isinstance(node, ast.Call)
+                 and isinstance(node.func, ast.Attribute)
+                 and node.func.attr == "append"
+                 and isinstance(node.args[0], ast.Tuple)]
+    assert "moe_dispatch_8192req_e16" in reference and len(reference) == 6
+    assert [r[0] for r in rows] == [n for n in reference
+                                    if not n.startswith("moe_dispatch")]
+    assert all("|err=0.0|" in r[2] for r in rows)
 
 
 def test_cpu_serving_runs_with_jax_and_repro_blocked():
