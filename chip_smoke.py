@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card: the quickest proof that the port builds, serves and reproduces
-the paper's Tables II and III and runs the kernel micro-bench on the
-GPU.
+the paper's Tables II and III, dispatches MoE requests and runs the kernel
+micro-bench on the GPU.
 
     python3 chip_smoke.py
 
@@ -58,17 +58,28 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                counts and rows off 16-byte alignment; the arbiter at (8, 16),
                (128, 16), (256, 8) and (384, 6), the bank-0 drain, 32-bit
                words that do not drain and int32 words;
-  8. bench   — the kernel micro-bench through its CLI entry point
+  8. dispatch — ``moe_dispatch_positions`` against its plain version,
+               bit-equal, with each call's launches counted (one of each of
+               its three entries a pass of up to 1024 experts): the CPU
+               tests' cases (the reference tests' sweep, the block
+               boundary, R = 300, E = 1, 256, 3000 and 0, ids outside
+               [0, E), capacity 0 and above R) and 2^24 requests at E = 16
+               and E = 128;
+  9. bench   — the kernel micro-bench through its CLI entry point
                (``repro_torch.bench.kernel_bench.main``) on the card: the
-               five rows in the reference's order, each with err 0, each
+               six rows in the reference's order, each with err 0, each
                row's kernel launched;
-  9. times   — the row kernels at the serving shapes, the transpose (8192 x
+ 10. times   — the row kernels at the serving shapes, the transpose (8192 x
                8192 f32) and the FFT (1024 transforms of 4096 points, and its
                first and last pass alone) beside their byte bounds, plain
                versions and library calls; the popcount at 4096 and 2^20 ops
                and the arbiter at 1024 and 2^18 ops (B = 16) beside their
                bounds and plain versions (no library call computes either);
- 10. profile — ``torch.profiler`` over a short generation: device busy
+ 11. dispatch_times — the dispatch kernel at the bench's shape (8192
+               requests, E = 16) and at 2^24 requests (E = 16) beside its
+               byte bound and plain version (no library call computes it),
+               and the device time of each of its three launches;
+ 12. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -97,7 +108,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers")
+LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
+             "moe_dispatch")
 
 
 def phase_build() -> dict:
@@ -803,29 +815,33 @@ def phase_controllers() -> dict:
 
 
 def _entries() -> dict:
-    """Every kernel's C entry (its launch count), by kernel name."""
+    """Every kernel's C entry (its launch count), by kernel name; the
+    dispatch's is the sum over its three entries."""
     from repro_torch.kernels.banked_gather.ops import GATHER
     from repro_torch.kernels.banked_scatter.ops import SCATTER
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
     from repro_torch.kernels.carry_arbiter.ops import ARBITER
     from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
     from repro_torch.kernels.fft_stage.ops import STAGE
+    from repro_torch.kernels.moe_dispatch.ops import DISPATCH
     return {"banked_gather": GATHER, "banked_scatter": SCATTER,
             "banked_transpose": TRANSPOSE, "fft_stage": STAGE,
-            "conflict_popcount": POPCOUNT, "carry_arbiter": ARBITER}
+            "conflict_popcount": POPCOUNT, "carry_arbiter": ARBITER,
+            "moe_dispatch": DISPATCH}
 
 
-#: the kernel bench's rows (``benchmarks/kernel_bench.py`` less the MoE row)
-#: and the kernel each one runs
+#: the kernel bench's rows (``benchmarks/kernel_bench.py``'s six) and the
+#: kernel each one runs
 BENCH_ROWS = {"banked_gather_1024x512_r256": "banked_gather",
               "conflict_popcount_4096ops": "conflict_popcount",
               "carry_arbiter_1024ops": "carry_arbiter",
+              "moe_dispatch_8192req_e16": "moe_dispatch",
               "fft4096_radix4_b4": "fft_stage",
               "banked_transpose_512": "banked_transpose"}
 
 
 def phase_bench() -> dict:
-    """The kernel micro-bench through its CLI entry point on the card: five
+    """The kernel micro-bench through its CLI entry point on the card: six
     rows in the reference's order, each bit-equal to its plain version
     (err 0), each row's kernel launched."""
     import torch
@@ -915,6 +931,134 @@ def phase_controller_times() -> dict:
     return {"shapes": out, "max_abs_err": err}
 
 
+DISPATCH_BIG = 1 << 24               # requests: 150,994,944 bytes moved
+
+
+def _held_dispatch(what, experts, n_experts, capacity, err, tag) -> None:
+    """One dispatch call against its plain version on the same CUDA ids:
+    ``pos`` and ``kept`` bit-equal (integers: tolerance 0), and one launch
+    of each of the three entries a pass of up to 1024 experts (the rank
+    launch alone with no experts)."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch.ops import (EXPERT_CHUNK, HIST,
+                                                      RANK, SCAN,
+                                                      moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    entries = (HIST, SCAN, RANK)
+    before = [e.launches for e in entries]
+    got = moe_dispatch_positions(experts, n_experts, capacity)
+    ran = [e.launches - b for e, b in zip(entries, before)]
+    want = moe_dispatch_plain(experts, n_experts, capacity)
+    torch.cuda.synchronize()
+    same = all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want, strict=True))
+    e = max((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
+            for g, w in zip(got, want))
+    err["moe_dispatch"] = max(err["moe_dispatch"], float(e))
+    passes = -(-n_experts // EXPERT_CHUNK)
+    expect = [passes, passes, max(passes, 1)]
+    log(f"[{tag}] moe_dispatch, {what}: bit-equal to plain: {same}, "
+        f"launches (hist, scan, rank) {ran}")
+    if not same or ran != expect:
+        raise AssertionError(f"moe_dispatch at {what}: equal {same}, max "
+                             f"|diff| {e}, launches {ran} != {expect}")
+
+
+def phase_dispatch() -> dict:
+    """The dispatch kernel against its plain version on the card: the CPU
+    tests' cases (tests/test_torch_dispatch.py: the reference tests' sweep
+    and block boundary, the edge cases, several passes of experts) and
+    2^24 requests at E = 16 and E = 128; every call's launches counted."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    err = {"moe_dispatch": 0.0}
+
+    def ids(lo, hi, r):
+        return torch.as_tensor(rng.integers(lo, hi, r).astype(np.int32),
+                               device="cuda")
+    cases = [(f"sweep R={r} E={e} cap={c}", ids(0, e, r), e, c)
+             for r, e, c in ((512, 16, 40), (1024, 8, 100), (2048, 16, 16))]
+    cases += [
+        ("1536 zeros, E=4, cap=1000 (three 512-blocks)",
+         torch.zeros(1536, dtype=torch.int32, device="cuda"), 4, 1000),
+        ("R=300, E=16, cap=20", ids(0, 16, 300), 16, 20),
+        ("E=1, int64 ids", ids(0, 1, 1024).long(), 1, 700),
+        ("E=256, cap=10", ids(0, 256, 2048), 256, 10),
+        ("ids in [-4, 20), E=16", ids(-4, 20, 512), 16, 5),
+        ("capacity 0", ids(0, 8, 512), 8, 0),
+        ("capacity 5000 > R", ids(0, 8, 1024), 8, 5000),
+        ("capacity int32 min", ids(0, 8, 64), 8, -2 ** 31),
+        ("capacity int32 max", ids(0, 8, 64), 8, 2 ** 31 - 1),
+        ("E=0: every id out of range", ids(-2, 3, 100), 0, 1),
+        ("E=3000: three passes of experts, ids in [-3, 3003)",
+         ids(-3, 3003, 8192), 3000, 3),
+        ("R=2^24, E=16, cap=2^20", ids(0, 16, DISPATCH_BIG), 16, 1 << 20),
+        ("R=2^24, E=128, cap=2^17", ids(0, 128, DISPATCH_BIG), 128,
+         1 << 17),
+    ]
+    for what, experts, e, cap in cases:
+        _held_dispatch(what, experts, e, cap, err, "dispatch")
+    n_cases = len(cases)
+    cases.clear()                     # the 2^24 inputs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "cases": n_cases}
+
+
+def phase_dispatch_times() -> dict:
+    """The dispatch kernel at the bench's shape and at 2^24 requests (E =
+    16), held to its plain version first: per call, device time in a CUDA
+    graph, each launch's device time (torch.profiler) and the byte bound
+    (4 bytes read, 4 + 1 written a request)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench.kernel_bench import bound_ms, timed
+    from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out, err = {}, {"moe_dispatch": 0.0}
+    for r, cap in ((8192, 1024), (DISPATCH_BIG, 1 << 20)):
+        experts = torch.randint(0, 16, (r,), device="cuda", generator=gen,
+                                dtype=torch.int32)
+        _held_dispatch(f"R={r}, E=16, cap={cap}", experts, 16, cap, err,
+                       "times")
+
+        def call(experts=experts, cap=cap):
+            return moe_dispatch_positions(experts, 16, cap)
+        t = timed(call, lambda experts=experts, cap=cap: moe_dispatch_plain(
+                      experts, 16, cap), None,
+                  bound_ms(r * (4 + 4 + 1)), graph_iters=20, iters=50)
+        # where the device time goes: each of the three launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        t["launch_device_ms"] = {
+            name: ev.self_device_time_total / ev.count / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            for name in ("dispatch_hist", "dispatch_scan", "dispatch_rank")
+            if name in ev.key and ev.count}
+        out[r] = t
+        us = {k: v * 1e3 for k, v in t.items()
+              if k.endswith("ms") and isinstance(v, float)}
+        split = ", ".join(f"{k} {v * 1e3:.3f} us"
+                          for k, v in t["launch_device_ms"].items())
+        log(f"[times] moe_dispatch at {r} requests, E=16: per call from "
+            f"Python: kernel {us['ms']:.2f} us, plain {us['plain_ms']:.2f} "
+            f"us; device time in a CUDA graph: kernel {us['device_ms']:.3f} "
+            f"us (3 launches); per launch (torch.profiler, 5 calls): "
+            f"{split}; bound {us['bound_ms']:.3f} us ({t['bound_by']}); "
+            f"library: none")
+        if len(t["launch_device_ms"]) != 3:
+            raise AssertionError(f"the profiler saw {t['launch_device_ms']}"
+                                 f", not the three dispatch launches")
+    return {"shapes": out, "max_abs_err": err}
+
+
 def phase_profile(engine) -> dict:
     """Where a decode step's time goes: ``torch.profiler`` over a short
     generation (3 decode steps) at the serving point."""
@@ -975,10 +1119,12 @@ def main() -> int:
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
     record["controllers"] = phase_controllers()
+    record["dispatch"] = phase_dispatch()
     record["bench"] = phase_bench()
     record["times"] = phase_times(engine)
     record["table_times"] = phase_table_times()
     record["controller_times"] = phase_controller_times()
+    record["dispatch_times"] = phase_dispatch_times()
     record["profile"] = phase_profile(engine)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -997,7 +1143,8 @@ def main() -> int:
         "fft_stage": "src/repro/kernels/fft_stage/kernel.py:54",
         "conflict_popcount":
             "src/repro/kernels/conflict_popcount/kernel.py:43",
-        "carry_arbiter": "src/repro/kernels/carry_arbiter/kernel.py:41"}
+        "carry_arbiter": "src/repro/kernels/carry_arbiter/kernel.py:41",
+        "moe_dispatch": "src/repro/kernels/moe_dispatch/kernel.py:59"}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/banked_rows.cu",
                 "replaces": replaces[name],
@@ -1040,6 +1187,19 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # the dispatch: launches of the bench path, times at 2^24 requests
+    t = record["dispatch_times"]["shapes"][DISPATCH_BIG]
+    kernels.append({
+        "name": "moe_dispatch", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_dispatch.cu",
+        "replaces": replaces["moe_dispatch"],
+        "launches": record["bench"]["launches"]["moe_dispatch"],
+        "max_abs_err": max(record["dispatch"]["max_abs_err"]["moe_dispatch"],
+                           record["dispatch_times"]["max_abs_err"][
+                               "moe_dispatch"],
+                           bench_err["moe_dispatch"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -4,11 +4,10 @@
     python -m repro_torch.bench.kernel_bench [--device cuda|cpu]
 
 Each row runs one ported kernel through its wrapper at the reference's
-shape (``benchmarks/kernel_bench.py:29-57``, in its order):
+shape (``benchmarks/kernel_bench.py:29-57``, its six rows in its order):
 ``banked_gather_1024x512_r256``, ``conflict_popcount_4096ops``,
-``carry_arbiter_1024ops``, ``fft4096_radix4_b4``, ``banked_transpose_512``.
-The reference's ``moe_dispatch_8192req_e16`` row waits for the MoE slice,
-which ports that kernel.
+``carry_arbiter_1024ops``, ``moe_dispatch_8192req_e16``,
+``fft4096_radix4_b4``, ``banked_transpose_512``.
 
 CSV: ``name,us_per_call,derived``, as the reference prints it.  On the card
 ``us_per_call`` is CUDA events over back-to-back calls from Python, ending
@@ -124,6 +123,8 @@ def cases(device) -> list[tuple]:
     from repro_torch.kernels.conflict_popcount.ops import (
         conflict_popcount, conflict_popcount_plain)
     from repro_torch.kernels.fft_stage import fft4096_radix4, fft_radix4_ref
+    from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
+                                                      moe_dispatch_positions)
 
     rng = np.random.default_rng(0)
 
@@ -138,6 +139,7 @@ def cases(device) -> list[tuple]:
     x = put((rng.standard_normal((4, 4096)) + 1j * rng.standard_normal(
         (4, 4096))).astype(np.complex64))
     m = put(rng.standard_normal((512, 512), np.float32))
+    experts = put(rng.integers(0, 16, 8192).astype(np.int32))
     return [
         # 256 rows of 512 f32 read and written, 256 int64 indices
         ("banked_gather_1024x512_r256", banked_gather, banked_gather_plain,
@@ -149,6 +151,9 @@ def cases(device) -> list[tuple]:
         # the function on 32-bit words: (1024, 16) in, (1024, 16, 16) out
         ("carry_arbiter_1024ops", carry_arbiter, carry_arbiter_plain,
          (reqs,), 1024 * 16 * 4 + 1024 * 16 * 16 * 4),
+        # 8192 int32 ids in; 8192 int32 positions and 8192 bool kept out
+        ("moe_dispatch_8192req_e16", moe_dispatch_positions,
+         moe_dispatch_plain, (experts, 16, 1024), 8192 * (4 + 4 + 1)),
         # 4 × 4096 complex64 in and out
         ("fft4096_radix4_b4", fft4096_radix4, fft_radix4_ref, (x,),
          2 * 4 * 4096 * 8),

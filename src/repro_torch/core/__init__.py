@@ -7,11 +7,16 @@ from repro_torch.core.arch import (PAPER_ARCHITECTURES,
                                    BankedMemory, MemoryArchitecture,
                                    MultiPortMemory)
 from repro_torch.core.cost_engine import cost_many, lower_archs
+from repro_torch.core.dispatch import (DispatchPlan, banked_dispatch,
+                                       gather_from_banks, scatter_to_banks,
+                                       serialization_factor)
 from repro_torch.core.memsim import LANES, PAPER_MEMORIES, MemSpec, TraceCost
 from repro_torch.core.trace import AddressTrace, TraceStream
 
 __all__ = ["arch", "cost_engine", "PAPER_ARCHITECTURES",
            "TRANSPOSE_ARCHITECTURES", "BankedLayout",
            "BankedMemory", "MemoryArchitecture", "MultiPortMemory",
-           "cost_many", "lower_archs", "LANES", "PAPER_MEMORIES", "MemSpec",
+           "cost_many", "lower_archs", "DispatchPlan", "banked_dispatch",
+           "gather_from_banks", "scatter_to_banks", "serialization_factor",
+           "LANES", "PAPER_MEMORIES", "MemSpec",
            "TraceCost", "AddressTrace", "TraceStream"]

@@ -13,6 +13,8 @@ Kernels (ported slices):
   conflict_popcount — issue-controller conflict counting (one-hot popcount
                    + max) over operation batches
   carry_arbiter  — the carry-chain arbiter's grant schedule
+  moe_dispatch   — each request's position within its expert (the
+                   arbiter's grant order over a flat request stream)
 """
 from repro_torch.kernels import registry
 from repro_torch.kernels.registry import Kernel, register, register_kernel

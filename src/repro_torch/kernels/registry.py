@@ -87,10 +87,10 @@ class Kernel:
 
 _KERNELS: dict[str, Kernel] = {}
 
-#: kernel packages that self-register on import (those of the ported
-#: slices; the reference has seven)
+#: kernel packages that self-register on import (the reference's seven)
 _BUILTIN_PACKAGES = ("banked_gather", "banked_scatter", "banked_transpose",
-                     "carry_arbiter", "conflict_popcount", "fft_stage")
+                     "carry_arbiter", "conflict_popcount", "fft_stage",
+                     "moe_dispatch")
 
 
 def register(kernel: Kernel) -> Kernel:

@@ -376,12 +376,14 @@ def test_bench_rows_equal_the_reference_kernels():
     from repro.kernels.banked_gather.ops import to_banked_layout
     from repro.kernels.banked_transpose.ops import banked_transpose as r_tr
     from repro.kernels.fft_stage.ops import fft4096_radix4 as r_fft
+    from repro.kernels.moe_dispatch.ops import moe_dispatch_positions as r_moe
     from repro_torch.bench import kernel_bench as KB
     from repro_torch.core.arch import BankedLayout
     cases = KB.cases("cpu")
     assert [c[0] for c in cases] == [
         "banked_gather_1024x512_r256", "conflict_popcount_4096ops",
-        "carry_arbiter_1024ops", "fft4096_radix4_b4", "banked_transpose_512"]
+        "carry_arbiter_1024ops", "moe_dispatch_8192req_e16",
+        "fft4096_radix4_b4", "banked_transpose_512"]
     got = {name: kern(*args) for name, kern, _, args, _ in cases}
     inputs = {name: args for name, _, _, args, _ in cases}
     table, idx, n_banks = inputs["banked_gather_1024x512_r256"]
@@ -399,6 +401,11 @@ def test_bench_rows_equal_the_reference_kernels():
         got["carry_arbiter_1024ops"].numpy(),
         np.asarray(r_arbiter(jnp.asarray(reqs.numpy().astype(np.uint32))))
         .astype(np.int64))
+    experts, n_experts, capacity = inputs["moe_dispatch_8192req_e16"]
+    for g, w in zip(got["moe_dispatch_8192req_e16"],
+                    r_moe(jnp.asarray(experts.numpy()), n_experts, capacity),
+                    strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     (x,) = inputs["fft4096_radix4_b4"]
     want = np.asarray(r_fft(jnp.asarray(x.numpy())))
     assert np.abs(got["fft4096_radix4_b4"].numpy() - want).max() <= \

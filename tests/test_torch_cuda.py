@@ -1,11 +1,13 @@
 """The port on the CUDA card: the hand-written kernels against their plain
 PyTorch versions (the row kernels and the transpose bit-equal: they copy
-bytes; the controller kernels bit-equal: integers; the FFT pass within
-rtol = atol = 1e-5 per pass and 2e-3·max|X| per transform, the reference's
-tolerances), one launch a call, and the serving path, the paper tables,
-the kernel micro-bench and the cost engine on the card against the same
-code on the host.  Every test here needs a card and skips without one; the
-file imports no JAX, so it runs where only the port is installed:
+bytes; the controller and dispatch kernels bit-equal: integers; the FFT
+pass within rtol = atol = 1e-5 per pass and 2e-3·max|X| per transform, the
+reference's tolerances), one launch a call (for the dispatch, one launch
+of each of its three entries a pass of experts), and the serving path, the
+paper tables, the kernel micro-bench and the cost engine on the card
+against the same code on the host.  Every test here needs a card and
+skips without one; the file imports no JAX, so it runs where only the port
+is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -294,8 +296,75 @@ def test_arbiter_kernel_drains_and_takes_int32_words(cuda):
                                                       for c in range(16)]
 
 
+# -------------------------------------------------- the dispatch kernel --
+
+DISPATCH_CASES = {
+    # (R, ids in [lo, hi), n_experts, capacity)
+    "sweep_512_e16": (512, 0, 16, 16, 40),
+    "sweep_1024_e8": (1024, 0, 8, 8, 100),
+    "sweep_2048_e16": (2048, 0, 16, 16, 16),
+    "block_boundary": (1536, 0, 1, 4, 1000),
+    "r300": (300, 0, 16, 16, 20),
+    "one_expert": (1024, 0, 1, 1, 700),
+    "e256": (2048, 0, 256, 256, 10),
+    "out_of_range": (512, -4, 20, 16, 5),
+    "capacity_0": (512, 0, 8, 8, 0),
+    "capacity_above_r": (1024, 0, 8, 8, 5000),
+    "no_experts": (100, -2, 3, 0, 1),
+    # three passes of up to 1024 experts, the last one ragged
+    "e3000": (8192, -3, 3003, 3000, 3),
+    "r2_20_e128": (1 << 20, 0, 128, 128, 1 << 13),
+}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_dispatch_kernel_bit_equal_to_plain(cuda, case):
+    from repro_torch.kernels.moe_dispatch.ops import (DISPATCH,
+                                                      EXPERT_CHUNK, HIST,
+                                                      RANK, SCAN,
+                                                      moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    r, lo, hi, n_experts, cap = DISPATCH_CASES[case]
+    ids = torch.as_tensor(np.random.default_rng(2).integers(lo, hi, r),
+                          device=cuda)
+    before = [e.launches for e in (HIST, SCAN, RANK, DISPATCH)]
+    got = moe_dispatch_positions(ids, n_experts, cap)
+    # histogram, scan and rank per pass of up to 1024 experts; the rank
+    # launch alone with no experts
+    passes = -(-n_experts // EXPERT_CHUNK)
+    ran = [e.launches - b
+           for e, b in zip((HIST, SCAN, RANK, DISPATCH), before)]
+    assert ran == [passes, passes, max(passes, 1), 2 * passes +
+                   max(passes, 1)]
+    want = moe_dispatch_plain(ids, n_experts, cap)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if case == "block_boundary":
+        assert got[0].tolist() == list(range(r))
+
+
+def test_dispatch_wrapper_refuses_what_the_reference_refuses(cuda):
+    from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_positions
+    for shape, e, cap in (((600,), 16, 8), ((4, 4), 16, 8),
+                          ((512,), -1, 8), ((512,), 16, 2 ** 31)):
+        with pytest.raises(ValueError):
+            moe_dispatch_positions(torch.zeros(shape, dtype=torch.int32,
+                                               device=cuda), e, cap)
+
+
+def test_dispatch_stream_priced_on_the_card_matches_the_host(cuda):
+    """``Kernel.cost_cycles`` prices the dispatch stream on the card (its
+    default) as on the host, on three memories."""
+    ids = np.random.default_rng(11).integers(0, 512, 1000) % 16
+    k = PK.get("moe_dispatch")
+    for arch in ("16B", "4R-2W", "16B-offset"):
+        assert k.cost_cycles(arch, ids, 16, 64) == k.cost_cycles(
+            arch, ids, 16, 64, device="cpu")
+
+
 def test_kernel_bench_cli_on_the_card(cuda):
-    """``python -m repro_torch.bench.kernel_bench`` on the card: the five
+    """``python -m repro_torch.bench.kernel_bench`` on the card: the six
     rows, each bit-equal to its plain version, each row's kernel
     launched."""
     from repro_torch.bench import kernel_bench as KB
@@ -303,11 +372,13 @@ def test_kernel_bench_cli_on_the_card(cuda):
     from repro_torch.kernels.carry_arbiter.ops import ARBITER
     from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
     from repro_torch.kernels.fft_stage.ops import STAGE
-    entries = (GATHER, POPCOUNT, ARBITER, STAGE, TRANSPOSE)
+    from repro_torch.kernels.moe_dispatch.ops import DISPATCH
+    entries = (GATHER, POPCOUNT, ARBITER, DISPATCH, STAGE, TRANSPOSE)
     before = [e.launches for e in entries]
     rows = KB.main([])
     assert [r["name"] for r in rows] == [
         "banked_gather_1024x512_r256", "conflict_popcount_4096ops",
-        "carry_arbiter_1024ops", "fft4096_radix4_b4", "banked_transpose_512"]
+        "carry_arbiter_1024ops", "moe_dispatch_8192req_e16",
+        "fft4096_radix4_b4", "banked_transpose_512"]
     assert all(r["err"] == 0 and r["device_us"] > 0 for r in rows)
     assert all(e.launches > b for e, b in zip(entries, before))

@@ -67,8 +67,8 @@ def test_table2_cli_runs_with_the_reference_blocked():
 def test_kernel_bench_cli_runs_with_the_reference_blocked():
     """``python -m repro_torch.bench.kernel_bench --device cpu``, run as
     ``-m`` runs it, with JAX, ``repro`` and ``benchmarks`` blocked: its rows
-    are the reference bench's (``benchmarks/kernel_bench.py``) less the MoE
-    row, in the reference's order."""
+    are all six of the reference bench's (``benchmarks/kernel_bench.py``),
+    in the reference's order."""
     out = _run_blocked(
         "import runpy\n"
         "sys.argv = ['kernel_bench', '--device', 'cpu']\n"
@@ -87,8 +87,7 @@ def test_kernel_bench_cli_runs_with_the_reference_blocked():
                  and node.func.attr == "append"
                  and isinstance(node.args[0], ast.Tuple)]
     assert "moe_dispatch_8192req_e16" in reference and len(reference) == 6
-    assert [r[0] for r in rows] == [n for n in reference
-                                    if not n.startswith("moe_dispatch")]
+    assert [r[0] for r in rows] == reference
     assert all("|err=0.0|" in r[2] for r in rows)
 
 
