@@ -41,16 +41,20 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                1613 / 5791 / 26087 (transpose) and 64216 (fft4096r4) and
                the reproduction tolerances hold, the VM's ``func_err`` and
                the kernels' ``kernel_err`` are within tolerance, and the
-               launches are the path's (3 transposes for Table II, 6 FFT
-               passes per radix-4 transform, one transform per Table III
-               workload); then both kernels against their plain versions
-               at the path's shapes (the N×N f32 inputs for N in
-               32/64/128, bit-equal; every pass of the 4096-point input,
-               rtol = atol = 1e-5, and the whole transform, 2e-3·max|X|);
+               launches are the path's (3 transposes for Table II, one
+               transform launch per Table III workload and no planar
+               pass); then both kernels against their plain versions at
+               the path's shapes (the N×N f32 inputs for N in 32/64/128,
+               bit-equal; every pass of the 4096-point input, rtol = atol
+               = 1e-5, and the whole transform, bit-equal to the plain
+               passes and within 2e-3·max|X| of the numpy oracle);
   6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
-               (32, 32) × f32/bf16/int32, bit-equal, and the FFT passes
-               (4096, 0/3/5), (1024, 2) and whole transforms n = 256, 1024,
-               4096 at the reference tests' tolerances;
+               (32, 32) × f32/bf16/int32, bit-equal, the FFT passes
+               (4096, 0/3/5), (1024, 2) at the reference tests' tolerance,
+               and whole transforms n = 256, 1024, 4096 (batch 2) and n =
+               4, 16, 64, 16384, 65536 at batches 1, 3 and 1024, each
+               bit-equal to the plain passes, within 2e-3·max|X| of the
+               oracle and in transform_plan(n) + 1 launches;
   7. controllers — ``conflict_popcount`` and ``carry_arbiter`` against
                their plain versions, bit-equal and one launch a call: popcount
                over n_ops 8/256/1024 x B 4/8/16, ids outside [0, B) (negative
@@ -70,9 +74,11 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                six rows in the reference's order, each with err 0, each
                row's kernel launched;
  10. times   — the row kernels at the serving shapes, the transpose (8192 x
-               8192 f32) and the FFT (1024 transforms of 4096 points, and its
-               first and last pass alone) beside their byte bounds, plain
-               versions and library calls; the popcount at 4096 and 2^20 ops
+               8192 f32) and the FFT transform (1024 x 4096 in one launch,
+               64 x 65536 in three, each launch's device time by
+               torch.profiler; the planar pass 0 and 5 alone) beside their
+               byte bounds, plain versions and library calls, with the
+               tile kernel's blocks per SM and waves; the popcount at 4096 and 2^20 ops
                and the arbiter at 1024 and 2^18 ops (B = 16) beside their
                bounds and plain versions (no library call computes either);
  11. dispatch_times — the dispatch kernel at the bench's shape (8192
@@ -473,18 +479,20 @@ def phase_tables() -> dict:
 
     from repro_torch.bench import paper_tables as PT
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
-    from repro_torch.kernels.fft_stage.ops import STAGE
 
-    TRANSPOSE.launches = STAGE.launches = 0
+    entries = {"banked_transpose": TRANSPOSE, **_fft_entries()}
+    for e in entries.values():
+        e.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = PT.main(["table2", "table3"])          # prints the rows
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"banked_transpose": TRANSPOSE.launches,
-                "fft_stage": STAGE.launches}
+    launches = {name: e.launches for name, e in entries.items()}
+    # one 4096-point transform per Table III workload: one tile launch
     want = {"banked_transpose": len(PT.SIZES),
-            "fft_stage": 6 * len(PT.RADICES)}
+            "fft_transform_launch": len(PT.RADICES),
+            "fft_wide_pass_launch": 0, "fft_stage_launch": 0}
     log(f"[tables] Tables II and III through the CLI on the card in "
         f"{secs:.2f} s; launches on the path: {launches} (expected {want})")
     if launches != want:
@@ -564,30 +572,49 @@ def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
     return want
 
 
+def _fft_entries() -> dict:
+    """The FFT's C entries by symbol: the transform's two and the planar
+    pass of the one-pass API."""
+    from repro_torch.kernels.fft_stage.ops import STAGE, TRANSFORM, WIDE_PASS
+    return {"fft_transform_launch": TRANSFORM,
+            "fft_wide_pass_launch": WIDE_PASS, "fft_stage_launch": STAGE}
+
+
 def _check_fft_full(x, err, what) -> None:
-    """The kernel transform against the plain passes and the numpy oracle,
-    atol 2e-3·max|X| (tests/test_kernels.py:153-154)."""
+    """The kernel transform against the plain passes (torch.equal) and the
+    numpy oracle (atol 2e-3·max|X|, tests/test_kernels.py:153-154), in
+    transform_plan(n) + 1 launches and no planar pass."""
     import torch
 
-    from repro_torch.kernels.fft_stage import (fft4096_radix4,
-                                               fft_oracle_digit_reversed,
-                                               fft_radix4_ref)
+    from repro_torch.isa.programs.fft import digit_reverse_indices
+    from repro_torch.kernels.fft_stage import fft4096_radix4, fft_radix4_ref
+    from repro_torch.kernels.fft_stage.ops import transform_plan
     n = x.shape[-1]
+    entries = _fft_entries()
+    before = {k: e.launches for k, e in entries.items()}
     got = fft4096_radix4(x, n=n)
+    ran = {k: e.launches - before[k] for k, e in entries.items()}
     plain = fft_radix4_ref(x, n=n)
     torch.cuda.synchronize()
-    xs = x.cpu().numpy()
-    oracle = np.stack([fft_oracle_digit_reversed(row, 4) for row in xs])
+    # fft_oracle_digit_reversed, all rows at once
+    spectrum = np.fft.fft(x.cpu().numpy(), axis=-1)
+    oracle = np.empty_like(spectrum)
+    oracle[:, digit_reverse_indices(n, 4)] = spectrum
     tol = 2e-3 * np.abs(oracle).max()
+    equal = torch.equal(got, plain)
     e_plain = (got - plain).abs().max().item()
     e_oracle = float(np.abs(got.cpu().numpy() - oracle).max())
     err["fft_stage"] = max(err["fft_stage"], e_plain)
-    log(f"[{what}] fft4096_radix4 n={n} on {tuple(x.shape)}: max |kernel - "
-        f"plain| {e_plain:.3g}, max |kernel - oracle| {e_oracle:.3g} "
-        f"(tolerance {tol:.3g})")
-    if e_plain > tol or e_oracle > tol:
-        raise AssertionError(f"fft transform n={n} off by {e_plain:.3g} / "
-                             f"{e_oracle:.3g} > {tol:.3g}")
+    want = {"fft_transform_launch": 1,
+            "fft_wide_pass_launch": transform_plan(n),
+            "fft_stage_launch": 0}
+    log(f"[{what}] fft4096_radix4 n={n} on {tuple(x.shape)}: equal to plain: "
+        f"{equal}, max |kernel - oracle| {e_oracle:.3g} (tolerance "
+        f"{tol:.3g}), launches {ran}")
+    if not equal or e_oracle > tol or ran != want:
+        raise AssertionError(f"fft transform n={n}: equal {equal} (max "
+                             f"|diff| {e_plain:.3g}), oracle {e_oracle:.3g} "
+                             f"> {tol:.3g} or launches {ran} != {want}")
 
 
 def _check_transpose(x, err, what) -> None:
@@ -649,11 +676,37 @@ def phase_table_sweep() -> dict:
         x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
              ).astype(np.complex64)
         _check_fft_full(torch.from_numpy(x).cuda(), err, "sweep")
+    # below a tile (ragged last tiles at batch 1 and 3) and above it (one
+    # and two wide passes before the tile launch)
+    for n in (4, 16, 64, 16384, 65536):
+        for batch in (1, 3, 1024):
+            x = torch.complex(
+                torch.randn((batch, n), device="cuda", generator=gen),
+                torch.randn((batch, n), device="cuda", generator=gen))
+            _check_fft_full(x, err, "sweep")
     return {"max_abs_err": err}
 
 
 TRANSPOSE_TIMING = (8192, 8192)     # f32: 512 MiB moved
 FFT_TIMING = (1024, 4096)           # complex64 transforms: 64 MiB moved
+FFT_WIDE_TIMING = (64, 65536)       # the same bytes in a three-launch plan
+
+
+def _fft_launch_ms(call) -> dict:
+    """Device time of each of the transform's kernels (torch.profiler over
+    5 calls), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    return {name: ev.self_device_time_total / ev.count / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            for name in ("wide_pass", "transform_tile")
+            if name in ev.key and ev.count}
 
 
 def phase_table_times() -> dict:
@@ -664,8 +717,9 @@ def phase_table_times() -> dict:
     from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
     from repro_torch.kernels.fft_stage import (fft4096_radix4,
                                                fft_radix4_ref)
-    from repro_torch.kernels.fft_stage.ops import (fft_stage,
-                                                   stage_twiddles)
+    from repro_torch.kernels.fft_stage.ops import (
+        TILE, fft_stage, stage_twiddles, transform_blocks_per_sm,
+        transform_plan, transform_twiddles)
     from repro_torch.kernels.fft_stage.ref import fft_stage_ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
@@ -678,23 +732,45 @@ def phase_table_times() -> dict:
         graph_iters=20, iters=50)
     out["banked_transpose"]["shape"] = [n, m]
 
-    batch, nf = FFT_TIMING
-    z = torch.complex(torch.randn((batch, nf), device="cuda", generator=gen),
-                      torch.randn((batch, nf), device="cuda", generator=gen))
-    passes = 6
-    # the function: each complex64 input read once, each output written
-    # once; 40 flops per radix-4 butterfly column, nf/4 columns per pass
-    flops = batch * passes * (nf // 4) * 40
-    out["fft_stage"] = timed(
-        lambda: fft4096_radix4(z, n=nf), lambda: fft_radix4_ref(z, n=nf),
-        lambda: torch.fft.fft(z), bound_ms(2 * batch * nf * 8, flops),
-        graph_iters=20, iters=50)
-    out["fft_stage"]["shape"] = [batch, nf]
-    # one pass alone (the kernel's own unit): two f32 planes in and out
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = transform_blocks_per_sm()
+    fft = {}
+    for batch, nf in (FFT_TIMING, FFT_WIDE_TIMING):
+        z = torch.complex(
+            torch.randn((batch, nf), device="cuda", generator=gen),
+            torch.randn((batch, nf), device="cuda", generator=gen))
+        passes = int(round(np.log(nf) / np.log(4)))
+        # the function: each complex64 input read once, each output
+        # written once; 40 flops per radix-4 butterfly column, nf/4
+        # columns per pass
+        flops = batch * passes * (nf // 4) * 40
+        r = timed(lambda: fft4096_radix4(z, n=nf),
+                  lambda: fft_radix4_ref(z, n=nf), lambda: torch.fft.fft(z),
+                  bound_ms(2 * batch * nf * 8, flops), graph_iters=20,
+                  iters=50)
+        # what this design moves: each launch reads and writes the array
+        # once, and the launches read the twiddle table once
+        first = transform_plan(nf)
+        r["design_bound_ms"] = bound_ms(
+            (first + 1) * 2 * batch * nf * 8
+            + transform_twiddles(nf, z.device).numel() * 8)[0]
+        r["launches_per_call"] = first + 1
+        r["launch_device_ms"] = _fft_launch_ms(lambda: fft4096_radix4(z,
+                                                                      n=nf))
+        tiles = batch * nf // TILE
+        r["tile_blocks_per_sm"] = per_sm
+        r["tile_waves"] = tiles / (per_sm * n_sm)
+        r["shape"] = [batch, nf]
+        fft[nf] = r
+    out["fft_stage"] = fft[FFT_TIMING[1]]
+    out["fft_stage"]["wide"] = fft[FFT_WIDE_TIMING[1]]
+    # one planar pass alone (the one-pass API): two f32 planes in and out
     # plus the pass's twiddles
-    xr, xi = z.real.contiguous(), z.imag.contiguous()
+    batch, nf = FFT_TIMING
+    xr = torch.randn((batch, nf), device="cuda", generator=gen)
+    xi = torch.randn((batch, nf), device="cuda", generator=gen)
     per_pass = {}
-    for p in (0, passes - 1):
+    for p in (0, 5):
         sub = nf // 4 ** (p + 1)
         twr, twi = stage_twiddles(nf, p, xr.device)
         vr, vi = xr.reshape(-1, 4, sub), xi.reshape(-1, 4, sub)
@@ -704,11 +780,9 @@ def phase_table_times() -> dict:
             bound_ms(4 * batch * nf * 4 + 2 * 4 * sub * 4,
                       batch * (nf // 4) * 40), graph_iters=20, iters=50)
     out["fft_stage"]["passes"] = per_pass
-    # what the six-launch design must move at least: six passes' bytes
-    out["fft_stage"]["design_bound_ms"] = sum(
-        bound_ms(4 * batch * nf * 4 + 2 * 4 * (nf // 4 ** (p + 1)) * 4)[0]
-        for p in range(passes))
-    for name, r in out.items():
+    for name, r in (("banked_transpose", out["banked_transpose"]),
+                    ("fft_stage", fft[FFT_TIMING[1]]),
+                    ("fft_stage", fft[FFT_WIDE_TIMING[1]])):
         us = {k: (v * 1e3 if isinstance(v, float) else v)
               for k, v in r.items() if k.endswith("ms")}
         lib = "library" if name == "banked_transpose" else "torch.fft.fft"
@@ -717,13 +791,20 @@ def phase_table_times() -> dict:
             f"{us['library_ms']:.2f} us; device time in a CUDA graph: kernel "
             f"{us['device_ms']:.3f} us, {lib} {us['library_device_ms']:.3f} "
             f"us; bound {us['bound_ms']:.3f} us ({r['bound_by']})")
+    for r in fft.values():
+        split = ", ".join(f"{k} {v * 1e3:.3f} us"
+                          for k, v in r["launch_device_ms"].items())
+        log(f"[times] fft_stage at {r['shape']}: {r['launches_per_call']} "
+            f"launches a call, their bytes bound this design at "
+            f"{r['design_bound_ms'] * 1e3:.3f} us; per launch "
+            f"(torch.profiler, 5 calls): {split}; tile kernel: "
+            f"{r['tile_blocks_per_sm']} blocks an SM on {n_sm} SMs, "
+            f"{r['tile_waves']:.2f} waves")
     for p, r in per_pass.items():
-        log(f"[times] fft_stage pass {p} alone at {list(FFT_TIMING)}: per "
-            f"call kernel {r['ms'] * 1e3:.2f} us, plain "
+        log(f"[times] fft_stage planar pass {p} alone at {list(FFT_TIMING)}:"
+            f" per call kernel {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us; device {r['device_ms'] * 1e3:.3f}"
             f" us; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
-    log(f"[times] fft_stage: six passes' bytes bound the six-launch design "
-        f"at {out['fft_stage']['design_bound_ms'] * 1e3:.3f} us")
     return out
 
 
@@ -816,16 +897,17 @@ def phase_controllers() -> dict:
 
 def _entries() -> dict:
     """Every kernel's C entry (its launch count), by kernel name; the
-    dispatch's is the sum over its three entries."""
+    dispatch's is the sum over its three entries, the FFT's the transform's
+    tile launch (the bench's row runs n = 4096)."""
     from repro_torch.kernels.banked_gather.ops import GATHER
     from repro_torch.kernels.banked_scatter.ops import SCATTER
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
     from repro_torch.kernels.carry_arbiter.ops import ARBITER
     from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
-    from repro_torch.kernels.fft_stage.ops import STAGE
+    from repro_torch.kernels.fft_stage.ops import TRANSFORM
     from repro_torch.kernels.moe_dispatch.ops import DISPATCH
     return {"banked_gather": GATHER, "banked_scatter": SCATTER,
-            "banked_transpose": TRANSPOSE, "fft_stage": STAGE,
+            "banked_transpose": TRANSPOSE, "fft_stage": TRANSFORM,
             "conflict_popcount": POPCOUNT, "carry_arbiter": ARBITER,
             "moe_dispatch": DISPATCH}
 
@@ -1156,16 +1238,25 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]}
                for name, t in record["times"].items()]
+    # the tables' kernels; the FFT's launches are its C entries' on the
+    # tables path, by symbol
+    table_launches = record["tables"]["launches"]
+    fft_launches = {k: v for k, v in table_launches.items()
+                    if k.startswith("fft_")}
+    table_launches = {"banked_transpose": table_launches["banked_transpose"],
+                      "fft_stage": sum(fft_launches.values())}
     kernels += [{"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{name}.cu",
                  "replaces": replaces[name],
-                 "launches": record["tables"]["launches"][name],
+                 "launches": table_launches[name],
                  "max_abs_err": max(
                      record["table_kernels"]["max_abs_err"][name],
                      record["table_sweep"]["max_abs_err"][name]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": t["library_ms"]}
+                 "library_ms": t["library_ms"],
+                 **({"entries": fft_launches} if name == "fft_stage"
+                    else {})}
                 for name, t in record["table_times"].items()]
     # the controllers: launches of the bench path, times at the shape where
     # bytes set the time

@@ -1,15 +1,17 @@
 """Radix-4 DIF FFT passes — the data path of the paper's Table III workload.
 
-``fft_stage`` is the wrapper of one pass on the kernel layout: for CUDA
-planes it launches the hand-written kernel of ``csrc/fft_stage.cu`` (which
+``fft_stage`` is the wrapper of one pass on the reference's planar layout:
+for CUDA planes it launches ``radix4_pass`` of ``csrc/fft_stage.cu`` (which
 replaces the Pallas ``fft_stage_kernel`` of
 ``src/repro/kernels/fft_stage/kernel.py``; the source says what bounds it),
 for CPU planes it runs ``fft_stage_ref``, the same pass in plain PyTorch.
-There is no fallback from one to the other.  ``fft_stage_radix4`` and
-``fft4096_radix4`` keep the reference's signatures: one pass on (batch, n)
-planes, and the log4 n passes composed (digit-reversed output, like the
-SIMT program).  The trace generators give the Table III program's exact
-request stream.
+``fft_stage_radix4`` keeps the reference's one-pass signature.
+``fft4096_radix4`` is the whole transform (digit-reversed output, like the
+SIMT program): on a CUDA tensor one ``transform_tile`` launch runs every
+pass whose segment fits ``TILE`` points in shared memory, after one
+``wide_pass`` launch for each pass above that (``transform_plan``); on a CPU
+tensor the plain passes run.  There is no fallback from one to the other.
+The trace generators give the Table III program's exact request stream.
 """
 from __future__ import annotations
 
@@ -19,14 +21,29 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels.cuda_lib import CudaEntry
-from repro_torch.kernels.fft_stage.ref import fft_stage_ref
+from repro_torch.kernels.banked_gather.ops import require_cuda
+from repro_torch.kernels.cuda_lib import CudaEntry, library
+from repro_torch.kernels.fft_stage.ref import fft_radix4_ref, fft_stage_ref
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-#: the C entry and its launch count (``STAGE.launches``)
+#: the one-pass entry on planes and its launch count (``STAGE.launches``)
 STAGE = CudaEntry("fft_stage", "fft_stage_launch",
                   [_P, _P, _P, _P, _P, _P, _I64, _I64])
+#: the transform's entries: the tile kernel (every pass whose segment fits
+#: a tile) and the device-memory pass on complex64 (each pass above that)
+TRANSFORM = CudaEntry("fft_stage", "fft_transform_launch",
+                      [_P, _P, _P, _I64, _I32])
+WIDE_PASS = CudaEntry("fft_stage", "fft_wide_pass_launch",
+                      [_P, _P, _P, _I64, _I32])
+
+#: points a ``transform_tile`` block holds (kTile of the source), its
+#: threads, and the passes of a tile-sized segment
+TILE, TILE_THREADS = 4096, 256
+TILE_PASSES = 6
+#: the bit where each round's 4-bit window of the tile index sits, in the
+#: order the kernel runs them (the ``tile_round<L, W>`` calls)
+ROUND_WINDOWS = (8, 4, 0)
 
 
 def _stage_twiddles(n: int, p: int) -> tuple[np.ndarray, np.ndarray]:
@@ -55,6 +72,65 @@ def _passes_of(n: int) -> int:
     if passes < 1 or 4 ** passes != n:
         raise ValueError(f"n={n} is not a power of 4")
     return passes
+
+
+def transform_plan(n: int) -> int:
+    """The first pass the tile kernel runs in a transform of ``n`` points:
+    the passes before it work on segments above ``TILE`` points and take
+    one ``wide_pass`` launch each, so a transform makes
+    ``transform_plan(n) + 1`` launches."""
+    return max(0, _passes_of(n) - TILE_PASSES)
+
+
+def twiddle_offset(n: int, p: int) -> int:
+    """Where pass p's (4, sub) table starts in ``transform_twiddles(n)``:
+    the tables of the passes before it, n / 4^i points each."""
+    return sum(n // 4 ** i for i in range(p))
+
+
+def _transform_twiddles(n: int) -> np.ndarray:
+    """Every pass's ``_stage_twiddles(n, p)`` as complex64, laid end to end
+    (pass p at ``twiddle_offset(n, p)``): the table the transform kernels
+    read, bit for bit the values the plain passes multiply by."""
+    parts = []
+    for p in range(_passes_of(n)):
+        twr, twi = _stage_twiddles(n, p)
+        tw = np.empty(twr.size, np.complex64)
+        tw.real, tw.imag = twr.ravel(), twi.ravel()
+        parts.append(tw)
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def transform_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """``_transform_twiddles(n)`` on ``device``, moved there once per (n,
+    device)."""
+    return torch.from_numpy(_transform_twiddles(n)).to(device)
+
+
+def smem_word(a):
+    """The tile kernel's shared-memory map: the word of tile point ``a``
+    (0 <= a < TILE) in each of its re and im planes.  XORs the bank bits
+    (0..4) with the index's bits 5..8 (into bits 0..3) and bit 8 (into bit
+    4), so every warp access of every round falls on 32 distinct banks
+    (``smem_word`` of ``csrc/fft_stage.cu``; ints or integer arrays)."""
+    return a ^ (((a >> 5) & 15) | ((a >> 4) & 16))
+
+
+def tile_point(t, j, w: int):
+    """Thread t's j-th point (0 <= j < 16) of the tile in the round whose
+    4-bit window sits at bit ``w``: the window holds j, the other 8 bits
+    hold t (``tile_point<W>`` of the source).  The load and the store use
+    the ``w = 8`` layout."""
+    return ((t >> w) << (w + 4)) | (j << w) | (t & ((1 << w) - 1))
+
+
+def round_passes(passes: int, w: int) -> tuple[int, ...]:
+    """The local passes (of a ``4^passes``-point segment) that the round at
+    window ``w`` runs: the two whose digits lie in bits w..w+3, those that
+    exist (``tile_round<L, W>``)."""
+    first = passes - 2 - w // 2
+    return tuple(p for p in (first, first + 1) if p >= 0)
 
 
 def fft_stage(xr: torch.Tensor, xi: torch.Tensor, twr: torch.Tensor,
@@ -104,25 +180,51 @@ def fft_stage_radix4(xr: torch.Tensor, xi: torch.Tensor, n: int,
     return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
 
-def run_passes(x: torch.Tensor, n: int, stage) -> torch.Tensor:
-    """(batch, n) complex64 through the log4 n DIF passes of ``stage`` (a
-    pass on the kernel layout: ``fft_stage`` or ``fft_stage_ref``); the
-    spectrum comes out digit-reversed."""
+def check_transform(x: torch.Tensor, n: int) -> int:
+    """A transform's input: (batch, n) complex64, n a power of 4; returns
+    the number of passes."""
     if x.dim() != 2 or x.shape[1] != n or x.dtype != torch.complex64:
         raise ValueError(f"need a (batch, {n}) complex64 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    passes = _passes_of(n)
-    xr, xi = x.real.contiguous(), x.imag.contiguous()
-    for p in range(passes):
-        twr, twi = stage_twiddles(n, p, x.device)
-        xr, xi = stage(_view(xr, n, p), _view(xi, n, p), twr, twi)
-    return torch.complex(xr, xi).reshape(x.shape)
+    return _passes_of(n)
 
 
 def fft4096_radix4(x: torch.Tensor, n: int = 4096) -> torch.Tensor:
-    """(batch, n) complex64 -> FFT in digit-reversed order (batch, n):
-    log4 n launches of the pass kernel on a CUDA tensor."""
-    return run_passes(x, n, fft_stage)
+    """(batch, n) complex64 -> FFT in digit-reversed order (batch, n),
+    bit-equal to the plain passes: ``transform_plan(n) + 1`` launches on a
+    CUDA tensor (one for n <= TILE), the plain passes on a CPU one."""
+    passes = check_transform(x, n)
+    if x.shape[0] == 0:
+        raise ValueError("empty batch")
+    if x.device.type == "cpu":
+        return fft_radix4_ref(x, n)
+    require_cuda(x)
+    x = x.resolve_conj().contiguous()
+    out = torch.empty_like(x)
+    tw = transform_twiddles(n, x.device)
+    first, src = transform_plan(n), x
+    for p in range(first):
+        sub = n // 4 ** (p + 1)
+        WIDE_PASS(src.data_ptr(), out.data_ptr(),
+                  tw.data_ptr() + 8 * twiddle_offset(n, p),
+                  x.numel() // (4 * sub), sub.bit_length() - 1)
+        src = out
+    TRANSFORM(src.data_ptr(), out.data_ptr(),
+              tw.data_ptr() + 8 * twiddle_offset(n, first), x.numel(),
+              passes - first)
+    return out
+
+
+def transform_blocks_per_sm(passes: int = TILE_PASSES) -> int:
+    """How many tile-kernel blocks of ``passes`` passes fit one SM of the
+    current card (CUDA's occupancy calculator; launches nothing)."""
+    fn = library("fft_stage").fft_transform_blocks_per_sm
+    fn.argtypes, fn.restype = [_I32], _I32
+    blocks = fn(passes)
+    if blocks < 0:
+        raise RuntimeError(f"fft_transform_blocks_per_sm: CUDA error "
+                           f"{-blocks}")
+    return blocks
 
 
 def fft_trace(arch, x, **_):

@@ -25,9 +25,15 @@ def fft_stage_ref(xr: torch.Tensor, xi: torch.Tensor, twr: torch.Tensor,
 
 def fft_radix4_ref(x: torch.Tensor, n: int = 4096) -> torch.Tensor:
     """(batch, n) complex64 -> digit-reversed spectrum: the log4 n passes
-    composed from ``fft_stage_ref`` (on any device)."""
-    from repro_torch.kernels.fft_stage.ops import run_passes
-    return run_passes(x, n, fft_stage_ref)
+    composed from ``fft_stage_ref`` on re and im planes (on any device)."""
+    from repro_torch.kernels.fft_stage.ops import (_view, check_transform,
+                                                   stage_twiddles)
+    passes = check_transform(x, n)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    for p in range(passes):
+        twr, twi = stage_twiddles(n, p, x.device)
+        xr, xi = fft_stage_ref(_view(xr, n, p), _view(xi, n, p), twr, twi)
+    return torch.complex(xr, xi).reshape(x.shape)
 
 
 def fft_oracle_digit_reversed(x: np.ndarray, radix: int = 4) -> np.ndarray:

@@ -1,9 +1,11 @@
 """The port on the CUDA card: the hand-written kernels against their plain
 PyTorch versions (the row kernels and the transpose bit-equal: they copy
 bytes; the controller and dispatch kernels bit-equal: integers; the FFT
-pass within rtol = atol = 1e-5 per pass and 2e-3·max|X| per transform, the
-reference's tolerances), one launch a call (for the dispatch, one launch
-of each of its three entries a pass of experts), and the serving path, the
+pass within rtol = atol = 1e-5, the reference's tolerance; the FFT
+transform bit-equal to the plain passes and within 2e-3·max|X| of the
+oracle), one launch a call (for the dispatch, one launch of each of its
+three entries a pass of experts; for the transform, one tile launch after
+log4(n / 4096) wide passes), and the serving path, the
 paper tables, the kernel micro-bench and the cost engine on the card
 against the same code on the host.  Every test here needs a card and
 skips without one; the file imports no JAX, so it runs where only the port
@@ -172,25 +174,41 @@ def test_fft_stage_kernel_close_to_plain(cuda, n, p):
         torch.testing.assert_close(g, w.reshape(2, n), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096])
-def test_fft_kernel_transform_close_to_plain_and_oracle(cuda, n):
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n", [4, 16, 256, 1024, 4096, 16384, 65536])
+def test_fft_kernel_transform_close_to_plain_and_oracle(cuda, n, batch):
+    """The transform on the card: bit-equal to the plain passes (torch.equal)
+    and within 2e-3·max|X| of the numpy oracle, in one tile launch after
+    log4(n / 4096) wide passes (none for n <= 4096), and no planar pass."""
     from repro_torch.kernels.fft_stage import (fft4096_radix4,
                                                fft_oracle_digit_reversed,
                                                fft_radix4_ref)
-    from repro_torch.kernels.fft_stage.ops import STAGE
+    from repro_torch.kernels.fft_stage.ops import STAGE, TRANSFORM, WIDE_PASS
     rng = np.random.default_rng(0)
-    x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
-         ).astype(np.complex64)
-    before = STAGE.launches
+    x = (rng.standard_normal((batch, n)) + 1j * rng.standard_normal(
+        (batch, n))).astype(np.complex64)
+    before = [e.launches for e in (TRANSFORM, WIDE_PASS, STAGE)]
     got = fft4096_radix4(torch.from_numpy(x).to(cuda), n=n)
+    ran = [e.launches - b
+           for e, b in zip((TRANSFORM, WIDE_PASS, STAGE), before)]
     passes = int(round(np.log(n) / np.log(4)))
-    assert STAGE.launches == before + passes
-    want = np.stack([fft_oracle_digit_reversed(x[b], 4) for b in range(2)])
+    assert ran == [1, max(0, passes - 6), 0]
+    plain = fft_radix4_ref(torch.from_numpy(x).to(cuda), n=n)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex64 and torch.equal(got, plain)
+    want = np.stack([fft_oracle_digit_reversed(x[b], 4)
+                     for b in range(batch)])
     tol = 2e-3 * np.abs(want).max()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=tol)
-    plain = fft_radix4_ref(torch.from_numpy(x).to(cuda), n=n)
-    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
-                               rtol=0, atol=tol)
+
+
+def test_fft_kernel_transform_takes_strided_and_conjugate_views(cuda):
+    from repro_torch.kernels.fft_stage import fft4096_radix4, fft_radix4_ref
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    wide = torch.complex(torch.randn((6, 8192), device=cuda, generator=gen),
+                         torch.randn((6, 8192), device=cuda, generator=gen))
+    for x in (wide[::2, 4096:], wide[:3, :4096].conj()):
+        assert torch.equal(fft4096_radix4(x), fft_radix4_ref(x))
 
 
 def test_fft_wrapper_refuses_mixed_devices(cuda):
@@ -203,14 +221,15 @@ def test_fft_wrapper_refuses_mixed_devices(cuda):
 
 def test_paper_tables_on_the_card_match_the_host(cuda):
     """Both tables priced on the card equal the host pricing; the kernel
-    step launches 3 transposes (Table II) and 6 passes per radix-4
-    transform, one transform per Table III workload (18)."""
+    step launches 3 transposes (Table II) and one transform launch per
+    Table III workload (3), and no planar pass."""
     from repro_torch.bench import paper_tables as PT
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
-    from repro_torch.kernels.fft_stage.ops import STAGE
-    t0, s0 = TRANSPOSE.launches, STAGE.launches
+    from repro_torch.kernels.fft_stage.ops import STAGE, TRANSFORM
+    entries = (TRANSPOSE, TRANSFORM, STAGE)
+    before = [e.launches for e in entries]
     card2, card3 = PT.table2_rows("cuda"), PT.table3_rows("cuda")
-    assert (TRANSPOSE.launches - t0, STAGE.launches - s0) == (3, 18)
+    assert [e.launches - b for e, b in zip(entries, before)] == [3, 3, 0]
     host2, host3 = PT.table2_rows("cpu"), PT.table3_rows("cpu")
     for card, host in ((card2, host2), (card3, host3)):
         for c, h in zip(card, host):
@@ -371,9 +390,9 @@ def test_kernel_bench_cli_on_the_card(cuda):
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
     from repro_torch.kernels.carry_arbiter.ops import ARBITER
     from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
-    from repro_torch.kernels.fft_stage.ops import STAGE
+    from repro_torch.kernels.fft_stage.ops import TRANSFORM
     from repro_torch.kernels.moe_dispatch.ops import DISPATCH
-    entries = (GATHER, POPCOUNT, ARBITER, DISPATCH, STAGE, TRANSPOSE)
+    entries = (GATHER, POPCOUNT, ARBITER, DISPATCH, TRANSFORM, TRANSPOSE)
     before = [e.launches for e in entries]
     rows = KB.main([])
     assert [r["name"] for r in rows] == [

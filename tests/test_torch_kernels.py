@@ -310,9 +310,10 @@ def test_table_kernel_traces_equal_the_reference(name, x):
 
 def test_table_kernels_count_no_launch_on_the_cpu():
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
-    from repro_torch.kernels.fft_stage.ops import STAGE
-    before = (TRANSPOSE.launches, STAGE.launches)
+    from repro_torch.kernels.fft_stage.ops import STAGE, TRANSFORM, WIDE_PASS
+    entries = (TRANSPOSE, STAGE, TRANSFORM, WIDE_PASS)
+    before = [e.launches for e in entries]
     pk.get("banked_transpose").run("16B", torch.zeros((32, 32)))
     pk.get("fft_stage").run("16B", torch.zeros((1, 64),
                                                dtype=torch.complex64))
-    assert (TRANSPOSE.launches, STAGE.launches) == before
+    assert [e.launches for e in entries] == before
