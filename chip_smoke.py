@@ -718,8 +718,7 @@ def phase_table_times() -> dict:
     from repro_torch.kernels.fft_stage import (fft4096_radix4,
                                                fft_radix4_ref)
     from repro_torch.kernels.fft_stage.ops import (
-        TILE, fft_stage, stage_twiddles, transform_blocks_per_sm,
-        transform_plan, transform_twiddles)
+        fft_stage, stage_twiddles, transform_plan, transform_twiddles)
     from repro_torch.kernels.fft_stage.ref import fft_stage_ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
@@ -732,8 +731,6 @@ def phase_table_times() -> dict:
         graph_iters=20, iters=50)
     out["banked_transpose"]["shape"] = [n, m]
 
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    per_sm = transform_blocks_per_sm()
     fft = {}
     for batch, nf in (FFT_TIMING, FFT_WIDE_TIMING):
         z = torch.complex(
@@ -757,9 +754,6 @@ def phase_table_times() -> dict:
         r["launches_per_call"] = first + 1
         r["launch_device_ms"] = _fft_launch_ms(lambda: fft4096_radix4(z,
                                                                       n=nf))
-        tiles = batch * nf // TILE
-        r["tile_blocks_per_sm"] = per_sm
-        r["tile_waves"] = tiles / (per_sm * n_sm)
         r["shape"] = [batch, nf]
         fft[nf] = r
     out["fft_stage"] = fft[FFT_TIMING[1]]
@@ -797,9 +791,7 @@ def phase_table_times() -> dict:
         log(f"[times] fft_stage at {r['shape']}: {r['launches_per_call']} "
             f"launches a call, their bytes bound this design at "
             f"{r['design_bound_ms'] * 1e3:.3f} us; per launch "
-            f"(torch.profiler, 5 calls): {split}; tile kernel: "
-            f"{r['tile_blocks_per_sm']} blocks an SM on {n_sm} SMs, "
-            f"{r['tile_waves']:.2f} waves")
+            f"(torch.profiler, 5 calls): {split}")
     for p, r in per_pass.items():
         log(f"[times] fft_stage planar pass {p} alone at {list(FFT_TIMING)}:"
             f" per call kernel {r['ms'] * 1e3:.2f} us, plain "

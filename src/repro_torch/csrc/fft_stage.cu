@@ -63,8 +63,7 @@
 //   * Registers: __launch_bounds__ asks for 2 blocks an SM, which leaves
 //     the 16 points, a butterfly's twiddles and the addresses in registers
 //     without spills; at 4 blocks an SM (64 registers) the tile spills and
-//     at 3 it runs slower.  `python -m repro_torch.bench.fft_variants`
-//     times these steps and a persistent bulk-copy variant on the card.
+//     at 3 it runs slower.
 //
 // A transform of n > 4096 points first runs its passes whose segments are
 // larger than a tile as wide_pass launches (log4(n / 4096) of them, each
@@ -330,17 +329,6 @@ int fft_wide_pass_launch(const void* x, void* y, const void* tw,
       static_cast<const float2*>(x), static_cast<float2*>(y),
       static_cast<const float2*>(tw), rows, log_sub);
   return static_cast<int>(cudaGetLastError());
-}
-
-// How many transform_tile blocks of `passes` passes fit one SM (the
-// occupancy calculator's answer), or -(CUDA error).  Launches nothing.
-int fft_transform_blocks_per_sm(int passes) {
-  if (passes < 1 || passes > 6)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kTileKernels[passes - 1], kTileThreads, 0);
-  return err ? -static_cast<int>(err) : blocks;
 }
 
 const char* fft_stage_error_string(int err) {

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.banked_gather.ops import require_cuda
-from repro_torch.kernels.cuda_lib import CudaEntry, library
+from repro_torch.kernels.cuda_lib import CudaEntry
 from repro_torch.kernels.fft_stage.ref import fft_radix4_ref, fft_stage_ref
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -213,18 +213,6 @@ def fft4096_radix4(x: torch.Tensor, n: int = 4096) -> torch.Tensor:
               tw.data_ptr() + 8 * twiddle_offset(n, first), x.numel(),
               passes - first)
     return out
-
-
-def transform_blocks_per_sm(passes: int = TILE_PASSES) -> int:
-    """How many tile-kernel blocks of ``passes`` passes fit one SM of the
-    current card (CUDA's occupancy calculator; launches nothing)."""
-    fn = library("fft_stage").fft_transform_blocks_per_sm
-    fn.argtypes, fn.restype = [_I32], _I32
-    blocks = fn(passes)
-    if blocks < 0:
-        raise RuntimeError(f"fft_transform_blocks_per_sm: CUDA error "
-                           f"{-blocks}")
-    return blocks
 
 
 def fft_trace(arch, x, **_):
