@@ -9,26 +9,31 @@ micro-bench on the GPU.
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. build   — compile every ``src/repro_torch/csrc/*.cu`` with ``nvcc``,
-               one compiler per source, one after another, and print
+               one compiler per source, all started together, and print
                the build seconds;
-  2. kernels — ``banked_gather`` / ``banked_scatter`` against their plain
-               PyTorch versions on the card, bit-equal (tolerance 0: the
-               kernels copy bytes), over every bank map, f32 and bf16, full
-               and narrow page lines, duplicate scatter indices, and a
-               gather after a scatter; a multi-port memory (no banked
-               layout) runs the same kernels with one bank;
+  2. kernels — ``banked_gather`` / ``banked_scatter`` and their paired
+               entries (``banked_gather_pair`` / ``banked_scatter_pair``:
+               two tables, one index vector, one launch) against their
+               plain PyTorch versions on the card, bit-equal (tolerance 0:
+               the kernels copy bytes), over every bank map, f32 and bf16,
+               full and narrow page lines, scatters of 24 (one launch) and
+               600 (claim, then copy) indices with duplicates, and a gather
+               after a scatter; every C entry launched; a multi-port memory
+               (no banked layout) runs the same kernels with one bank;
   3. serve   — full-width llama3.2-1b (random weights from a seeded
                ``torch.Generator``, f32 params, bf16 compute) answers
                4 requests × 64 prompt tokens × 16 new tokens on banked page
                pools (16B, page_len 8); the kernels' launch counts over
-               that run must match the path (2 gathers + 2 scatters per KV
-               layer and decode step, 2 scatters per KV layer for the
-               prefill ingest); the first paged decode step's logits
-               equal the dense-cache engine's bit for bit, and a wrong page
-               in one request's page table changes that request's logits
-               and no other's; the recorded traces against the model-free
-               simulation; then both kernels against their plain versions,
-               bit-equal, on the serving pool at the path's own shapes
+               that run must match the path (one paired gather and one
+               paired scatter per KV layer and decode step, one paired
+               scatter per KV layer for the prefill ingest: 240 and 256),
+               all from the paired entries, and no plain version runs; the
+               first paged decode step's logits equal the dense-cache
+               engine's bit for bit, and a wrong page in one request's page
+               table changes that request's logits and no other's; the
+               recorded traces against the model-free simulation; then both
+               kernels, single and paired, against their plain versions,
+               bit-equal, on the serving pools at the path's own shapes
                (the 40-line decode read, the 4-line decode append, the
                32-line prefill ingest);
   4. cost    — the serving traffic priced on the card equals the CPU
@@ -73,14 +78,24 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                (``repro_torch.bench.kernel_bench.main``) on the card: the
                six rows in the reference's order, each with err 0, each
                row's kernel launched;
- 10. times   — the row kernels at the serving shapes, the transpose (8192 x
-               8192 f32) and the FFT transform (1024 x 4096 in one launch,
-               64 x 65536 in three, each launch's device time by
-               torch.profiler; the planar pass 0 and 5 alone) beside their
-               byte bounds, plain versions and library calls, with the
-               tile kernel's blocks per SM and waves; the popcount at 4096 and 2^20 ops
-               and the arbiter at 1024 and 2^18 ops (B = 16) beside their
-               bounds and plain versions (no library call computes either);
+ 10. times   — the row kernels at the serving shapes, single and paired,
+               beside ``index_select`` / ``index_copy_`` and the byte
+               bound, and where a paired call's host time goes;
+     row_times — both row kernels where bytes rule (16384 lines of 4096
+               bf16 from a 32768-page 16B pool), single and paired, held
+               bit-equal first; the scatter with a quarter of its indices
+               duplicated beside ``index_copy_`` on distinct indices, and
+               at N = 1024 / 4096 / 16384 (device time at most 1.5x
+               proportional to N); the designs tried (a warp's row chunk;
+               one launch against claim-and-copy at small N);
+     table_times — the transpose (8192 x 8192 f32) and the FFT
+               transform (1024 x 4096 in one launch, 64 x 65536 in three,
+               each launch's device time by torch.profiler; the planar pass
+               0 and 5 alone) beside their byte bounds, plain versions and
+               library calls;
+     controller_times — the popcount at 4096 and 2^20 ops and the arbiter
+               at 1024 and 2^18 ops (B = 16) beside their bounds and plain
+               versions (no library call computes either);
  11. dispatch_times — the dispatch kernel at the bench's shape (8192
                requests, E = 16) and at 2^24 requests (E = 16) beside its
                byte bound and plain version (no library call computes it),
@@ -119,14 +134,20 @@ LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
 
 
 def phase_build() -> dict:
+    """Every source built at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import cuda_lib
 
-    secs = {}
-    for name in LIBRARIES:
+    def build(name: str) -> float:
         t0 = time.perf_counter()
         cuda_lib.library(name)
-        secs[name] = time.perf_counter() - t0
-    wall = sum(secs.values())
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        secs = dict(zip(LIBRARIES, pool.map(build, LIBRARIES)))
+    wall = time.perf_counter() - t0
     for name in LIBRARIES:
         text = cuda_lib.build_log(name)
         regs = sorted({int(line.split("Used ")[1].split()[0])
@@ -136,17 +157,32 @@ def phase_build() -> dict:
         log(f"[build] csrc/{name}.cu: {secs[name]:.2f} s; ptxas: {regs} "
             f"registers per thread over the kernels' instances; spills: "
             f"{spills or 'none'}")
-    log(f"[build] {len(LIBRARIES)} sources in {wall:.2f} s")
+    log(f"[build] {len(LIBRARIES)} sources in parallel in {wall:.2f} s")
     return {"build_s": wall, "per_source_s": secs}
+
+
+def _row_cases_equal(name, what, pairs) -> float:
+    """(kernel, plain) result pairs, bit-equal; returns the max |diff|."""
+    import torch
+    torch.cuda.synchronize()
+    e = max((g.float() - w.float()).abs().max().item() if g.numel() else 0.0
+            for g, w in pairs)
+    if not all(torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{name} != plain at {what} (err {e})")
+    return e
 
 
 def phase_kernels() -> dict:
     import torch
 
     from repro_torch.core import arch as A
-    from repro_torch.kernels.banked_gather.ops import (banked_gather,
+    from repro_torch.kernels.banked_gather.ops import (GATHERS,
+                                                       banked_gather,
+                                                       banked_gather_pair,
                                                        banked_gather_plain)
-    from repro_torch.kernels.banked_scatter.ops import (banked_scatter,
+    from repro_torch.kernels.banked_scatter.ops import (SCATTERS,
+                                                        banked_scatter,
+                                                        banked_scatter_pair,
                                                         banked_scatter_plain)
     archs = ["16B", "16B-offset", "16B-offset-s2", "16B-xor", "16B-fold",
              "8B", "8B-offset", "8B-offset-s2", "8B-xor", "8B-fold",
@@ -154,67 +190,78 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     err = {"banked_gather": 0.0, "banked_scatter": 0.0}
     cases = 0
+    GATHERS.launches = SCATTERS.launches = 0
     for name in archs:
         lay = A.get(name).layout
+        args = (lay.n_banks, lay.mapping, lay.shift)
         v = lay.n_banks * 48
         for dtype in (torch.float32, torch.bfloat16):
             for d in (4096, 1024, 36):
-                table = torch.randn((v, d), device="cuda").to(dtype)
+                what = f"{name} {dtype} D={d}"
+                table, table2 = (torch.randn((v, d), device="cuda").to(dtype)
+                                 for _ in range(2))
                 idx = torch.as_tensor(rng.integers(0, v, 40),
                                       device="cuda")
-                got = banked_gather(table, idx, lay.n_banks, lay.mapping,
-                                    lay.shift)
-                want = banked_gather_plain(table, idx, lay.n_banks,
-                                           lay.mapping, lay.shift)
-                e_g = (got.float() - want.float()).abs().max().item()
-                # scatter with duplicates: every third index repeats one
-                sidx = torch.as_tensor(rng.integers(0, v, 24), device="cuda")
-                sidx[::3] = sidx[1]
-                upd = torch.randn((24, d), device="cuda").to(dtype)
-                t_k = banked_scatter(table.clone(), sidx, upd, lay.n_banks,
-                                     lay.mapping, lay.shift)
-                t_p = banked_scatter_plain(table.clone(), sidx, upd,
-                                           lay.n_banks, lay.mapping,
-                                           lay.shift)
-                e_s = (t_k.float() - t_p.float()).abs().max().item()
-                back = banked_gather(t_k, sidx, lay.n_banks, lay.mapping,
-                                     lay.shift)
-                back_p = banked_gather_plain(t_p, sidx, lay.n_banks,
-                                             lay.mapping, lay.shift)
-                torch.cuda.synchronize()
-                ok = (torch.equal(got, want) and torch.equal(t_k, t_p)
-                      and torch.equal(back, back_p))
-                if not ok:
-                    raise AssertionError(
-                        f"kernel != plain on {name} {dtype} D={d}: gather "
-                        f"err {e_g}, scatter err {e_s}")
-                err["banked_gather"] = max(err["banked_gather"], e_g)
-                err["banked_scatter"] = max(err["banked_scatter"], e_s)
+                pair = banked_gather_pair(table, table2, idx, *args)
+                err["banked_gather"] = max(err["banked_gather"],
+                                           _row_cases_equal(
+                    "banked_gather", what, [
+                        (banked_gather(table, idx, *args),
+                         banked_gather_plain(table, idx, *args)),
+                        (pair[0], banked_gather_plain(table, idx, *args)),
+                        (pair[1], banked_gather_plain(table2, idx, *args))]))
+                # scatter with duplicates: every third index repeats one; 24
+                # indices take the one-launch path, 600 the claimed one
+                for n in (24, 600):
+                    sidx = torch.as_tensor(rng.integers(0, v, n),
+                                           device="cuda")
+                    sidx[::3] = sidx[1]
+                    upd, upd2 = (torch.randn((n, d), device="cuda").to(dtype)
+                                 for _ in range(2))
+                    t_k = banked_scatter(table.clone(), sidx, upd, *args)
+                    t_p = banked_scatter_plain(table.clone(), sidx, upd,
+                                               *args)
+                    p_k = banked_scatter_pair(table.clone(), table2.clone(),
+                                              sidx, upd, upd2, *args)
+                    p_p = banked_scatter_plain(table2.clone(), sidx, upd2,
+                                               *args)
+                    err["banked_scatter"] = max(
+                        err["banked_scatter"], _row_cases_equal(
+                            "banked_scatter", f"{what} N={n}",
+                            [(t_k, t_p), (p_k[0], t_p), (p_k[1], p_p)]))
+                    _row_cases_equal("banked_gather", f"{what} after the "
+                                     f"N={n} scatter", [
+                                         (banked_gather(t_k, sidx, *args),
+                                          banked_gather_plain(t_p, sidx,
+                                                              *args))])
                 cases += 1
-    log(f"[kernels] {cases} cases bit-equal to the plain versions "
-        f"({len(archs)} layouts x f32/bf16 x D in 4096/1024/36)")
+    entries = {**GATHERS.by_entry(), **SCATTERS.by_entry()}
+    log(f"[kernels] {cases} cases, single and paired, bit-equal to the plain "
+        f"versions ({len(archs)} layouts x f32/bf16 x D in 4096/1024/36; "
+        f"scatters of 24 and 600 indices with duplicates); launches by "
+        f"entry: {entries}")
+    if not all(entries.values()):
+        raise AssertionError(f"an entry never launched: {entries}")
 
     # a multi-port memory has no banked layout: the registry runs the same
     # kernels with one bank (the identity map), never the plain version
     from repro_torch import kernels as K
-    from repro_torch.kernels.banked_gather.ops import GATHER
-    from repro_torch.kernels.banked_scatter.ops import SCATTER
     table = torch.randn((96, 4096), device="cuda").to(torch.bfloat16)
     idx = torch.as_tensor(rng.integers(0, 96, 40), device="cuda")
     idx[::3] = idx[1]
     upd = torch.randn((40, 4096), device="cuda").to(torch.bfloat16)
-    g0, s0 = GATHER.launches, SCATTER.launches
+    g0, s0 = GATHERS.launches, SCATTERS.launches
     got = K.get("banked_gather").run("4R-1W", table, idx)
     new = K.get("banked_scatter").run("4R-1W", table, idx, upd)
     torch.cuda.synchronize()
-    ran = (GATHER.launches - g0, SCATTER.launches - s0)
+    ran = (GATHERS.launches - g0, SCATTERS.launches - s0)
     same = (torch.equal(got, table[idx]) and torch.equal(
         new, banked_scatter_plain(table.clone(), idx, upd, 1, "lsb")))
     log(f"[kernels] 4R-1W (no banked layout) through the registry: "
         f"launches {ran}, bit-equal to plain: {same}")
     if ran != (1, 1) or not same:
         raise AssertionError("the multi-port route missed the kernels")
-    return {"max_abs_err": err, "cases": cases}
+    return {"max_abs_err": err, "cases": cases, "entries": entries}
 
 
 def phase_serve() -> dict:
@@ -222,8 +269,8 @@ def phase_serve() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.kernels.banked_gather.ops import GATHER
-    from repro_torch.kernels.banked_scatter.ops import SCATTER
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeEngine
@@ -239,24 +286,55 @@ def phase_serve() -> dict:
                                                 (BATCH, PROMPT))
     engine.generate(prompts, max_new_tokens=2)       # warm-up (cuBLAS etc.)
 
-    GATHER.launches = SCATTER.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {"banked_gather": GATHER.launches,
-                "banked_scatter": SCATTER.launches}
+    # every call of a plain version during the run is counted: on CUDA
+    # tensors the wrappers must launch their kernels, never these
+    plain_calls = {"banked_gather_plain": 0, "banked_scatter_plain": 0}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def call(*args, **kw):
+            plain_calls[name] += 1
+            return fn(*args, **kw)
+        return fn, call
+
+    originals = {}
+    for mod, name in ((G, "banked_gather_plain"), (S, "banked_scatter_plain")):
+        originals[mod, name], patched = counted(mod, name)
+        setattr(mod, name, patched)
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    launches = {"banked_gather": G.GATHERS.launches,
+                "banked_scatter": S.SCATTERS.launches}
+    entries = {"banked_gather": G.GATHERS.by_entry(),
+               "banked_scatter": S.SCATTERS.by_entry()}
     n_kv, steps = engine.n_kv_layers, NEW - 1
-    want = {"banked_gather": 2 * n_kv * steps,
-            "banked_scatter": 2 * n_kv * steps + 2 * n_kv}
+    # one launch per KV layer for its K and V pools: a gather and an
+    # append per decode step, one ingest per layer after the prefill
+    want = {"banked_gather": n_kv * steps,
+            "banked_scatter": n_kv * steps + n_kv}
     log(f"[serve] llama3.2-1b full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}): {BATCH} requests x {PROMPT} prompt + {NEW} new "
         f"tokens in {secs:.3f} s = {BATCH * NEW / secs:.1f} tokens/s "
         f"(prefill included)")
-    log(f"[serve] launches on the path: {launches} (expected {want})")
+    log(f"[serve] launches on the path: {launches} (expected {want}); by "
+        f"entry: {entries}; plain versions called: {plain_calls}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    if (entries["banked_gather"]["banked_gather_pair_launch"]
+            != want["banked_gather"]
+            or entries["banked_scatter"]["banked_scatter_pair_launch"]
+            != want["banked_scatter"] or any(plain_calls.values())):
+        raise AssertionError(f"the path left the paired kernels: {entries}, "
+                             f"plain calls {plain_calls}")
     tokens = res.tokens
     if tokens.shape != (BATCH, NEW) or tokens.min() < 0 or (
             tokens.max() >= cfg.vocab_size):
@@ -316,9 +394,10 @@ def phase_serve() -> dict:
         f"ops; equal to simulate_serving_trace: {same}")
     if not same:
         raise AssertionError("live trace != simulated trace")
-    return {"engine": engine, "launches": launches, "tokens_per_s":
-            BATCH * NEW / secs, "generate_s": secs, "logit_err": logit_err,
-            "logit_scale": scale, "wrong_page_logit_change": wrong,
+    return {"engine": engine, "launches": launches, "entries": entries,
+            "tokens_per_s": BATCH * NEW / secs, "generate_s": secs,
+            "logit_err": logit_err, "logit_scale": scale,
+            "wrong_page_logit_change": wrong,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -353,11 +432,11 @@ def phase_cost(engine) -> dict:
 
 
 def _serving_inputs(engine) -> dict:
-    """The row kernels' inputs at the serve phase's shapes: its pool
-    (n_pages x row_width, compute dtype, random contents), the batch's
-    page lists (one decode step's gather), each sequence's current page
-    (one decode step's append) and the prompt pages (the prefill ingest),
-    with update rows for both scatters."""
+    """The row kernels' inputs at the serve phase's shapes: a layer's K and
+    V pools (n_pages x row_width, compute dtype, random contents), the
+    batch's page lists (one decode step's gather), each sequence's current
+    page (one decode step's append) and the prompt pages (the prefill
+    ingest), with K and V update rows for both scatters."""
     import torch
     kv, lay = engine.kv_cfg, engine.mem_arch.layout
     pt = engine.last_pages.page_table
@@ -366,26 +445,31 @@ def _serving_inputs(engine) -> dict:
     ids = {"read": pt.clamp(min=0).reshape(-1),
            "append": pt[:, (PROMPT + NEW - 2) // PAGE_LEN].clamp(min=0),
            "ingest": pt[:, :n_pref].clamp(min=0).reshape(-1)}
+
+    def rand(rows):
+        return torch.randn((rows, kv.row_width), device="cuda").to(dtype)
     return {"kv": kv, "dtype": dtype, "ids": ids,
             "args": (lay.n_banks, lay.mapping, lay.shift),
-            "pool": torch.randn((kv.n_pages, kv.row_width),
-                                device="cuda").to(dtype),
-            "upd": {k: torch.randn((ids[k].shape[0], kv.row_width),
-                                   device="cuda").to(dtype)
-                    for k in ("append", "ingest")}}
+            "pool": rand(kv.n_pages), "pool2": rand(kv.n_pages),
+            "upd": {k: rand(ids[k].shape[0]) for k in ("append", "ingest")},
+            "upd2": {k: rand(ids[k].shape[0]) for k in ("append", "ingest")}}
 
 
 def phase_path_kernels(engine) -> dict:
-    """Both kernels against their plain versions, bit-equal, on the
-    serving pool at the shapes the serve phase gave them."""
+    """Both kernels, single and paired, against their plain versions,
+    bit-equal, on the serving pools at the shapes the serve phase gave
+    them."""
     import torch
 
     from repro_torch.kernels.banked_gather.ops import (banked_gather,
+                                                       banked_gather_pair,
                                                        banked_gather_plain)
     from repro_torch.kernels.banked_scatter.ops import (banked_scatter,
+                                                        banked_scatter_pair,
                                                         banked_scatter_plain)
     inp = _serving_inputs(engine)
-    pool, ids, args = inp["pool"], inp["ids"], inp["args"]
+    pool, pool2, ids, args = inp["pool"], inp["pool2"], inp["ids"], \
+        inp["args"]
     err = {"banked_gather": 0.0, "banked_scatter": 0.0}
 
     def held(name, what, got, want):
@@ -397,77 +481,353 @@ def phase_path_kernels(engine) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"{name} != plain at {what} (err {e})")
 
-    held("banked_gather", f"decode read of {ids['read'].shape[0]} lines",
-         banked_gather(pool, ids["read"], *args),
-         banked_gather_plain(pool, ids["read"], *args))
+    read = ids["read"]
+    held("banked_gather", f"decode read of {read.shape[0]} lines",
+         banked_gather(pool, read, *args),
+         banked_gather_plain(pool, read, *args))
+    for got, p in zip(banked_gather_pair(pool, pool2, read, *args),
+                      (pool, pool2)):
+        held("banked_gather", f"paired decode read of {read.shape[0]} lines",
+             got, banked_gather_plain(p, read, *args))
     for step in ("append", "ingest"):
-        k = banked_scatter(pool.clone(), ids[step], inp["upd"][step], *args)
-        p = banked_scatter_plain(pool.clone(), ids[step], inp["upd"][step],
-                                 *args)
+        upd, upd2 = inp["upd"][step], inp["upd2"][step]
+        k = banked_scatter(pool.clone(), ids[step], upd, *args)
+        p = banked_scatter_plain(pool.clone(), ids[step], upd, *args)
         held("banked_scatter", f"{step} of {ids[step].shape[0]} lines", k, p)
+        pk = banked_scatter_pair(pool.clone(), pool2.clone(), ids[step], upd,
+                                 upd2, *args)
+        p2 = banked_scatter_plain(pool2.clone(), ids[step], upd2, *args)
+        held("banked_scatter", f"paired {step} of {ids[step].shape[0]} lines",
+             pk[0], p)
+        held("banked_scatter", f"paired {step} of {ids[step].shape[0]} "
+             f"lines, V", pk[1], p2)
         held("banked_gather", f"decode read after the {step}",
-             banked_gather(k, ids["read"], *args),
-             banked_gather_plain(p, ids["read"], *args))
+             banked_gather(k, read, *args),
+             banked_gather_plain(p, read, *args))
     return {"max_abs_err": err}
 
 
+def _host_us(fn, iters: int = 2000) -> float:
+    """Host time per call in µs: the host clock over ``iters`` back-to-back
+    calls after a warm-up, read before the closing sync (what the host
+    spends enqueueing; the device keeps up at these shapes)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def _us(r: dict) -> dict:
+    return {k: v * 1e3 for k, v in r.items()
+            if k.endswith("ms") and isinstance(v, float)}
+
+
 def phase_times(engine) -> dict:
+    """The row kernels at the serving shapes (one decode step: the 40-line
+    read, the 4-line append), single and paired, each beside its byte
+    bound, its plain version and the library call (one per table for a
+    pair); then where a paired call's host time goes."""
     import torch
 
-    from repro_torch.bench.kernel_bench import bound_ms, graph_ms, time_ms
+    from repro_torch.bench.kernel_bench import bound_ms, timed
     from repro_torch.core.arch import physical_row_of
-    from repro_torch.kernels.banked_gather.ops import (banked_gather,
-                                                       banked_gather_plain)
-    from repro_torch.kernels.banked_scatter.ops import (banked_scatter,
-                                                        banked_scatter_plain)
+    from repro_torch.kernels import cuda_lib, registry
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.serving import kvcache as KV
     inp = _serving_inputs(engine)
-    kv, dtype, pool, args = inp["kv"], inp["dtype"], inp["pool"], inp["args"]
+    kv, dtype, args = inp["kv"], inp["dtype"], inp["args"]
+    pool, pool2 = inp["pool"], inp["pool2"]
     lay = engine.mem_arch.layout
-    rpb = kv.n_pages // lay.n_banks
-    # one decode step's shapes: the page lists of the batch (gather) and
-    # each sequence's current page (scatter)
-    read_ids, cur_ids = inp["ids"]["read"], inp["ids"]["append"]
-    upd = inp["upd"]["append"]
-    read_phys = physical_row_of(read_ids, lay.n_banks, rpb, lay.mapping,
-                                lay.shift)
-    cur_phys = physical_row_of(cur_ids, lay.n_banks, rpb, lay.mapping,
-                               lay.shift)
-    elt = pool.element_size()
+    read, cur = inp["ids"]["read"], inp["ids"]["append"]
+    upd, upd2 = inp["upd"]["append"], inp["upd2"]["append"]
+    read_phys, cur_phys = (physical_row_of(i, lay.n_banks,
+                                           kv.n_pages // lay.n_banks,
+                                           lay.mapping, lay.shift)
+                           for i in (read, cur))
+    row = kv.row_width * pool.element_size()
 
-    def bound(n: int) -> float:
-        # each input read once, each output written once: n rows in, n rows
-        # out, n int64 indices
-        return bound_ms(2 * n * kv.row_width * elt + 8 * n)[0]
+    def bound(n: int, tables: int) -> tuple:
+        # each input read once, each output written once: n rows in and n
+        # rows out per table, n int64 indices
+        return bound_ms(2 * tables * n * row + 8 * n)
 
     out = {}
-    for name, n, kern, plain, lib in (
-            ("banked_gather", read_ids.shape[0],
-             lambda: banked_gather(pool, read_ids, *args),
-             lambda: banked_gather_plain(pool, read_ids, *args),
+    for name, n, tables, kern, plain, lib in (
+            ("banked_gather", read.shape[0], 1,
+             lambda: G.banked_gather(pool, read, *args),
+             lambda: G.banked_gather_plain(pool, read, *args),
              lambda: torch.index_select(pool, 0, read_phys)),
-            ("banked_scatter", cur_ids.shape[0],
-             lambda: banked_scatter(pool, cur_ids, upd, *args),
-             lambda: banked_scatter_plain(pool, cur_ids, upd, *args),
-             lambda: pool.index_copy_(0, cur_phys, upd))):
-        # per call from Python, back to back: plain, kernel, kernel, plain
-        # (and the yardstick) in one call; then the device time alone
-        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                          time_ms(plain))
-        out[name] = {"rows": int(n), "row_width": kv.row_width,
-                     "dtype": str(dtype), "ms": min(k1, k2),
-                     "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
-                     "plain_ms_runs": [p1, p2], "library_ms": time_ms(lib),
-                     "device_ms": graph_ms(kern),
-                     "library_device_ms": graph_ms(lib),
-                     "bound_ms": bound(n)}
-        r = out[name]
-        us = {k: v * 1e3 for k, v in r.items() if k.endswith("ms")}
-        log(f"[times] {name}: {n} rows x {kv.row_width} {dtype}, per call "
-            f"from Python: kernel {us['ms']:.2f} us, plain "
-            f"{us['plain_ms']:.2f} us, library {us['library_ms']:.2f} us; "
+            ("banked_gather", read.shape[0], 2,
+             lambda: G.banked_gather_pair(pool, pool2, read, *args),
+             lambda: (G.banked_gather_plain(pool, read, *args),
+                      G.banked_gather_plain(pool2, read, *args)),
+             lambda: (torch.index_select(pool, 0, read_phys),
+                      torch.index_select(pool2, 0, read_phys))),
+            ("banked_scatter", cur.shape[0], 1,
+             lambda: S.banked_scatter(pool, cur, upd, *args),
+             lambda: S.banked_scatter_plain(pool, cur, upd, *args),
+             lambda: pool.index_copy_(0, cur_phys, upd)),
+            ("banked_scatter", cur.shape[0], 2,
+             lambda: S.banked_scatter_pair(pool, pool2, cur, upd, upd2,
+                                           *args),
+             lambda: (S.banked_scatter_plain(pool, cur, upd, *args),
+                      S.banked_scatter_plain(pool2, cur, upd2, *args)),
+             lambda: (pool.index_copy_(0, cur_phys, upd),
+                      pool2.index_copy_(0, cur_phys, upd2)))):
+        r = timed(kern, plain, lib, bound(n, tables), graph_iters=100,
+                  iters=200)
+        r.update(rows=int(n), tables=tables, row_width=kv.row_width,
+                 dtype=str(dtype))
+        out[f"{name}_{'pair' if tables == 2 else 'single'}"] = r
+        us = _us(r)
+        lib_name = ("index_select" if name == "banked_gather"
+                    else "index_copy_") + (" x2" if tables == 2 else "")
+        log(f"[times] {name} {'paired' if tables == 2 else 'single'}: "
+            f"{n} rows x {kv.row_width} {dtype} x {tables} table(s), per "
+            f"call from Python: kernel {us['ms']:.2f} us, plain "
+            f"{us['plain_ms']:.2f} us, {lib_name} {us['library_ms']:.2f} "
+            f"us; device time in a CUDA graph: kernel "
+            f"{us['device_ms']:.3f} us, {lib_name} "
+            f"{us['library_device_ms']:.3f} us; bound {us['bound_ms']:.3f} "
+            f"us (bytes)")
+
+    # where a paired call's host time goes (per call, µs)
+    n, v, d = read.shape[0], kv.n_pages, kv.row_width
+    rmap = G.map_arg(v, n, *args)
+    chunk = G.chunk_bytes(n, row)
+    gout = torch.empty((2, n, d), dtype=dtype, device="cuda")
+    ptrs = (pool.data_ptr(), pool2.data_ptr(), gout.data_ptr(),
+            gout.data_ptr() + n * row, read.data_ptr())
+    gather_run = registry.get("banked_gather").run
+    scatter_run = registry.get("banked_scatter").run
+    arch = engine.mem_arch
+    nc = cur.shape[0]
+    smap = G.map_arg(v, nc, *args)
+    sptrs = (pool.data_ptr(), pool2.data_ptr(), upd.data_ptr(),
+             upd2.data_ptr(), cur.data_ptr())
+    host = {
+        "gather_pair": {
+            "kvcache.gather_pages_pair": _host_us(
+                lambda: KV.gather_pages_pair(kv, pool, pool2, read)),
+            "banked_gather_pair": _host_us(
+                lambda: G.banked_gather_pair(pool, pool2, read, *args)),
+            "checks": _host_us(lambda: (G.check_rows(pool, read, *args[:2]),
+                                        G.check_pair(pool, pool2))),
+            "map constants": _host_us(lambda: (G.map_arg(v, n, *args),
+                                               G.chunk_bytes(n, row))),
+            "torch.empty": _host_us(
+                lambda: torch.empty((2, n, d), dtype=dtype, device="cuda")),
+            "new_empty": _host_us(lambda: pool.new_empty((2, n, d))),
+            "torch.cuda.current_stream()": _host_us(
+                lambda: torch.cuda.current_stream().cuda_stream),
+            "raw current stream": _host_us(cuda_lib.current_stream),
+            "ctypes launch": _host_us(
+                lambda: G.GATHER_PAIR(*ptrs, n, row, chunk, rmap)),
+            "two registry.run calls (the parent's path)": _host_us(
+                lambda: (gather_run(arch, pool, read, table_banked=True),
+                         gather_run(arch, pool2, read, table_banked=True))),
+        },
+        "scatter_pair": {
+            "kvcache.scatter_pages_pair": _host_us(
+                lambda: KV.scatter_pages_pair(kv, pool, pool2, cur, upd,
+                                              upd2)),
+            "banked_scatter_pair": _host_us(
+                lambda: S.banked_scatter_pair(pool, pool2, cur, upd, upd2,
+                                              *args)),
+            "checks": _host_us(lambda: (
+                G.check_rows(pool, cur, *args[:2]), G.check_pair(pool, pool2),
+                S._check_updates(pool, cur, upd),
+                S._check_updates(pool2, cur, upd2))),
+            "ctypes launch": _host_us(
+                lambda: S.SCATTER_PAIR(*sptrs, nc, row,
+                                       G.chunk_bytes(nc, row), smap)),
+            "two registry.run calls (the parent's path)": _host_us(
+                lambda: (scatter_run(arch, pool, cur, upd, table_banked=True),
+                         scatter_run(arch, pool2, cur, upd2,
+                                     table_banked=True))),
+        }}
+    for what, split in host.items():
+        log(f"[times] host time of a {what} call at the serving shape "
+            f"(per call, 2000 calls): " + ", ".join(
+                f"{k} {v:.2f} us" for k, v in split.items()))
+    out["host_us"] = host
+    return out
+
+
+ROW_POOL_PAGES, ROW_LINES = 32768, 16384   # a 16B pool; 4 requests x 32 K
+                                            # tokens of 8-token pages
+ROW_WIDTH = 4096                            # one page line of llama3.2-1b
+SCATTER_SIZES = (1024, 4096, 16384)
+
+
+def _quarter_duplicated(ids, gen):
+    """ids with a random quarter of its entries replaced by other entries
+    of ids (so about a quarter of the updates lose to a later writer)."""
+    import torch
+    n = ids.shape[0]
+    out = ids.clone()
+    pick = torch.randperm(n, device=ids.device, generator=gen)[:n // 4]
+    out[pick] = ids[torch.randint(0, n, (n // 4,), device=ids.device,
+                                  generator=gen)]
+    return out
+
+
+def phase_row_times() -> dict:
+    """Both row kernels where bytes rule: 16384 lines of 4096 bf16 (a 32 K
+    context of 4 requests, one layer's K) from a 32768-page 16B pool,
+    single and paired, held bit-equal to the plain versions first; the
+    scatter with a quarter of its indices duplicated, beside index_copy_
+    on distinct indices, and at N = 1024 / 4096 / 16384 (time linear in
+    N); then the designs tried: the row chunk of a warp, and the one-launch
+    against the claimed scatter at small N."""
+    import torch
+
+    from repro_torch.bench.kernel_bench import bound_ms, graph_ms, timed
+    from repro_torch.core import arch as A
+    from repro_torch.core.arch import physical_row_of
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+    lay = A.get("16B").layout
+    args = (lay.n_banks, lay.mapping, lay.shift)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    v, n, d = ROW_POOL_PAGES, ROW_LINES, ROW_WIDTH
+    pool, pool2 = (torch.randn((v, d), device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    row = d * pool.element_size()
+    ids = torch.randperm(v, device="cuda", generator=gen)[:n]
+    phys = physical_row_of(ids, lay.n_banks, v // lay.n_banks, lay.mapping,
+                           lay.shift)
+    err = {"banked_gather": 0.0, "banked_scatter": 0.0}
+    g1 = G.banked_gather(pool, ids, *args)
+    g2 = G.banked_gather_pair(pool, pool2, ids, *args)
+    err["banked_gather"] = _row_cases_equal("banked_gather", f"{n} lines", [
+        (g1, G.banked_gather_plain(pool, ids, *args)),
+        (g2[0], g1), (g2[1], G.banked_gather_plain(pool2, ids, *args))])
+    del g1, g2
+    out = {}
+    out["banked_gather"] = timed(
+        lambda: G.banked_gather(pool, ids, *args),
+        lambda: G.banked_gather_plain(pool, ids, *args),
+        lambda: torch.index_select(pool, 0, phys),
+        bound_ms(2 * n * row + 8 * n), graph_iters=20, iters=50)
+    out["banked_gather_pair"] = timed(
+        lambda: G.banked_gather_pair(pool, pool2, ids, *args),
+        lambda: (G.banked_gather_plain(pool, ids, *args),
+                 G.banked_gather_plain(pool2, ids, *args)),
+        lambda: (torch.index_select(pool, 0, phys),
+                 torch.index_select(pool2, 0, phys)),
+        bound_ms(4 * n * row + 8 * n), graph_iters=20, iters=50)
+
+    sidx = _quarter_duplicated(ids, gen)
+    distinct = int(sidx.unique().numel())
+    upd, upd2 = (torch.randn((n, d), device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    one = S.banked_scatter(pool.clone(), sidx, upd, *args)
+    two = S.banked_scatter_pair(pool.clone(), pool2.clone(), sidx, upd, upd2,
+                                *args)
+    err["banked_scatter"] = _row_cases_equal(
+        "banked_scatter", f"{n} lines, {n - distinct} losing duplicates", [
+            (one, S.banked_scatter_plain(pool.clone(), sidx, upd, *args)),
+            (two[0], one),
+            (two[1], S.banked_scatter_plain(pool2.clone(), sidx, upd2,
+                                            *args))])
+    del one, two
+    # the function's bytes: the indices, and each winning update read once
+    # and written once (the losers' rows need not move)
+    out["banked_scatter"] = timed(
+        lambda: S.banked_scatter(pool, sidx, upd, *args),
+        lambda: S.banked_scatter_plain(pool, sidx, upd, *args),
+        lambda: pool.index_copy_(0, phys, upd),
+        bound_ms(8 * n + 2 * distinct * row), graph_iters=20, iters=50)
+    out["banked_scatter_pair"] = timed(
+        lambda: S.banked_scatter_pair(pool, pool2, sidx, upd, upd2, *args),
+        lambda: (S.banked_scatter_plain(pool, sidx, upd, *args),
+                 S.banked_scatter_plain(pool2, sidx, upd2, *args)),
+        lambda: (pool.index_copy_(0, phys, upd),
+                 pool2.index_copy_(0, phys, upd2)),
+        bound_ms(8 * n + 4 * distinct * row), graph_iters=20, iters=50)
+    for name, r in out.items():
+        us = _us(r)
+        lib = ("index_select" if "gather" in name else
+               "index_copy_ (distinct indices)") + (
+                   " x2" if "pair" in name else "")
+        log(f"[row_times] {name} at {n} lines x {d} bf16 from {v} pages: "
+            f"per call from Python: kernel {us['ms']:.2f} us, plain "
+            f"{us['plain_ms']:.2f} us, {lib} {us['library_ms']:.2f} us; "
             f"device time in a CUDA graph: kernel {us['device_ms']:.3f} us, "
-            f"library {us['library_device_ms']:.3f} us; bound "
-            f"{us['bound_ms']:.3f} us (bytes)")
+            f"{lib} {us['library_device_ms']:.3f} us; bound "
+            f"{us['bound_ms']:.3f} us ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of it")
+    out["scatter_distinct_rows"] = distinct
+
+    # time linear in N: the scatter (quarter duplicated) at three sizes
+    linear = {}
+    for m in SCATTER_SIZES:
+        midx = _quarter_duplicated(ids[:m], gen)
+        linear[m] = graph_ms(lambda: S.banked_scatter(pool, midx, upd[:m],
+                                                      *args), 20)
+    base = SCATTER_SIZES[0]
+    ratios = {m: (linear[m] / linear[base]) / (m / base) for m in linear}
+    log(f"[row_times] banked_scatter device time by N (quarter "
+        f"duplicated): " + ", ".join(f"N={m}: {t * 1e3:.3f} us"
+                                     for m, t in linear.items())
+        + f"; time / N against N={base}: " + ", ".join(
+            f"{r:.3f}" for r in ratios.values()) + " (at most 1.5)")
+    if max(ratios.values()) > 1.5:
+        raise AssertionError(f"scatter time grows faster than N: {linear}")
+    out["scatter_by_n_ms"] = linear
+
+    # the designs tried: the row chunk a warp copies (the pair at the
+    # serving read's 40 lines, the single gather at 16384 lines), and the
+    # one-launch scatter against the claimed one at small N
+    tried = {"gather_chunk_bytes": {}, "scatter_path_pair": {}}
+    small = ids[:40]
+    outs = torch.empty((2, n, d), dtype=torch.bfloat16, device="cuda")
+    for chunk in (512, 1024, 2048, 4096, 8192):
+        def pair40(chunk=chunk):
+            G.GATHER_PAIR(pool.data_ptr(), pool2.data_ptr(), outs.data_ptr(),
+                          outs[1].data_ptr(), small.data_ptr(), 40, row,
+                          chunk, G.map_arg(v, 40, *args))
+
+        def single(chunk=chunk):
+            G.GATHER(pool.data_ptr(), outs.data_ptr(), ids.data_ptr(), n,
+                     row, chunk, G.map_arg(v, n, *args))
+        tried["gather_chunk_bytes"][chunk] = {
+            "pair_40_lines_ms": graph_ms(pair40, 100),
+            f"single_{n}_lines_ms": graph_ms(single, 20)}
+    claims = S.claim_words(pool.device, v).data_ptr()
+    for m in (4, 32, 256):
+        midx = _quarter_duplicated(ids[:m], gen)
+        rmap = G.map_arg(v, m, *args)
+        ptrs = (pool.data_ptr(), pool2.data_ptr(), upd.data_ptr(),
+                upd2.data_ptr())
+
+        def staged(midx=midx, rmap=rmap, m=m):
+            S.SCATTER_PAIR(*ptrs, midx.data_ptr(), m, row,
+                           G.chunk_bytes(m, row), rmap)
+
+        def claimed(midx=midx, rmap=rmap, m=m):
+            S.CLAIM(midx.data_ptr(), m, claims, rmap)
+            S.CLAIMED_COPY(2, ptrs[0], ptrs[1], ptrs[2], ptrs[3],
+                           midx.data_ptr(), m, row, claims, rmap)
+        tried["scatter_path_pair"][m] = {"one_launch_ms": graph_ms(staged,
+                                                                   100),
+                                         "claimed_ms": graph_ms(claimed,
+                                                                100)}
+    for what, rows in tried.items():
+        log(f"[row_times] tried, {what} (device time in a CUDA graph, us): "
+            + "; ".join(f"{k}: " + ", ".join(f"{kk} {vv * 1e3:.3f}"
+                                              for kk, vv in r.items())
+                        for k, r in rows.items()))
+    out["tried"] = tried
+    out["max_abs_err"] = err
     return out
 
 
@@ -888,17 +1248,17 @@ def phase_controllers() -> dict:
 
 
 def _entries() -> dict:
-    """Every kernel's C entry (its launch count), by kernel name; the
-    dispatch's is the sum over its three entries, the FFT's the transform's
-    tile launch (the bench's row runs n = 4096)."""
-    from repro_torch.kernels.banked_gather.ops import GATHER
-    from repro_torch.kernels.banked_scatter.ops import SCATTER
+    """Every kernel's C entry (its launch count), by kernel name; the row
+    kernels' and the dispatch's are the sums over their entries, the FFT's
+    the transform's tile launch (the bench's row runs n = 4096)."""
+    from repro_torch.kernels.banked_gather.ops import GATHERS
+    from repro_torch.kernels.banked_scatter.ops import SCATTERS
     from repro_torch.kernels.banked_transpose.ops import TRANSPOSE
     from repro_torch.kernels.carry_arbiter.ops import ARBITER
     from repro_torch.kernels.conflict_popcount.ops import POPCOUNT
     from repro_torch.kernels.fft_stage.ops import TRANSFORM
     from repro_torch.kernels.moe_dispatch.ops import DISPATCH
-    return {"banked_gather": GATHER, "banked_scatter": SCATTER,
+    return {"banked_gather": GATHERS, "banked_scatter": SCATTERS,
             "banked_transpose": TRANSPOSE, "fft_stage": TRANSFORM,
             "conflict_popcount": POPCOUNT, "carry_arbiter": ARBITER,
             "moe_dispatch": DISPATCH}
@@ -1196,6 +1556,7 @@ def main() -> int:
     record["dispatch"] = phase_dispatch()
     record["bench"] = phase_bench()
     record["times"] = phase_times(engine)
+    record["row_times"] = phase_row_times()
     record["table_times"] = phase_table_times()
     record["controller_times"] = phase_controller_times()
     record["dispatch_times"] = phase_dispatch_times()
@@ -1219,17 +1580,29 @@ def main() -> int:
             "src/repro/kernels/conflict_popcount/kernel.py:43",
         "carry_arbiter": "src/repro/kernels/carry_arbiter/kernel.py:41",
         "moe_dispatch": "src/repro/kernels/moe_dispatch/kernel.py:59"}
-    kernels = [{"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/banked_rows.cu",
-                "replaces": replaces[name],
-                "launches": serve["launches"][name],
-                "max_abs_err": max(
-                    record["kernels"]["max_abs_err"][name],
-                    record["path_kernels"]["max_abs_err"][name]),
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": "bytes",
-                "library_ms": t["library_ms"]}
-               for name, t in record["times"].items()]
+    # the row kernels: launches of the serving path (by entry too), times
+    # where bytes rule (single table, 16384 lines), the serving shapes'
+    # single and paired times beside them
+    kernels = []
+    for name in ("banked_gather", "banked_scatter"):
+        t = record["row_times"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/banked_rows.cu",
+            "replaces": replaces[name],
+            "launches": serve["launches"][name],
+            "entries": serve["entries"][name],
+            "max_abs_err": max(record["kernels"]["max_abs_err"][name],
+                               record["path_kernels"]["max_abs_err"][name],
+                               record["row_times"]["max_abs_err"][name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "serving": {k: {f: record["times"][f"{name}_{k}"][f]
+                            for f in ("ms", "device_ms", "plain_ms",
+                                      "library_ms", "library_device_ms",
+                                      "bound_ms")}
+                        for k in ("single", "pair")}})
     # the tables' kernels; the FFT's launches are its C entries' on the
     # tables path, by symbol
     table_launches = record["tables"]["launches"]

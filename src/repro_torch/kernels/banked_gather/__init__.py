@@ -1,4 +1,5 @@
 from repro_torch.kernels.banked_gather.ops import (banked_gather,
+                                                   banked_gather_pair,
                                                    banked_gather_plain,
                                                    banked_gather_trace,
                                                    banked_gather_trace_blocks)
@@ -31,4 +32,4 @@ register(Kernel(
     description="bank-major row gather (paged KV read path)",
 ))
 
-__all__ = ["banked_gather", "banked_gather_plain"]
+__all__ = ["banked_gather", "banked_gather_pair", "banked_gather_plain"]

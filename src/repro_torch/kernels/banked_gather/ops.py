@@ -6,34 +6,104 @@ hand-written kernel of ``csrc/banked_rows.cu`` (which replaces the Pallas
 ``banked_gather_kernel`` of ``src/repro/kernels/banked_gather/kernel.py``;
 the source says what bounds it and how the design answers that), for a CPU
 table it runs ``banked_gather_plain``, the same function in plain PyTorch.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  ``banked_gather_pair`` gathers
+the same rows from two tables of one shape (a layer's K and V pools) in one
+launch.
+
+The host side of the row map lives here too: ``row_map`` computes, once per
+(rows, layout, index width), the constants the kernels' integer path needs
+(shift and mask for power-of-two bank counts, a multiply-shift divisor for
+the others), and ``index_bits`` picks the index width.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.arch import BankedLayout, physical_row_of
-from repro_torch.kernels.cuda_lib import CudaEntry
-
-D_TILE = 512
+from repro_torch.kernels.cuda_lib import CudaEntry, EntryGroup
 
 #: map-name -> the kernel's MapKind code
 MAP_CODES = {"lsb": 0, "offset": 1, "xor": 2, "fold": 3}
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+INT32_MAX = 2 ** 31 - 1
 
-#: the C entry and its launch count (``GATHER.launches``)
+#: the row chunk of a small call (two 16-byte words a lane), and the call
+#: size from which each warp takes a whole row (``chunk_bytes``); both
+#: chosen on the card by the chunk sweep of chip_smoke.py's row_times
+CHUNK_BYTES = 1024
+WHOLE_ROWS_BYTES = 1 << 22
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+
+#: the C entries and their launch counts: one table, and two tables that
+#: share the indices; ``GATHERS.launches`` is the kernel's, their sum.
+#: Every entry ends with the row map's address (``map_arg``).
 GATHER = CudaEntry("banked_rows", "banked_gather_launch",
-                   [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _I32,
-                    _I32])
+                   [_P, _P, _P, _I64, _I64, _I64, _P])
+GATHER_PAIR = CudaEntry("banked_rows", "banked_gather_pair_launch",
+                        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P])
+GATHERS = EntryGroup(GATHER, GATHER_PAIR)
 
 
-def row_tile(d: int) -> int:
-    """Row-tile width in elements: D_TILE when it divides the row, else the
-    whole row as one tile (narrow rows such as page lines)."""
-    return D_TILE if d % D_TILE == 0 else d
+class RowMap(ctypes.Structure):
+    """``struct RowMap`` of csrc/banked_rows.cu, field for field: a
+    bank-major table's row map as the kernels compute it, at index width
+    ``index_bits``.  ``magic`` = ceil(2^magic_shift / n_banks) divides by
+    a bank count that is not a power of two (``log2_banks`` = -1) on the
+    32-bit path, where every dividend is below 2^31 and magic_shift = 31
+    + ceil(log2 n_banks), so the quotient is exact."""
+    _fields_ = [("v_rows", ctypes.c_ulonglong),
+                ("rows_per_bank", ctypes.c_ulonglong),
+                ("magic", ctypes.c_ulonglong), ("n_banks", ctypes.c_int),
+                ("map", ctypes.c_int), ("shift", ctypes.c_int),
+                ("log2_banks", ctypes.c_int), ("magic_shift", ctypes.c_int),
+                ("index_bits", ctypes.c_int)]
+
+
+def index_bits(v_rows: int, n: int) -> int:
+    """The kernels' index width: 32 when the table's rows and the call's
+    indices fit in int32 (every serving pool), else 64."""
+    return 32 if v_rows <= INT32_MAX and n <= INT32_MAX else 64
+
+
+@functools.lru_cache(maxsize=None)
+def row_map(v_rows: int, n_banks: int, mapping: str, shift: int,
+            bits: int) -> RowMap:
+    """The kernels' row map of a (v_rows, D) table under a layout that
+    ``check_rows`` accepted, built once (the cache keeps it alive while
+    the kernels read it through its address)."""
+    if n_banks & (n_banks - 1) == 0:
+        log2, magic, magic_shift = n_banks.bit_length() - 1, 0, 0
+    else:
+        log2, magic_shift = -1, 31 + n_banks.bit_length()
+        magic = -(-(1 << magic_shift) // n_banks)
+    return RowMap(v_rows, v_rows // n_banks, magic, n_banks,
+                  MAP_CODES[mapping], shift, log2, magic_shift, bits)
+
+
+def map_arg(v_rows: int, n: int, n_banks: int, mapping: str,
+            shift: int) -> int:
+    """The address of the C entries' row map for a call of ``n`` indices
+    into a table of ``v_rows`` rows."""
+    return ctypes.addressof(row_map(v_rows, n_banks, mapping, shift,
+                                    index_bits(v_rows, n)))
+
+
+def chunk_bytes(n: int, row_bytes: int) -> int:
+    """The bytes of a row one warp copies: the whole row in a call of
+    WHOLE_ROWS_BYTES or more (or a row of CHUNK_BYTES or less), else
+    CHUNK_BYTES, so that a small call spreads over more warps."""
+    if n * row_bytes >= WHOLE_ROWS_BYTES or row_bytes <= CHUNK_BYTES:
+        return row_bytes
+    return CHUNK_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _check_layout(n_banks: int, mapping: str) -> None:
+    BankedLayout(n_banks, mapping)        # raises on a bad map / bank count
 
 
 def check_rows(table: torch.Tensor, idx: torch.Tensor, n_banks: int,
@@ -53,16 +123,22 @@ def check_rows(table: torch.Tensor, idx: torch.Tensor, n_banks: int,
     if table.shape[0] % n_banks:
         raise ValueError(f"{table.shape[0]} rows not divisible by "
                          f"{n_banks} banks")
-    BankedLayout(n_banks, mapping)        # validates the map / bank count
+    _check_layout(n_banks, mapping)
 
 
-def kernel_args(table: torch.Tensor, n_banks: int, mapping: str,
-                shift: int) -> tuple:
-    """(v_rows, row_bytes, tile_bytes, n_banks, map, shift, log2_banks)."""
-    v, d = table.shape
-    elt = table.element_size()
-    return (v, d * elt, row_tile(d) * elt, n_banks, MAP_CODES[mapping],
-            shift, n_banks.bit_length() - 1)
+def check_pair(first: torch.Tensor, second: torch.Tensor) -> None:
+    """A pair entry's second table (or update set) is of the first's
+    shape, dtype and device, and contiguous."""
+    if second.shape != first.shape:
+        raise ValueError(f"paired tensors {tuple(first.shape)} and "
+                         f"{tuple(second.shape)} differ in shape")
+    if second.dtype != first.dtype:
+        raise TypeError(f"paired tensors {first.dtype} and {second.dtype}")
+    if second.device != first.device:
+        raise ValueError(f"paired tensors on {first.device} and "
+                         f"{second.device}")
+    if not second.is_contiguous():
+        raise ValueError("the row kernels need contiguous tensors")
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:
@@ -90,13 +166,40 @@ def banked_gather(table_banked: torch.Tensor, idx: torch.Tensor,
     if table_banked.device.type == "cpu":
         return banked_gather_plain(table_banked, idx, n_banks, mapping, shift)
     require_cuda(table_banked, idx)
-    out = torch.empty((idx.shape[0], table_banked.shape[1]),
-                      dtype=table_banked.dtype, device=table_banked.device)
-    if idx.shape[0]:
-        GATHER(table_banked.data_ptr(), idx.data_ptr(), out.data_ptr(),
-               idx.shape[0], *kernel_args(table_banked, n_banks, mapping,
-                                          shift))
+    (v, d), n = table_banked.shape, idx.shape[0]
+    out = table_banked.new_empty((n, d))
+    if n:
+        row = d * table_banked.element_size()
+        GATHER(table_banked.data_ptr(), out.data_ptr(), idx.data_ptr(), n,
+               row, chunk_bytes(n, row),
+               map_arg(v, n, n_banks, mapping, shift))
     return out
+
+
+def banked_gather_pair(k_table: torch.Tensor, v_table: torch.Tensor,
+                       idx: torch.Tensor, n_banks: int = 16,
+                       mapping: str = "lsb",
+                       shift: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """``banked_gather`` of the same rows from two bank-major tables of one
+    shape and dtype (a layer's K and V pools): one launch on CUDA tables,
+    the plain version twice on CPU ones."""
+    check_rows(k_table, idx, n_banks, mapping)
+    check_pair(k_table, v_table)
+    if k_table.device.type == "cpu":
+        return (banked_gather_plain(k_table, idx, n_banks, mapping, shift),
+                banked_gather_plain(v_table, idx, n_banks, mapping, shift))
+    require_cuda(k_table, idx)
+    (v, d), n = k_table.shape, idx.shape[0]
+    out = k_table.new_empty((2, n, d))
+    if n:
+        row = d * k_table.element_size()
+        base = out.data_ptr()
+        GATHER_PAIR(k_table.data_ptr(), v_table.data_ptr(), base,
+                    base + n * row, idx.data_ptr(), n, row,
+                    chunk_bytes(n, row),
+                    map_arg(v, n, n_banks, mapping, shift))
+    k_out, v_out = out.unbind(0)
+    return k_out, v_out
 
 
 def banked_gather_trace(arch, table, idx, mask=None, **_):

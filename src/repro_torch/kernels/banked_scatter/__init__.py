@@ -1,6 +1,6 @@
 from repro_torch.kernels.banked_scatter.ops import (
-    banked_scatter, banked_scatter_plain, banked_scatter_trace,
-    banked_scatter_trace_blocks)
+    banked_scatter, banked_scatter_pair, banked_scatter_plain,
+    banked_scatter_trace, banked_scatter_trace_blocks)
 from repro_torch.kernels.banked_scatter.ref import banked_scatter_ref
 from repro_torch.kernels.registry import Kernel, register
 
@@ -36,4 +36,5 @@ register(Kernel(
     description="bank-major row scatter (paged KV write path)",
 ))
 
-__all__ = ["banked_scatter", "banked_scatter_plain"]
+__all__ = ["banked_scatter", "banked_scatter_pair",
+           "banked_scatter_plain"]

@@ -77,6 +77,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def current_stream() -> int:
+    """The raw handle of PyTorch's current CUDA stream on the current
+    device, the one ``torch.cuda.current_stream().cuda_stream`` gives,
+    read without building a ``Stream`` object (several µs a call on the
+    host); Triton's launcher reads it the same way."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
 class CudaEntry:
     """One C entry point of a kernel library and its launch count.
 
@@ -99,9 +107,32 @@ class CudaEntry:
 
     def __call__(self, *args) -> None:
         fn = self._fn or self._bind()
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, current_stream())
         if err:
             msg = getattr(library(self.lib),
                           f"{self.lib}_error_string")(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+class EntryGroup:
+    """The launches of a kernel with several C entries: the sum of their
+    counts (``launches``; setting it to 0 zeroes every entry) and the
+    counts by entry (``by_entry``)."""
+
+    def __init__(self, *entries: CudaEntry):
+        self.entries = entries
+
+    @property
+    def launches(self) -> int:
+        return sum(e.launches for e in self.entries)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n:
+            raise ValueError("a kernel's launch count resets to 0 only")
+        for e in self.entries:
+            e.launches = 0
+
+    def by_entry(self) -> dict[str, int]:
+        return {e.symbol: e.launches for e in self.entries}

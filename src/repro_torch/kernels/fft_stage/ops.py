@@ -181,21 +181,24 @@ def fft_stage_radix4(xr: torch.Tensor, xi: torch.Tensor, n: int,
 
 
 def check_transform(x: torch.Tensor, n: int) -> int:
-    """A transform's input: (batch, n) complex64, n a power of 4; returns
-    the number of passes."""
-    if x.dim() != 2 or x.shape[1] != n or x.dtype != torch.complex64:
-        raise ValueError(f"need a (batch, {n}) complex64 tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    """A transform's input: (batch, n) of any real or complex dtype (taken
+    as complex64, as the reference casts its real and imaginary parts to
+    float32), n a power of 4; returns the number of passes."""
+    if x.dim() != 2 or x.shape[1] != n:
+        raise ValueError(f"need a (batch, {n}) tensor, got "
+                         f"{tuple(x.shape)}")
     return _passes_of(n)
 
 
 def fft4096_radix4(x: torch.Tensor, n: int = 4096) -> torch.Tensor:
-    """(batch, n) complex64 -> FFT in digit-reversed order (batch, n),
-    bit-equal to the plain passes: ``transform_plan(n) + 1`` launches on a
-    CUDA tensor (one for n <= TILE), the plain passes on a CPU one."""
+    """(batch, n) real or complex -> complex64 FFT in digit-reversed order
+    (batch, n), bit-equal to the plain passes: ``transform_plan(n) + 1``
+    launches on a CUDA tensor (one for n <= TILE), the plain passes on a
+    CPU one.  Other dtypes are cast to complex64 first, on either path."""
     passes = check_transform(x, n)
     if x.shape[0] == 0:
         raise ValueError("empty batch")
+    x = x.to(torch.complex64)
     if x.device.type == "cpu":
         return fft_radix4_ref(x, n)
     require_cuda(x)

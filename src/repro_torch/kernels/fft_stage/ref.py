@@ -24,11 +24,13 @@ def fft_stage_ref(xr: torch.Tensor, xi: torch.Tensor, twr: torch.Tensor,
 
 
 def fft_radix4_ref(x: torch.Tensor, n: int = 4096) -> torch.Tensor:
-    """(batch, n) complex64 -> digit-reversed spectrum: the log4 n passes
-    composed from ``fft_stage_ref`` on re and im planes (on any device)."""
+    """(batch, n) real or complex -> complex64 digit-reversed spectrum: the
+    log4 n passes composed from ``fft_stage_ref`` on re and im planes (on
+    any device), after the reference's cast to complex64."""
     from repro_torch.kernels.fft_stage.ops import (_view, check_transform,
                                                    stage_twiddles)
     passes = check_transform(x, n)
+    x = x.to(torch.complex64)
     xr, xi = x.real.contiguous(), x.imag.contiguous()
     for p in range(passes):
         twr, twi = stage_twiddles(n, p, x.device)

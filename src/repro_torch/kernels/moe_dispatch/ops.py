@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.banked_gather.ops import require_cuda
-from repro_torch.kernels.cuda_lib import CudaEntry
+from repro_torch.kernels.cuda_lib import CudaEntry, EntryGroup
 
 #: the reference kernel's block of requests: R must be a multiple of
 #: min(R_BLOCK, R)
@@ -42,25 +42,9 @@ RANK = CudaEntry("moe_dispatch", "moe_dispatch_rank",
                  [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _I32, _I32])
 ENTRIES = (HIST, SCAN, RANK)
 
-
-class _DispatchLaunches:
-    """The launches of the dispatch: the sum of its three entries' counts.
-    Setting ``launches`` to 0 zeroes all three."""
-
-    @property
-    def launches(self) -> int:
-        return sum(e.launches for e in ENTRIES)
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        if n:
-            raise ValueError("the dispatch's launch count resets to 0 only")
-        for e in ENTRIES:
-            e.launches = 0
-
-
-#: the dispatch's launch count (``DISPATCH.launches``)
-DISPATCH = _DispatchLaunches()
+#: the dispatch's launch count, the sum of its entries'
+#: (``DISPATCH.launches``)
+DISPATCH = EntryGroup(*ENTRIES)
 
 
 def check_dispatch(experts: torch.Tensor, n_experts: int,

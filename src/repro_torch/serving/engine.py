@@ -2,13 +2,14 @@
 ``repro.serving.engine``).
 
 In the default ``kv_mode="paged"`` the prefill K/V is ingested into
-per-layer bank-major page pools (one ``banked_scatter`` per pool) and every
-decode step moves all KV traffic through the CUDA kernels on those pools:
+per-layer bank-major page pools (one ``banked_scatter_pair`` call per
+layer for its K and V pools) and every decode step moves all KV traffic
+through the CUDA kernels on those pools, one launch per layer for K and V:
 
   * read: each step gathers every sequence's page list from the K and V
-    pools (``banked_gather``, the paged-attention read);
+    pools (``banked_gather_pair``, the paged-attention read);
   * write: the new token's K/V goes into the gathered view and each
-    sequence's current page is written back (``banked_scatter``, a
+    sequence's current page is written back (``banked_scatter_pair``, a
     read-modify-write append, in place).
 
 Every decode step also records its exact ``AddressTrace`` (``step_trace``
@@ -100,7 +101,6 @@ class ServeEngine:
         ``step_pos`` is ``pos`` on the host (it picks the current page
         without a device sync)."""
         kv = self.kv_cfg
-        arch = self.mem_arch
         b = x.shape[0]
         plen = kv.page_len
         n_pt = pages.page_table.shape[1]
@@ -108,8 +108,7 @@ class ServeEngine:
         kvh, hd = cfg.n_kv_heads, cfg.hd
         q, k_new, v_new = L._qkv(cfg, p, x, pos[None])
         ids = pages.page_table.clamp(min=0).reshape(-1)
-        ck = KV.gather_pages(arch, kv, cache["k"], ids)
-        cv = KV.gather_pages(arch, kv, cache["v"], ids)
+        ck, cv = KV.gather_pages_pair(kv, cache["k"], cache["v"], ids)
         ck = ck.reshape(b, s_all, kvh, hd)
         cv = cv.reshape(b, s_all, kvh, hd)
         idx = torch.arange(s_all, device=x.device)
@@ -134,8 +133,8 @@ class ServeEngine:
         line = slice(pg * plen, (pg + 1) * plen)
         k_line = ck[:, line].reshape(b, -1).contiguous()
         v_line = cv[:, line].reshape(b, -1).contiguous()
-        kp = KV.scatter_pages(arch, kv, cache["k"], cur, k_line)
-        vp = KV.scatter_pages(arch, kv, cache["v"], cur, v_line)
+        kp, vp = KV.scatter_pages_pair(kv, cache["k"], cache["v"], cur,
+                                       k_line, v_line)
         return out, {"k": kp, "v": vp}
 
     def _paged_step(self, params, tok, pools, pages, pos: int):
@@ -161,30 +160,32 @@ class ServeEngine:
 
     def _ingest_prefill(self, cache, plen: int, batch: int):
         """Allocate every prompt page and scatter the prefill K/V into the
-        per-layer pools (one banked_scatter per pool); after this no dense
-        KV state survives.  Returns (pools, pages)."""
+        per-layer pools (one banked_scatter_pair call per layer); after this
+        no dense KV state survives.  Returns (pools, pages)."""
         kv = self.kv_cfg
         n_pref = -(-plen // kv.page_len)
         pages = KV.fill_prompt_pages(kv, batch, self.max_seq, plen,
                                      self.device)
         ids = pages.page_table[:, :n_pref].clamp(min=0).reshape(-1)
 
-        def pool_of(kc):
+        def rows_of(kc):
             # kc: (B, t, KV, HD) with t ≤ plen (a sliding-window prefill
             # keeps only the window; earlier slots stay zero and masked)
             t = kc.shape[1]
             buf = kc.new_zeros((batch, n_pref * kv.page_len) + kc.shape[2:])
             buf[:, plen - t:plen] = kc
-            rows = buf.reshape(batch * n_pref, kv.row_width)
-            pool2d = kc.new_zeros((kv.n_pages, kv.row_width))
-            return KV.scatter_pages(self.mem_arch, kv, pool2d, ids, rows)
+            return buf.reshape(batch * n_pref, kv.row_width)
 
         pools = {}
         for j, (kind, _) in enumerate(self.cfg.block_pattern()):
             bc = cache["blocks"][f"b{j}"]
             for sb in range(self.cfg.n_superblocks):
-                pools[f"b{j}s{sb}"] = {"k": pool_of(bc["k"][sb]),
-                                       "v": pool_of(bc["v"][sb])}
+                k_rows, v_rows = rows_of(bc["k"][sb]), rows_of(bc["v"][sb])
+                k_pool, v_pool = KV.scatter_pages_pair(
+                    kv, k_rows.new_zeros((kv.n_pages, kv.row_width)),
+                    v_rows.new_zeros((kv.n_pages, kv.row_width)), ids,
+                    k_rows, v_rows)
+                pools[f"b{j}s{sb}"] = {"k": k_pool, "v": v_pool}
         return pools, pages
 
     # -- dense reference path ----------------------------------------------

@@ -27,11 +27,14 @@ import torch
 
 from repro_torch.core.arbiter import grant_positions
 from repro_torch.core.conflicts import bank_counts
+from repro_torch.kernels.banked_gather.ops import banked_gather_pair
+from repro_torch.kernels.banked_scatter.ops import banked_scatter_pair
 
 __all__ = [
     "PagedKVConfig", "PageTableState", "pool_pages", "init_pages",
     "allocate_pages", "bank_load_stats", "gather_pages",
-    "scatter_pages", "kv_read_stream", "decode_step_trace", "prefill_trace",
+    "scatter_pages", "gather_pages_pair", "scatter_pages_pair",
+    "kv_read_stream", "decode_step_trace", "prefill_trace",
     "simulate_serving_trace", "simulate_serving_stream", "ALLOC_POLICIES",
     "preferred_banks", "resolve_policy",
 ]
@@ -226,6 +229,27 @@ def scatter_pages(arch, cfg: PagedKVConfig, pool2d: torch.Tensor,
     from repro_torch.kernels import registry
     return registry.get("banked_scatter").run(arch, pool2d, page_ids, rows,
                                               table_banked=True)
+
+
+def gather_pages_pair(cfg: PagedKVConfig, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, page_ids: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gather_pages`` from a layer's K and V pools (bank-major, one page
+    map, ``cfg``'s banking) in one ``banked_gather_pair`` launch.
+    page_ids: (N,) int64, already clamped ≥ 0."""
+    return banked_gather_pair(k_pool, v_pool, page_ids, cfg.n_banks,
+                              cfg.mapping, cfg.map_shift)
+
+
+def scatter_pages_pair(cfg: PagedKVConfig, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, page_ids: torch.Tensor,
+                       k_rows: torch.Tensor, v_rows: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``scatter_pages`` into a layer's K and V pools through one
+    ``banked_scatter_pair`` call; updates both pools in place and returns
+    them."""
+    return banked_scatter_pair(k_pool, v_pool, page_ids, k_rows, v_rows,
+                               cfg.n_banks, cfg.mapping, cfg.map_shift)
 
 
 # --------------------------------------------------------------------------

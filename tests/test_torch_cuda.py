@@ -3,9 +3,11 @@ PyTorch versions (the row kernels and the transpose bit-equal: they copy
 bytes; the controller and dispatch kernels bit-equal: integers; the FFT
 pass within rtol = atol = 1e-5, the reference's tolerance; the FFT
 transform bit-equal to the plain passes and within 2e-3·max|X| of the
-oracle), one launch a call (for the dispatch, one launch of each of its
-three entries a pass of experts; for the transform, one tile launch after
-log4(n / 4096) wide passes), and the serving path, the
+oracle), one launch a call (for the row kernels, one for both tables of a
+pair, and a claim and a copy launch for a scatter of more than 256
+indices; for the dispatch, one launch of each of its three entries a pass
+of experts; for the transform, one tile launch after log4(n / 4096) wide
+passes), and the serving path, the
 paper tables, the kernel micro-bench and the cost engine on the card
 against the same code on the host.  Every test here needs a card and
 skips without one; the file imports no JAX, so it runs where only the port
@@ -22,10 +24,18 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import arch as PA
 from repro_torch.core.cost_engine import cost_many
-from repro_torch.kernels.banked_gather.ops import (GATHER, banked_gather,
-                                                   banked_gather_plain)
-from repro_torch.kernels.banked_scatter.ops import (SCATTER, banked_scatter,
-                                                    banked_scatter_plain)
+from repro_torch.kernels.banked_gather.ops import (GATHER, GATHER_PAIR,
+                                                   GATHERS, INT32_MAX,
+                                                   banked_gather,
+                                                   banked_gather_pair,
+                                                   banked_gather_plain,
+                                                   index_bits)
+from repro_torch.kernels.banked_scatter.ops import (CLAIM, CLAIMED_COPY,
+                                                    SCATTER, SCATTER_PAIR,
+                                                    SCATTERS, banked_scatter,
+                                                    banked_scatter_pair,
+                                                    banked_scatter_plain,
+                                                    claim_words)
 from repro_torch.kernels.banked_scatter.ref import last_writers
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving.engine import ServeEngine
@@ -85,6 +95,113 @@ def test_multiport_runs_launch_the_kernels(cuda, arch):
                                                       upd[keep]))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", LAYOUTS)
+def test_pair_kernels_bit_equal_to_plain(cuda, arch, dtype):
+    """The paired entries: one launch for two tables, each equal to its
+    plain version; duplicates at the one-launch size (40) and at the
+    claimed size (600: claim, then copy)."""
+    lay = PA.get(arch).layout
+    v = lay.n_banks * 48
+    args = (lay.n_banks, lay.mapping, lay.shift)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for d in (4096, 1024, 36):
+        k, vt = (torch.randn((v, d), device=cuda, generator=gen).to(dtype)
+                 for _ in range(2))
+        idx = torch.randint(0, v, (40,), device=cuda, generator=gen)
+        before = GATHER_PAIR.launches
+        got = banked_gather_pair(k, vt, idx, *args)
+        assert GATHER_PAIR.launches == before + 1
+        assert torch.equal(got[0], banked_gather_plain(k, idx, *args))
+        assert torch.equal(got[1], banked_gather_plain(vt, idx, *args))
+        for n, entries in ((40, [SCATTER_PAIR]), (600, [CLAIM,
+                                                        CLAIMED_COPY])):
+            idx = torch.randint(0, v, (n,), device=cuda, generator=gen)
+            idx[::3] = idx[1]
+            upd = [torch.randn((n, d), device=cuda, generator=gen).to(dtype)
+                   for _ in range(2)]
+            before = [e.launches for e in entries]
+            got = banked_scatter_pair(k.clone(), vt.clone(), idx, *upd,
+                                      *args)
+            assert [e.launches - b for e, b in zip(entries, before)] == [
+                1] * len(entries)
+            for g, t, u in zip(got, (k, vt), upd):
+                assert torch.equal(g, banked_scatter_plain(t.clone(), idx, u,
+                                                           *args))
+
+
+@pytest.mark.parametrize("arch", ["16B", "12B", "8B-offset-s2"])
+def test_large_scatter_with_duplicates_is_linear_and_leaves_zero_claims(
+        cuda, arch):
+    """16384 updates into about 4096 rows (each written about four times):
+    the claimed path, single and paired, equal to the plain version, and
+    the workspace all zero afterwards."""
+    lay = PA.get(arch).layout
+    v = lay.n_banks * (4096 // lay.n_banks)
+    args = (lay.n_banks, lay.mapping, lay.shift)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn((v, 512), device=cuda, generator=gen).bfloat16()
+    idx = torch.randint(0, v, (16384,), device=cuda, generator=gen)
+    upd = torch.randn((16384, 512), device=cuda,
+                      generator=gen).bfloat16()
+    got = banked_scatter(table.clone(), idx, upd, *args)
+    assert torch.equal(got, banked_scatter_plain(table.clone(), idx, upd,
+                                                 *args))
+    k, vt = banked_scatter_pair(table.clone(), table.clone() + 1, idx, upd,
+                                upd - 1, *args)
+    assert torch.equal(k, got)
+    assert torch.equal(vt, banked_scatter_plain(table.clone() + 1, idx,
+                                                upd - 1, *args))
+    assert not claim_words(table.device, v).any()
+
+
+def test_claimed_scatter_replays_in_a_cuda_graph(cuda):
+    """The claimed scatter keeps no host state between calls: captured
+    once in a CUDA graph, each replay writes the updates' current
+    contents, last writer winning."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.zeros((1024, 64), device=cuda)
+    idx = torch.randint(0, 1024, (2048,), device=cuda, generator=gen)
+    upd = torch.randn((2048, 64), device=cuda, generator=gen)
+    banked_scatter(table, idx, upd)                      # warm-up, eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        banked_scatter(table, idx, upd)
+    for step in range(3):
+        upd.copy_(torch.randn((2048, 64), device=cuda, generator=gen))
+        table.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(table, banked_scatter_plain(
+            torch.zeros_like(table), idx, upd, 16, "lsb"))
+
+
+@pytest.mark.parametrize("arch", ["16B", "12B", "6B-offset"])
+def test_row_kernels_on_the_64_bit_index_path(cuda, arch):
+    """A table of more than 2^31 - 1 rows (one byte each) takes the 64-bit
+    index path, a table just below that limit the 32-bit one; both equal
+    the plain version on rows at the ends of the table."""
+    lay = PA.get(arch).layout
+    args = (lay.n_banks, lay.mapping, lay.shift)
+    step = lay.n_banks * 4
+    for v, bits in (((INT32_MAX // step) * step, 32),
+                    ((INT32_MAX // step + 2) * step, 64)):
+        assert index_bits(v, 64) == bits
+        table = torch.empty((v, 1), dtype=torch.uint8, device=cuda)
+        table[:64] = 7
+        table[-64:] = torch.arange(64, dtype=torch.uint8,
+                                   device=cuda)[:, None]
+        idx = torch.cat([torch.arange(32), v - 1 - torch.arange(32)]).to(
+            cuda)
+        got = banked_gather(table, idx, *args)
+        assert torch.equal(got, banked_gather_plain(table, idx, *args))
+        upd = torch.arange(64, dtype=torch.uint8, device=cuda)[:, None] + 100
+        want = banked_scatter_plain(table.clone(), idx, upd, *args)
+        assert torch.equal(banked_scatter(table, idx, upd, *args), want)
+        del table, want
+        torch.cuda.empty_cache()
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     table = torch.zeros((64, 32), device=cuda)
     with pytest.raises(ValueError):
@@ -106,10 +223,12 @@ def test_serving_on_the_card_matches_the_host(cuda):
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 12))
     kw = dict(max_batch=4, max_seq=32, page_len=8, device=cuda)
     paged = ServeEngine(cfg, rc, params, kv_mode="paged", **kw)
-    g0, s0 = GATHER.launches, SCATTER.launches
+    GATHERS.launches = SCATTERS.launches = 0
     tokens = paged.generate(prompts, max_new_tokens=8).tokens
-    assert GATHER.launches - g0 == 2 * 2 * 7
-    assert SCATTER.launches - s0 == 2 * 2 * 7 + 2 * 2
+    # one launch per KV layer for K and V: 2 layers x 7 decode steps, and
+    # the prefill ingest's one per layer
+    assert GATHERS.launches == GATHER_PAIR.launches == 2 * 7
+    assert SCATTERS.launches == SCATTER_PAIR.launches == 2 * 7 + 2
     dense = ServeEngine(cfg, rc, params, kv_mode="dense", **kw)
     np.testing.assert_array_equal(
         tokens, dense.generate(prompts, max_new_tokens=8).tokens)
@@ -209,6 +328,26 @@ def test_fft_kernel_transform_takes_strided_and_conjugate_views(cuda):
                          torch.randn((6, 8192), device=cuda, generator=gen))
     for x in (wide[::2, 4096:], wide[:3, :4096].conj()):
         assert torch.equal(fft4096_radix4(x), fft_radix4_ref(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+def test_fft_kernel_transform_takes_real_and_complex128_input(cuda, dtype):
+    """Real and complex128 input is cast to complex64 before the launch,
+    as the reference casts it: one tile launch, equal to the transform of
+    the cast input and to the plain passes."""
+    from repro_torch.kernels.fft_stage import fft4096_radix4, fft_radix4_ref
+    from repro_torch.kernels.fft_stage.ops import TRANSFORM
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((3, 4096), device=cuda, generator=gen,
+                    dtype=torch.float64)
+    x = (torch.complex(x, x.flip(1)) if dtype.is_complex else x).to(dtype)
+    before = TRANSFORM.launches
+    got = fft4096_radix4(x)
+    assert TRANSFORM.launches == before + 1
+    assert got.dtype == torch.complex64
+    assert torch.equal(got, fft4096_radix4(x.to(torch.complex64)))
+    assert torch.equal(got, fft_radix4_ref(x))
 
 
 def test_fft_wrapper_refuses_mixed_devices(cuda):

@@ -240,3 +240,46 @@ def test_cpu_transform_equals_plain_and_pallas(n):
 def test_transform_refuses_an_empty_batch():
     with pytest.raises(ValueError):
         fft4096_radix4(torch.zeros((0, 64), dtype=torch.complex64), n=64)
+
+
+DTYPE_INPUTS = {
+    "float32": lambda x: x.real.astype(np.float32),
+    "float64": lambda x: x.real.astype(np.float64),
+    "complex128": lambda x: x.astype(np.complex128),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPE_INPUTS))
+@pytest.mark.parametrize("n", [16, 64, 4096])
+def test_transform_takes_real_and_complex128_input_as_the_reference(n,
+                                                                    dtype):
+    """Real and complex128 input is cast to complex64 first, as the
+    reference casts its real and imaginary parts to float32: the result is
+    complex64, equal to the transform of the cast input, and within the
+    reference's 2e-3·max|X| (tests/test_kernels.py:153-154) of the Pallas
+    transform in interpret mode on the same numpy input."""
+    from repro.kernels.fft_stage.ops import fft4096_radix4 as ref_fft
+    x = DTYPE_INPUTS[dtype](_input(2, n, seed=n + 1).astype(np.complex128)
+                            * (1 + 1e-9))
+    before = (TRANSFORM.launches, WIDE_PASS.launches)
+    got = fft4096_radix4(torch.from_numpy(x), n=n)
+    assert (TRANSFORM.launches, WIDE_PASS.launches) == before
+    assert got.dtype == torch.complex64 and got.shape == (2, n)
+    cast = torch.from_numpy(x).to(torch.complex64)
+    assert torch.equal(got, fft4096_radix4(cast, n=n))
+    assert torch.equal(fft_radix4_ref(torch.from_numpy(x), n=n), got)
+    want = np.asarray(ref_fft(jnp.asarray(x), n=n))
+    assert want.dtype == np.complex64
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-3 * np.abs(want).max())
+
+
+def test_transform_keeps_the_refusals_the_reference_shares():
+    """1-D input, an empty batch and n not a power of 4 are refused, as
+    the reference refuses them (TypeError, ZeroDivisionError and
+    AssertionError there)."""
+    for x, n in ((torch.zeros(64), 64),
+                 (torch.zeros((0, 64), dtype=torch.float64), 64),
+                 (torch.zeros((2, 48), dtype=torch.complex128), 48)):
+        with pytest.raises(ValueError):
+            fft4096_radix4(x, n=n)

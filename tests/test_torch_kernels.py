@@ -267,7 +267,7 @@ def test_fft_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         fft4096_radix4(torch.zeros((2, 1000), dtype=torch.complex64), n=1000)
     with pytest.raises(ValueError):
-        fft4096_radix4(torch.zeros((2, 256), dtype=torch.complex128), n=256)
+        fft4096_radix4(torch.zeros(256, dtype=torch.complex64), n=256)
     with pytest.raises(ValueError):
         fft_stage_radix4(torch.zeros((2, 256)), torch.zeros((2, 256)), 256, 4)
     planes = torch.zeros((8, 4, 16))
