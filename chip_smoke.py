@@ -66,18 +66,23 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                ones too), B = 32, 12 and 6, (8, 12) and (8, 40) lane
                counts and rows off 16-byte alignment; the arbiter at (8, 16),
                (128, 16), (256, 8) and (384, 6), the bank-0 drain, 32-bit
-               words that do not drain and int32 words;
+               words that do not drain, int32 words, and int64 words with
+               high bits set and negative words, in both store designs; an
+               arbiter call on int64 and on int32 words runs one CUDA kernel
+               in all (torch.profiler);
   8. dispatch — ``moe_dispatch_positions`` against its plain version,
-               bit-equal, with each call's launches counted (one of each of
-               its three entries a pass of up to 1024 experts): the CPU
-               tests' cases (the reference tests' sweep, the block
-               boundary, R = 300, E = 1, 256, 3000 and 0, ids outside
-               [0, E), capacity 0 and above R) and 2^24 requests at E = 16
-               and E = 128;
+               bit-equal, with each call's launches counted (one a pass of
+               up to 1024 experts): the CPU tests' cases (the reference
+               tests' sweep, the block boundary, R = 300, E = 1, 256, 3000
+               and 0, ids outside [0, E), capacity 0 and above R), 2^24
+               requests at E = 16 and E = 128 (int32 and int64 ids), and a
+               call captured in a CUDA graph, replayed 5 times with other
+               calls in between;
   9. bench   — the kernel micro-bench through its CLI entry point
                (``repro_torch.bench.kernel_bench.main``) on the card: the
                six rows in the reference's order, each with err 0, each
-               row's kernel launched;
+               row's kernel launched (the controllers and the dispatch one
+               launch a call: 312 each);
  10. times   — the row kernels at the serving shapes, single and paired,
                beside ``index_select`` / ``index_copy_`` and the byte
                bound, and where a paired call's host time goes;
@@ -95,11 +100,14 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                library calls;
      controller_times — the popcount at 4096 and 2^20 ops and the arbiter
                at 1024 and 2^18 ops (B = 16) beside their bounds and plain
-               versions (no library call computes either);
+               versions (no library call computes either); the arbiter's
+               wrapper on int64 words against its contract bound (8 bytes
+               in, 128 out a word) and the kernel alone on 32-bit words
+               against its own, each in both store designs;
  11. dispatch_times — the dispatch kernel at the bench's shape (8192
-               requests, E = 16) and at 2^24 requests (E = 16) beside its
-               byte bound and plain version (no library call computes it),
-               and the device time of each of its three launches;
+               requests, E = 16) and at 2^24 requests (E = 16 and 128)
+               beside its byte bound and plain version (no library call
+               computes it), and the device time of its one launch;
  12. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time.
 
@@ -1181,6 +1189,21 @@ def _held(name, entry, what, kern, plain, err) -> None:
                              f"{e}, launches {ran}")
 
 
+def _cuda_kernel_names(fn) -> list[str]:
+    """The CUDA kernels one call of ``fn`` runs (torch.profiler, after a
+    warm-up call): the wrapper's own and any conversion torch launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_controllers() -> dict:
     """Both controller kernels against their plain versions on the card:
     the reference tests' sweeps (tests/test_kernels.py:58-97) and the edge
@@ -1190,8 +1213,11 @@ def phase_controllers() -> dict:
 
     from repro_torch.core.arbiter import pack_requests
     from repro_torch.core.conflicts import bank_onehot
-    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, carry_arbiter,
-                                                       carry_arbiter_plain)
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, STORES,
+                                                       arbiter_launch,
+                                                       carry_arbiter,
+                                                       carry_arbiter_plain,
+                                                       kernel_words)
     from repro_torch.kernels.conflict_popcount.ops import (
         POPCOUNT, conflict_popcount, conflict_popcount_plain)
     rng = np.random.default_rng(5)
@@ -1231,10 +1257,29 @@ def phase_controllers() -> dict:
              cuda(rng.integers(0, 2 ** 32, (128, 16)))),
             ("int32 words, 0xFFFFFFFF as -1",
              cuda(np.full((4, 12), -1, np.int32))),
-            ("(384, 6)", cuda(rng.integers(0, 2 ** 16, (384, 6))))]
+            ("(384, 6)", cuda(rng.integers(0, 2 ** 16, (384, 6)))),
+            ("int64 words with high bits set and negative words",
+             cuda(np.array([[-1, -2 ** 31, 2 ** 32 + 5, 2 ** 63 - 1,
+                             -2 ** 63, 2 ** 40 - 3, -(2 ** 33) + 0xF0F0,
+                             0x1_0000_FFFF] * 2] * 128, np.int64))),
+            ("int64 words in [-2^40, 2^40), (256, 12)",
+             cuda(rng.integers(-2 ** 40, 2 ** 40, (256, 12))))]
     for what, reqs in arb:
         _held("carry_arbiter", ARBITER, what, lambda: carry_arbiter(reqs),
               lambda: carry_arbiter_plain(reqs), err)
+        for store in STORES:
+            _held("carry_arbiter", ARBITER, f"{what}, {store} stores",
+                  lambda: arbiter_launch(kernel_words(reqs), store=store),
+                  lambda: carry_arbiter_plain(reqs), err)
+    kernels_per_call = {}
+    for dtype in (torch.int64, torch.int32):
+        reqs = cuda(rng.integers(-2 ** 40, 2 ** 40, (1024, 16))).to(dtype)
+        names = _cuda_kernel_names(lambda: carry_arbiter(reqs))
+        kernels_per_call[str(dtype)] = names
+        log(f"[controllers] carry_arbiter on {dtype} words: CUDA kernels "
+            f"of one call (torch.profiler): {names}")
+        if len(names) != 1 or "arbiter" not in names[0]:
+            raise AssertionError(f"an arbiter call on {dtype} ran {names}")
     bank0 = carry_arbiter(drain)[0, :, 0].cpu()
     ones = ((bank0 & (bank0 - 1)) == 0) & (bank0 != 0)
     drained = bool(ones.all()) and int(np.bitwise_or.reduce(
@@ -1244,7 +1289,8 @@ def phase_controllers() -> dict:
     if not drained:
         raise AssertionError("the arbiter does not drain 16 requests")
     return {"max_abs_err": err, "cases": {"conflict_popcount": len(pop),
-                                          "carry_arbiter": len(arb)}}
+                                          "carry_arbiter": len(arb)},
+            "arbiter_kernels_per_call": kernels_per_call}
 
 
 def _entries() -> dict:
@@ -1274,6 +1320,12 @@ BENCH_ROWS = {"banked_gather_1024x512_r256": "banked_gather",
               "banked_transpose_512": "banked_transpose"}
 
 
+#: calls of each row's kernel in a bench run: one checked against the
+#: plain version, 10 warm-up and 200 timed calls, one warm-up and 100
+#: captured calls of the CUDA graph (``kernel_bench.rows``)
+BENCH_CALLS = 1 + 10 + 200 + 1 + 100
+
+
 def phase_bench() -> dict:
     """The kernel micro-bench through its CLI entry point on the card: six
     rows in the reference's order, each bit-equal to its plain version
@@ -1300,11 +1352,16 @@ def phase_bench() -> dict:
     missed = [k for k in BENCH_ROWS.values() if launches[k] == 0]
     if missed:
         raise AssertionError(f"the bench never launched {missed}")
+    one_a_call = {k: launches[k] for k in ("conflict_popcount",
+                                           "carry_arbiter", "moe_dispatch")}
+    if set(one_a_call.values()) != {BENCH_CALLS}:
+        raise AssertionError(f"launches {one_a_call}: not one a call of "
+                             f"the bench's {BENCH_CALLS}")
     return {"rows": rows, "launches": launches, "seconds": secs}
 
 
 POPCOUNT_TIMING = (1 << 20, 16)     # ops, banks: 138,412,032 bytes moved
-ARBITER_TIMING = (1 << 18, 16)      # ops, banks: 285,212,672 bytes moved
+ARBITER_TIMING = (1 << 18, 16)      # ops, banks: 570,425,344 bytes moved
 
 
 def phase_controller_times() -> dict:
@@ -1313,7 +1370,8 @@ def phase_controller_times() -> dict:
     import torch
 
     from repro_torch.bench.kernel_bench import bound_ms, graph_ms, timed
-    from repro_torch.kernels.carry_arbiter.ops import (ARBITER,
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, STORES,
+                                                       arbiter_launch,
                                                        arbiter_words,
                                                        carry_arbiter,
                                                        carry_arbiter_plain)
@@ -1342,25 +1400,46 @@ def phase_controller_times() -> dict:
         _held("carry_arbiter", ARBITER, f"({n}, {b})",
               lambda: carry_arbiter(reqs),
               lambda: carry_arbiter_plain(reqs), err)
-        # the function on 32-bit words: (n, b) in, (n, 16, b) out
+        # the wrapper's contract on the port's int64 words: (n, b) in,
+        # (n, 16, b) out, 8 bytes a word
         r = timed(lambda: carry_arbiter(reqs),
                   lambda: carry_arbiter_plain(reqs), None,
-                  bound_ms(n * b * 4 + n * 16 * b * 4), graph_iters=20,
+                  bound_ms(n * b * 8 + n * 16 * b * 8), graph_iters=20,
                   iters=50)
-        # the kernel alone on 32-bit words, without the wrapper's int64
-        # conversions at its boundary
+        # the kernel alone on 32-bit words (4 bytes in, 64 out a word)
         r["kernel_device_ms"] = graph_ms(lambda: arbiter_words(words), 20)
+        r["kernel_bound_ms"] = bound_ms(n * b * 4 + n * 16 * b * 4)[0]
+        # the two store designs in turns (a, b, b, a), on int64 words and
+        # on 32-bit words alone
+        order = [*STORES, *reversed(STORES)]
+        for key, w, dt in (("store_device_ms", reqs, torch.int64),
+                           ("kernel_store_device_ms", words, torch.int32)):
+            runs = {s: [] for s in STORES}
+            for store in order:
+                runs[store].append(graph_ms(
+                    lambda store=store, w=w, dt=dt: arbiter_launch(
+                        w, dt, store), 20))
+            r[key] = {s: min(v) for s, v in runs.items()}
+            r[key + "_runs"] = runs
         out["carry_arbiter"][n] = r
     for name, shapes in out.items():
         for n, r in shapes.items():
             us = {k: (v * 1e3 if isinstance(v, float) else v)
                   for k, v in r.items() if k.endswith("ms")}
-            alone = (f", the kernel alone {us['kernel_device_ms']:.3f} us"
-                     if "kernel_device_ms" in us else "")
+            alone = ""
+            if "kernel_device_ms" in us:
+                alone = (f", the kernel alone on 32-bit words "
+                         f"{us['kernel_device_ms']:.3f} us (bound "
+                         f"{us['kernel_bound_ms']:.3f} us); store designs "
+                         f"(device us, int64 / 32-bit words): " + ", ".join(
+                             f"{s} {r['store_device_ms'][s] * 1e3:.3f} / "
+                             f"{r['kernel_store_device_ms'][s] * 1e3:.3f}"
+                             for s in r["store_device_ms"]))
             log(f"[times] {name} at {n} ops: per call from Python: kernel "
                 f"{us['ms']:.2f} us, plain {us['plain_ms']:.2f} us; device "
-                f"time in a CUDA graph: kernel {us['device_ms']:.3f} us"
-                f"{alone}; bound {us['bound_ms']:.3f} us ({r['bound_by']}); "
+                f"time in a CUDA graph: kernel {us['device_ms']:.3f} us, "
+                f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound "
+                f"{us['bound_ms']:.3f} us ({r['bound_by']}){alone}; "
                 f"library: none")
     return {"shapes": out, "max_abs_err": err}
 
@@ -1371,18 +1450,15 @@ DISPATCH_BIG = 1 << 24               # requests: 150,994,944 bytes moved
 def _held_dispatch(what, experts, n_experts, capacity, err, tag) -> None:
     """One dispatch call against its plain version on the same CUDA ids:
     ``pos`` and ``kept`` bit-equal (integers: tolerance 0), and one launch
-    of each of the three entries a pass of up to 1024 experts (the rank
-    launch alone with no experts)."""
+    a pass of up to 1024 experts (one with no experts)."""
     import torch
 
-    from repro_torch.kernels.moe_dispatch.ops import (EXPERT_CHUNK, HIST,
-                                                      RANK, SCAN,
+    from repro_torch.kernels.moe_dispatch.ops import (DISPATCH, EXPERT_CHUNK,
                                                       moe_dispatch_plain,
                                                       moe_dispatch_positions)
-    entries = (HIST, SCAN, RANK)
-    before = [e.launches for e in entries]
+    before = DISPATCH.launches
     got = moe_dispatch_positions(experts, n_experts, capacity)
-    ran = [e.launches - b for e, b in zip(entries, before)]
+    ran = DISPATCH.launches - before
     want = moe_dispatch_plain(experts, n_experts, capacity)
     torch.cuda.synchronize()
     same = all(g.dtype == w.dtype and torch.equal(g, w)
@@ -1390,20 +1466,57 @@ def _held_dispatch(what, experts, n_experts, capacity, err, tag) -> None:
     e = max((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
             for g, w in zip(got, want))
     err["moe_dispatch"] = max(err["moe_dispatch"], float(e))
-    passes = -(-n_experts // EXPERT_CHUNK)
-    expect = [passes, passes, max(passes, 1)]
+    expect = max(-(-n_experts // EXPERT_CHUNK), 1)
     log(f"[{tag}] moe_dispatch, {what}: bit-equal to plain: {same}, "
-        f"launches (hist, scan, rank) {ran}")
+        f"launches {ran}")
     if not same or ran != expect:
         raise AssertionError(f"moe_dispatch at {what}: equal {same}, max "
                              f"|diff| {e}, launches {ran} != {expect}")
 
 
+def _dispatch_replays(err) -> int:
+    """A dispatch captured in a CUDA graph (2^20 requests, E = 128) and
+    replayed 5 times, new ids copied in before each replay and an eager
+    call of another shape after it: each replay and each eager call
+    bit-equal to the plain version."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ids = torch.randint(0, 128, (1 << 20,), device="cuda", generator=gen)
+    moe_dispatch_positions(ids, 128, 5000)                 # warm-up, eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pos, kept = moe_dispatch_positions(ids, 128, 5000)
+    for step in range(5):
+        ids.copy_(torch.randint(0, 128, ids.shape, device="cuda",
+                                generator=gen))
+        graph.replay()
+        other = torch.randint(-2, 20, (8192,), device="cuda", generator=gen)
+        got = moe_dispatch_positions(other, 16, 300)
+        want = moe_dispatch_plain(ids, 128, 5000)
+        want_other = moe_dispatch_plain(other, 16, 300)
+        torch.cuda.synchronize()
+        same = (torch.equal(pos, want[0]) and torch.equal(kept, want[1])
+                and all(torch.equal(g, w) for g, w in zip(got, want_other)))
+        e = max((pos.long() - want[0].long()).abs().max().item(),
+                (got[0].long() - want_other[0].long()).abs().max().item())
+        err["moe_dispatch"] = max(err["moe_dispatch"], float(e))
+        log(f"[dispatch] moe_dispatch, CUDA graph replay {step + 1} of 5 "
+            f"(2^20 requests, E=128) and an eager call between: bit-equal "
+            f"to plain: {same}")
+        if not same:
+            raise AssertionError(f"replay {step + 1}: max |diff| {e}")
+    return 5
+
+
 def phase_dispatch() -> dict:
     """The dispatch kernel against its plain version on the card: the CPU
     tests' cases (tests/test_torch_dispatch.py: the reference tests' sweep
-    and block boundary, the edge cases, several passes of experts) and
-    2^24 requests at E = 16 and E = 128; every call's launches counted."""
+    and block boundary, the edge cases, several passes of experts), 2^24
+    requests at E = 16 and E = 128, and graph replays; every call's
+    launches counted."""
     import torch
 
     rng = np.random.default_rng(7)
@@ -1428,23 +1541,34 @@ def phase_dispatch() -> dict:
         ("E=0: every id out of range", ids(-2, 3, 100), 0, 1),
         ("E=3000: three passes of experts, ids in [-3, 3003)",
          ids(-3, 3003, 8192), 3000, 3),
+        ("int64 ids beyond int32 (low 32 bits count)",
+         ids(-3, 19, 8192).long() + torch.as_tensor(
+             rng.integers(-4, 5, 8192) * 2 ** 32, device="cuda"), 16, 300),
         ("R=2^24, E=16, cap=2^20", ids(0, 16, DISPATCH_BIG), 16, 1 << 20),
         ("R=2^24, E=128, cap=2^17", ids(0, 128, DISPATCH_BIG), 128,
          1 << 17),
+        ("R=2^24, E=128, cap=2^17, int64 ids",
+         ids(0, 128, DISPATCH_BIG).long(), 128, 1 << 17),
     ]
     for what, experts, e, cap in cases:
         _held_dispatch(what, experts, e, cap, err, "dispatch")
     n_cases = len(cases)
     cases.clear()                     # the 2^24 inputs
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "cases": n_cases}
+    replays = _dispatch_replays(err)
+    return {"max_abs_err": err, "cases": n_cases, "graph_replays": replays}
+
+
+#: the timing shapes: (requests, experts, capacity)
+DISPATCH_TIMING = ((8192, 16, 1024), (DISPATCH_BIG, 16, 1 << 20),
+                   (DISPATCH_BIG, 128, 1 << 17))
 
 
 def phase_dispatch_times() -> dict:
     """The dispatch kernel at the bench's shape and at 2^24 requests (E =
-    16), held to its plain version first: per call, device time in a CUDA
-    graph, each launch's device time (torch.profiler) and the byte bound
-    (4 bytes read, 4 + 1 written a request)."""
+    16 and 128), held to its plain version first: per call, device time in
+    a CUDA graph, the device time of its one launch (torch.profiler) and
+    the byte bound (4 bytes read, 4 + 1 written a request)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1453,43 +1577,45 @@ def phase_dispatch_times() -> dict:
                                                       moe_dispatch_positions)
     gen = torch.Generator(device="cuda").manual_seed(8)
     out, err = {}, {"moe_dispatch": 0.0}
-    for r, cap in ((8192, 1024), (DISPATCH_BIG, 1 << 20)):
-        experts = torch.randint(0, 16, (r,), device="cuda", generator=gen,
+    for r, e, cap in DISPATCH_TIMING:
+        experts = torch.randint(0, e, (r,), device="cuda", generator=gen,
                                 dtype=torch.int32)
-        _held_dispatch(f"R={r}, E=16, cap={cap}", experts, 16, cap, err,
+        _held_dispatch(f"R={r}, E={e}, cap={cap}", experts, e, cap, err,
                        "times")
 
-        def call(experts=experts, cap=cap):
-            return moe_dispatch_positions(experts, 16, cap)
-        t = timed(call, lambda experts=experts, cap=cap: moe_dispatch_plain(
-                      experts, 16, cap), None,
+        def call(experts=experts, e=e, cap=cap):
+            return moe_dispatch_positions(experts, e, cap)
+        t = timed(call, lambda experts=experts, e=e, cap=cap:
+                  moe_dispatch_plain(experts, e, cap), None,
                   bound_ms(r * (4 + 4 + 1)), graph_iters=20, iters=50)
-        # where the device time goes: each of the three launches
+        # the device time of the one launch, and nothing else on the card
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 call()
             torch.cuda.synchronize()
-        t["launch_device_ms"] = {
-            name: ev.self_device_time_total / ev.count / 1e3
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            for name in ("dispatch_hist", "dispatch_scan", "dispatch_rank")
-            if name in ev.key and ev.count}
-        out[r] = t
+        launches = [ev for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and ev.count]
+        t["launch_device_ms"] = {ev.key: ev.self_device_time_total /
+                                 ev.count / 1e3 for ev in launches}
+        t["launch_counts"] = {ev.key: ev.count for ev in launches}
+        out[f"{r}x{e}"] = t
         us = {k: v * 1e3 for k, v in t.items()
               if k.endswith("ms") and isinstance(v, float)}
-        split = ", ".join(f"{k} {v * 1e3:.3f} us"
+        split = ", ".join(f"{k[:40]} {v * 1e3:.3f} us"
                           for k, v in t["launch_device_ms"].items())
-        log(f"[times] moe_dispatch at {r} requests, E=16: per call from "
+        log(f"[times] moe_dispatch at {r} requests, E={e}: per call from "
             f"Python: kernel {us['ms']:.2f} us, plain {us['plain_ms']:.2f} "
             f"us; device time in a CUDA graph: kernel {us['device_ms']:.3f} "
-            f"us (3 launches); per launch (torch.profiler, 5 calls): "
-            f"{split}; bound {us['bound_ms']:.3f} us ({t['bound_by']}); "
-            f"library: none")
-        if len(t["launch_device_ms"]) != 3:
-            raise AssertionError(f"the profiler saw {t['launch_device_ms']}"
-                                 f", not the three dispatch launches")
+            f"us (1 launch), {100 * t['bound_ms'] / t['device_ms']:.1f} % "
+            f"of the bound; the launch (torch.profiler, 5 calls): {split}; "
+            f"bound {us['bound_ms']:.3f} us ({t['bound_by']}); library: "
+            f"none")
+        if list(t["launch_counts"].values()) != [5] or "dispatch_scan" not \
+                in next(iter(t["launch_counts"])):
+            raise AssertionError(f"the profiler saw {t['launch_counts']}, "
+                                 f"not one dispatch launch a call")
     return {"shapes": out, "max_abs_err": err}
 
 
@@ -1642,9 +1768,13 @@ def main() -> int:
                 bench_err[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            **({"kernel_alone_device_ms": t["kernel_device_ms"],
+                "kernel_alone_bound_ms": t["kernel_bound_ms"],
+                "store_device_ms": t["store_device_ms"]}
+               if name == "carry_arbiter" else {})})
     # the dispatch: launches of the bench path, times at 2^24 requests
-    t = record["dispatch_times"]["shapes"][DISPATCH_BIG]
+    t = record["dispatch_times"]["shapes"][f"{DISPATCH_BIG}x16"]
     kernels.append({
         "name": "moe_dispatch", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_dispatch.cu",

@@ -8,53 +8,75 @@
 // whose grid runs in order over blocks of 512 requests and carries an (E,)
 // running count in VMEM scratch from one block to the next.  Blocks of a
 // CUDA grid run in no order, so nothing can be carried; the running count
-// becomes a multi-block ordered scan in three launches:
+// becomes a single-pass scan with a decoupled look-back, one launch a pass
+// of up to kChunk = 1024 experts:
 //
-//   1. dispatch_hist — one block per tile of kTile = 4096 requests writes
-//      the tile's count per expert into an (E, n_tiles) int32 buffer;
-//   2. dispatch_scan — one block per expert turns its row of that buffer
-//      into an exclusive scan over the tiles: the count of the expert's
-//      requests in all earlier tiles;
-//   3. dispatch_rank — one block per tile again ranks each request inside
-//      its tile and writes pos = tile base + earlier warps' count + rank
-//      within the warp, and kept = pos < capacity.
-//
-// Inside a tile, warp w owns 512 consecutive requests as 16 rows of 32 (one
-// request a lane, so loads and stores are coalesced) and walks them in
-// order.  For each row, __match_any_sync finds the lanes with the same id;
-// a lane's rank within the row is __popc(peers & lanes below it), and the
-// warp's running count per expert lives in shared memory (count[w][e]: one
-// row per warp, so no atomics).  Both the histogram and the rank pass run
-// this walk, so both see the same counts.  After the walk an exclusive scan
-// over the 8 warps, per expert, gives each warp the count of the tile's
-// earlier warps.  Positions are therefore exact ranks in stream order:
-// deterministic and equal to the reference bit for bit (atomicAdd on
-// per-expert counters would hand out some slot, not the rank).
+//   * Ordered tiles without an ordered grid.  Each block takes its tile of
+//     kTile = 4096 requests from a device ticket counter (atomicAdd), not
+//     from blockIdx: every tile below its own was taken by a block that is
+//     already running, so waiting on those tiles always ends.
+//   * Inside a tile.  Warp w owns 512 consecutive requests as 16 rows of 32
+//     (one request a lane: loads and stores are coalesced), loads its ids
+//     once into registers (int32, or int64 keeping the low 32 bits as
+//     astype(int32) does) and walks the rows in order.  For each row,
+//     __match_any_sync finds the lanes with the same id; a lane's rank
+//     within the row is __popc(peers & lanes below it), and the warp's
+//     running count per expert lives in shared memory (count[w][e]: one
+//     row per warp, so no atomics).  An exclusive scan over the 8 warps,
+//     per expert, gives each warp the count of the tile's earlier warps,
+//     and its total is the tile's aggregate.
+//   * Publishing and looking back.  The tile publishes its aggregate per
+//     expert into a status word of the workspace (status[e][tile]), then
+//     looks back over the tiles below it until it meets an inclusive prefix
+//     for that expert; a warp takes one expert at a time and reads a
+//     window of kWindow = 32 predecessors' words at once (lane l: tile
+//     - 1 - l), waiting only while a word below the nearest inclusive one
+//     is not yet published.  The tile then publishes its inclusive prefix
+//     and writes pos = earlier tiles' count + earlier warps' count + rank,
+//     and kept = pos < capacity.  Tile 0 publishes its inclusive prefix at
+//     once.  Positions are exact ranks in stream order: deterministic and
+//     equal to the reference bit for bit (an atomicAdd on per-expert
+//     counters would hand out some slot, not the rank).
+//   * The status word.  64 bits: the count in bits 0-31 (an inclusive
+//     prefix is at most R <= 2^31 - 1), the flag in bit 32 (1: inclusive
+//     prefix, 0: the tile's aggregate alone) and the call's tag in bits
+//     33-63.  It is stored with release and loaded with acquire semantics
+//     (cuda::atomic_ref), so no word tears and no reader mistakes an old
+//     word for a new one: a word counts only when its tag is the call's.
+//   * Safe to replay from a CUDA graph.  The workspace (allocated zeroed by
+//     the wrapper, one per device and stream) starts with a header of the
+//     ticket counter, a done counter and the epoch; the call's tag is
+//     epoch + 1, read on the device.  The last block to finish resets the
+//     ticket and done counters and advances the epoch, so the host passes
+//     nothing that a replayed launch could find stale.  Tags run from 1 to
+//     kTagLimit = 2^31 - 1 (a zeroed word, tag 0, is never valid); when
+//     the epoch wraps, the last block zeroes every status word, so a word
+//     from 2^31 - 1 calls ago cannot pass for a new one.
 //
 // Edge cases, as the Pallas body (kernel.py:33-50) has them: an id outside
 // [0, E), negative ones included, counts nowhere, gets pos = 0 and is kept
 // iff 0 < capacity; capacity <= 0 keeps nothing; capacity > R keeps all.
+// kept is written as bytes 0 and 1 only (torch.bool).
 //
-// Expert counts: one pass over the stream handles up to kChunk = 1024
-// experts (8 warps x 1024 counters x 4 bytes = 32 KB of shared memory, in
-// the default 48 KB).  A larger E runs the three launches once per chunk
-// of 1024 experts, each counting only the ids of its chunk and writing only
-// their positions (chunk 0 also writes the ids outside [0, E)): every E
-// the reference takes works, at ceil(E / 1024) times the reads.  E = 0
-// (the reference takes it: every id is outside [0, 0)) runs the rank
-// launch alone.  Each launch has its own C entry, so each entry is one
-// launch a call; the wrapper (kernels/moe_dispatch/ops.py) calls them in
-// order, once per chunk of experts.
+// Expert counts: a pass handles up to kChunk experts (8 warps x 1024
+// counters and 1024 bases, 36 KB of shared memory, in the default 48 KB).
+// A larger E runs one launch per chunk of 1024 experts, each counting only
+// the ids of its chunk and writing only their positions (chunk 0 also
+// writes the ids outside [0, E)).  E = 0 (the reference takes it: every id
+// is outside [0, 0)) is one launch with no experts and no look-back.
 //
 // What bounds it: bytes.  The function reads 4 bytes and writes 5 a
 // request: at 2^24 requests 151 MB, 45.1 us at 3.35 TB/s; at the bench's
 // 8192 requests 0.022 us, far below a launch.  This design reads the ids
-// twice (13 bytes a request, plus the (E, n_tiles) buffer: 256 KB at 2^24
-// requests and E = 16, written, scanned and read); one launch with a
-// decoupled look-back would read them once (later work).
+// once and writes each output once; besides, it moves two status words
+// per tile and expert (256 KB at 2^24 requests and E = 16) and the
+// look-back's reads of them.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned long long u64;
 
 namespace {
 
@@ -64,11 +86,35 @@ constexpr int kRows = 16;                  // rows of 32 requests per warp
 constexpr int kWarpTile = kRows * 32;      // 512 requests per warp
 constexpr int kTile = kWarps * kWarpTile;  // 4096 requests per block
 constexpr int kChunk = 1024;               // experts per pass
-constexpr int kScanThreads = 1024;
+constexpr int kWindow = 32;                // predecessors a warp reads at once
 
-// The warp's 16 ids (beyond the stream: -1) and each one's counter in the
-// chunk [e_lo, e_lo + ew), -1 for an id the chunk does not count.
-__device__ __forceinline__ void load_ids(const int* __restrict__ ids,
+// The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
+constexpr int kFlagBit = 32;               // 1: inclusive prefix
+constexpr int kTagShift = 33;              // bits 33-63: the call's tag
+constexpr unsigned kTagLimit = 0x7fffffffu;
+constexpr int kHeaderWords = 2;            // the Header below, in u64 words
+
+struct Header {
+  unsigned ticket;  // tiles handed out in this call
+  unsigned done;    // blocks finished in this call
+  unsigned epoch;   // the call's tag is epoch + 1
+  unsigned unused;
+};
+static_assert(sizeof(Header) == kHeaderWords * sizeof(u64), "header size");
+
+typedef cuda::atomic_ref<u64, cuda::thread_scope_device> Word;
+
+__device__ __forceinline__ u64 pack(unsigned tag, bool inclusive,
+                                    unsigned count) {
+  return (static_cast<u64>(tag) << kTagShift) |
+         (static_cast<u64>(inclusive) << kFlagBit) | count;
+}
+
+// The warp's 16 ids (beyond the stream: -1; int64 ids keep their low 32
+// bits) and each one's counter in the chunk [e_lo, e_lo + ew), -1 for an
+// id the chunk does not count.
+template <typename Id>
+__device__ __forceinline__ void load_ids(const Id* __restrict__ ids,
                                          long long start, long long r,
                                          int lane, int e_lo, int ew,
                                          int (&id)[kRows],
@@ -76,7 +122,7 @@ __device__ __forceinline__ void load_ids(const int* __restrict__ ids,
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const long long i = start + k * 32 + lane;
-    id[k] = i < r ? __ldg(ids + i) : -1;
+    id[k] = i < r ? static_cast<int>(__ldg(ids + i)) : -1;
   }
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
@@ -106,103 +152,107 @@ __device__ __forceinline__ void rank_rows(const int (&slot)[kRows],
   }
 }
 
-__device__ __forceinline__ void zero_counts(int* count, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) count[i] = 0;
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-dispatch_hist(const int* __restrict__ ids, long long r, int e_lo, int ew,
-              int n_tiles, int* __restrict__ hist) {
-  extern __shared__ int count[];  // [kWarps][ew]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  zero_counts(count, kWarps * ew);
-  int id[kRows], slot[kRows], rank[kRows];
-  load_ids(ids, static_cast<long long>(blockIdx.x) * kTile + warp * kWarpTile,
-           r, lane, e_lo, ew, id, slot);
-  rank_rows(slot, count + warp * ew, lane, rank);
-  __syncthreads();
-  for (int e = threadIdx.x; e < ew; e += kThreads) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += count[w * ew + e];
-    hist[static_cast<long long>(e) * n_tiles + blockIdx.x] = total;
-  }
-}
-
-// One block per expert: its row of n_tiles counts becomes an exclusive
-// scan.  Each thread sums a contiguous segment, the block scans the 1024
-// sums (warp shuffles, then one warp over the 32 warp totals), and each
-// thread rewrites its segment.
-__global__ void __launch_bounds__(kScanThreads)
-dispatch_scan(int* __restrict__ hist, int n_tiles) {
-  __shared__ int warp_total[kScanThreads / 32];
-  int* row = hist + static_cast<long long>(blockIdx.x) * n_tiles;
-  const int t = threadIdx.x;
-  const int per = (n_tiles + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, n_tiles);
-  const int hi = min(lo + per, n_tiles);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += row[i];
-  const int lane = t & 31, warp = t >> 5;
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) warp_total[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_total[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += v;
+// The count of one expert's requests in tiles [0, tile), tile > 0, by one
+// warp from the expert's row of status words (col[t]: tile t's word).
+// Lane l reads tile from - 1 - l; the window is used once every word below
+// its nearest inclusive prefix carries the call's tag (or, with no
+// inclusive prefix in it, once all 32 do, and the next window lies below).
+__device__ __forceinline__ unsigned look_back(u64* col, int tile,
+                                              unsigned tag, int lane) {
+  unsigned total = 0;
+  for (int from = tile;; from -= kWindow) {
+    const int t = from - 1 - lane;
+    unsigned count = 0, valid_mask, incl_mask, ready;
+    for (;;) {
+      bool valid = true, incl = true;      // below tile 0: inclusive 0
+      if (t >= 0) {
+        const u64 w = Word(col[t]).load(cuda::memory_order_acquire);
+        valid = static_cast<unsigned>(w >> kTagShift) == tag;
+        incl = valid && ((w >> kFlagBit) & 1u);
+        count = static_cast<unsigned>(w);
+      }
+      valid_mask = __ballot_sync(0xffffffffu, valid);
+      incl_mask = __ballot_sync(0xffffffffu, incl);
+      // the lanes below the first one whose word is not yet published
+      const unsigned waiting = ~valid_mask;
+      ready = waiting ? (waiting & (0u - waiting)) - 1u : 0xffffffffu;
+      if ((incl_mask & ready) || !waiting) break;
+      __nanosleep(32);
     }
-    warp_total[lane] = w;
-  }
-  __syncthreads();
-  int run = incl - sum + (warp ? warp_total[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    const int v = row[i];
-    row[i] = run;
-    run += v;
+    const unsigned stop = incl_mask & ready;
+    if (stop) {                            // lanes up to the nearest one
+      const int k = __ffs(stop) - 1;
+      return total + __reduce_add_sync(0xffffffffu, lane <= k ? count : 0u);
+    }
+    total += __reduce_add_sync(0xffffffffu, count);
   }
 }
 
+template <typename Id>
 __global__ void __launch_bounds__(kThreads)
-dispatch_rank(const int* __restrict__ ids, int* __restrict__ pos,
+dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               uint8_t* __restrict__ kept, long long r, int n_experts,
-              int e_lo, int ew, int n_tiles, const int* __restrict__ hist,
-              int capacity, bool first_chunk) {
-  extern __shared__ int count[];  // [kWarps][ew]
+              int e_lo, int ew, int capacity, bool first_chunk,
+              u64* __restrict__ ws, long long ws_words) {
+  extern __shared__ int smem[];     // count[kWarps][ew], then base[ew]
+  int* base = smem + kWarps * ew;
+  __shared__ int s_tile;
+  __shared__ unsigned s_tag;
+  __shared__ bool s_wrap;
+  Header* head = reinterpret_cast<Header*>(ws);
+  u64* status = ws + kHeaderWords;  // status[e * n_tiles + tile]
+  const int n_tiles = static_cast<int>(gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  zero_counts(count, kWarps * ew);
+  if (threadIdx.x == 0) {
+    s_tile = static_cast<int>(atomicAdd(&head->ticket, 1u));
+    s_tag = *reinterpret_cast<volatile unsigned*>(&head->epoch) + 1u;
+  }
+  for (int i = threadIdx.x; i < kWarps * ew; i += kThreads) smem[i] = 0;
+  __syncthreads();
+  const int tile = s_tile;
+  const unsigned tag = s_tag;
   const long long start =
-      static_cast<long long>(blockIdx.x) * kTile + warp * kWarpTile;
+      static_cast<long long>(tile) * kTile + warp * kWarpTile;
   int id[kRows], slot[kRows], rank[kRows];
   load_ids(ids, start, r, lane, e_lo, ew, id, slot);
-  rank_rows(slot, count + warp * ew, lane, rank);
+  rank_rows(slot, smem + warp * ew, lane, rank);
   __syncthreads();
-  // per expert: the tile's base, then an exclusive scan over the warps
+  // per expert: an exclusive scan over the warps, and the tile's aggregate
+  // published (tile 0: as its inclusive prefix, with nothing before it)
   for (int e = threadIdx.x; e < ew; e += kThreads) {
-    int run = hist[static_cast<long long>(e) * n_tiles + blockIdx.x];
+    int run = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const int c = count[w * ew + e];
-      count[w * ew + e] = run;
+      const int c = smem[w * ew + e];
+      smem[w * ew + e] = run;
       run += c;
+    }
+    Word(status[static_cast<long long>(e) * n_tiles + tile])
+        .store(pack(tag, tile == 0, static_cast<unsigned>(run)),
+               cuda::memory_order_release);
+    base[e] = tile == 0 ? 0 : run;
+  }
+  if (tile > 0) {
+    __syncthreads();                // base[] holds the aggregates
+    for (int e = warp; e < ew; e += kWarps) {
+      u64* col = status + static_cast<long long>(e) * n_tiles;
+      const unsigned before = look_back(col, tile, tag, lane);
+      if (lane == 0) {
+        Word(col[tile]).store(
+            pack(tag, true, before + static_cast<unsigned>(base[e])),
+            cuda::memory_order_release);
+        base[e] = static_cast<int>(before);
+      }
     }
   }
   __syncthreads();
-  const int* base = count + warp * ew;
+  const int* cnt = smem + warp * ew;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const long long i = start + k * 32 + lane;
     if (i >= r) continue;
     if (slot[k] >= 0) {
-      const int p = base[slot[k]] + rank[k];
+      const int p = base[slot[k]] + cnt[slot[k]] + rank[k];
       pos[i] = p;
       kept[i] = p < capacity;
     } else if (first_chunk && (id[k] < 0 || id[k] >= n_experts)) {
@@ -210,56 +260,60 @@ dispatch_rank(const int* __restrict__ ids, int* __restrict__ pos,
       kept[i] = 0 < capacity;
     }
   }
+  // the last block to finish readies the workspace for the next call
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_wrap = false;
+    if (atomicAdd(&head->done, 1u) == static_cast<unsigned>(n_tiles) - 1u) {
+      head->ticket = 0;
+      head->done = 0;
+      const unsigned next = head->epoch + 1u;
+      s_wrap = next == kTagLimit;
+      head->epoch = s_wrap ? 0u : next;
+    }
+  }
+  __syncthreads();
+  if (s_wrap) {
+    for (long long i = kHeaderWords + threadIdx.x; i < ws_words;
+         i += kThreads)
+      ws[i] = 0;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The three launches of one chunk of experts [e_lo, e_lo + ew), ew in
-// [1, 1024] (rank also takes ew = 0: no experts), over n_tiles =
-// ceil(r / 4096) tiles.  hist is (ew, n_tiles) int32 scratch.  Each
-// returns cudaGetLastError() after its one launch, or cudaErrorInvalidValue
+// One pass of experts [e_lo, e_lo + ew), ew in [0, 1024], over r requests
+// (1 <= r <= 2^31 - 1): ids (r,) of id_bytes 4 (int32) or 8 (int64, the low
+// 32 bits count) -> pos (r,) int32 and kept (r,) bool (one byte each) for
+// the ids of the chunk, and, when first_chunk is set, for the ids outside
+// [0, n_experts).  ws is the zeroed workspace of ws_words >= 2 +
+// ceil(r / 4096) * ew u64 words; calls that share it must run in stream
+// order.  One launch; returns cudaGetLastError(), or cudaErrorInvalidValue
 // for sizes it does not take (and then launches nothing).
-
-static bool sizes_ok(long long r, int ew, int n_tiles, bool need_ew) {
-  return r > 0 && ew >= (need_ew ? 1 : 0) && ew <= kChunk &&
-         static_cast<long long>(n_tiles) == (r + kTile - 1) / kTile;
-}
-
-// experts (r,) int32 -> hist[e][t]: tile t's count of expert e_lo + e.
-int moe_dispatch_hist(const int* experts, int* hist, long long r, int e_lo,
-                      int ew, int n_tiles, void* stream) {
-  if (!sizes_ok(r, ew, n_tiles, true))
+int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
+                        uint8_t* kept, long long r, int n_experts, int e_lo,
+                        int ew, int capacity, int first_chunk, u64* ws,
+                        long long ws_words, void* stream) {
+  if (r < 1 || r > 0x7fffffffLL || ew < 0 || ew > kChunk || n_experts < 0 ||
+      (id_bytes != 4 && id_bytes != 8))
     return static_cast<int>(cudaErrorInvalidValue);
-  dispatch_hist<<<n_tiles, kThreads, sizeof(int) * kWarps * ew,
-                  static_cast<cudaStream_t>(stream)>>>(experts, r, e_lo, ew,
-                                                       n_tiles, hist);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// hist[e][:] -> its exclusive scan over the tiles, for each of ew experts.
-int moe_dispatch_scan(int* hist, int ew, int n_tiles, void* stream) {
-  if (ew < 1 || ew > kChunk || n_tiles < 1)
+  const long long n_tiles = (r + kTile - 1) / kTile;
+  if (ws_words < kHeaderWords + n_tiles * ew)
     return static_cast<int>(cudaErrorInvalidValue);
-  dispatch_scan<<<ew, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hist, n_tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// experts (r,) int32 -> pos (r,) int32 and kept (r,) bool (one byte each)
-// for the ids of the chunk, and, when first_chunk is set, for the ids
-// outside [0, n_experts).
-int moe_dispatch_rank(const int* experts, int* pos, uint8_t* kept,
-                      long long r, int n_experts, int e_lo, int ew,
-                      int n_tiles, const int* hist, int capacity,
-                      int first_chunk, void* stream) {
-  if (!sizes_ok(r, ew, n_tiles, false) || n_experts < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dispatch_rank<<<n_tiles, kThreads, sizeof(int) * kWarps * ew,
-                  static_cast<cudaStream_t>(stream)>>>(
-      experts, pos, kept, r, n_experts, e_lo, ew, n_tiles, hist, capacity,
-      first_chunk != 0);
+  const size_t smem = sizeof(int) * (kWarps + 1) * ew;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(n_tiles);
+  if (id_bytes == 4)
+    dispatch_scan<int><<<grid, kThreads, smem, s>>>(
+        static_cast<const int*>(experts), pos, kept, r, n_experts, e_lo, ew,
+        capacity, first_chunk != 0, ws, ws_words);
+  else
+    dispatch_scan<long long><<<grid, kThreads, smem, s>>>(
+        static_cast<const long long*>(experts), pos, kept, r, n_experts,
+        e_lo, ew, capacity, first_chunk != 0, ws, ws_words);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,9 @@ PyTorch.  There is no fallback from one to the other.
 
 The reference's words are uint32.  The port carries them as int64 tensors
 holding the 32-bit pattern (``repro_torch.core.arbiter``); the kernel reads
-and writes 32-bit words, and the wrapper converts at its boundary, so its
-result equals the reference's words bit for bit.
+int32 and int64 words as they are (the low 32 bits count) and writes the
+int64 grants itself (zero-extended), so a call on either is one launch
+and its result equals the reference's words bit for bit.
 """
 from __future__ import annotations
 
@@ -37,7 +38,15 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 #: the C entry and its launch count (``ARBITER.launches``)
 ARBITER = CudaEntry("controllers", "carry_arbiter_launch",
-                    [_P, _P, _I64, _I32])
+                    [_P, _I32, _P, _I32, _I64, _I32, _I32])
+#: the kernel's two store designs (``store`` of csrc/controllers.cu): 16-byte
+#: streaming stores from registers, or one TMA bulk store of a block's tile
+#: staged in shared memory
+STORES = {"vector": 0, "bulk": 1}
+#: the design the wrapper launches
+STORE = "vector"
+#: request dtypes the kernel reads as they are: 4- and 8-byte words
+KERNEL_DTYPES = (torch.int32, torch.int64)
 
 
 def check_arbiter(requests: torch.Tensor) -> None:
@@ -66,29 +75,47 @@ def carry_arbiter_plain(requests: torch.Tensor) -> torch.Tensor:
     return torch.stack(grants, dim=1)
 
 
-def arbiter_words(words: torch.Tensor) -> torch.Tensor:
-    """The kernel alone: (ops, B) int32 words on the card -> (ops, 16, B)
-    int32 grant words (the same 32-bit patterns as uint32)."""
+def kernel_words(requests: torch.Tensor) -> torch.Tensor:
+    """The words the kernel reads: the requests themselves when they are a
+    contiguous int32 or int64 tensor; any other integer type, or a
+    non-contiguous view, is first copied to contiguous int64 words (one
+    conversion launch; the low 32 bits are kept either way)."""
+    if requests.dtype in KERNEL_DTYPES and requests.is_contiguous():
+        return requests
+    return requests.to(torch.int64).contiguous()
+
+
+def arbiter_launch(words: torch.Tensor, out_dtype: torch.dtype = torch.int64,
+                   store: str = STORE) -> torch.Tensor:
+    """One launch: (ops, B) contiguous int32 or int64 words on the card ->
+    (ops, 16, B) grant words of ``out_dtype`` (int64: zero-extended; int32:
+    the 32-bit patterns as uint32), by store design ``store``."""
     n_ops, n_banks = words.shape
-    grants = torch.empty((n_ops, MAX_CYCLES, n_banks), dtype=torch.int32,
+    grants = torch.empty((n_ops, MAX_CYCLES, n_banks), dtype=out_dtype,
                          device=words.device)
-    ARBITER(words.data_ptr(), grants.data_ptr(), n_ops, n_banks)
+    ARBITER(words.data_ptr(), words.element_size(), grants.data_ptr(),
+            grants.element_size(), n_ops, n_banks, STORES[store])
     return grants
+
+
+def arbiter_words(words: torch.Tensor) -> torch.Tensor:
+    """The kernel alone on 32-bit words: (ops, B) int32 words on the card
+    -> (ops, 16, B) int32 grant words (the same 32-bit patterns as
+    uint32)."""
+    return arbiter_launch(words, torch.int32)
 
 
 def carry_arbiter(requests: torch.Tensor) -> torch.Tensor:
     """(ops, B) request words (any integer type; the low 32 bits count, as
     the reference's ``astype(uint32)``) -> (ops, 16, B) int64 one-hot grant
-    words: the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    one."""
+    words: the CUDA kernel on a CUDA tensor (one launch on contiguous int32
+    or int64 words, ``kernel_words`` says which), the plain version on a
+    CPU one."""
     check_arbiter(requests)
     if requests.device.type == "cpu":
         return carry_arbiter_plain(requests)
     require_cuda(requests)
-    # int64 -> int32 keeps the low 32 bits (two's-complement truncation);
-    # the grants come back through uint32, which widens without sign
-    words = requests.to(torch.int32).contiguous()
-    return arbiter_words(words).view(torch.uint32).to(torch.int64)
+    return arbiter_launch(kernel_words(requests))
 
 
 def _request_ops(req: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -20,31 +20,78 @@ import ctypes
 import torch
 
 from repro_torch.kernels.banked_gather.ops import require_cuda
-from repro_torch.kernels.cuda_lib import CudaEntry, EntryGroup
+from repro_torch.kernels.cuda_lib import CudaEntry, current_stream
 
 #: the reference kernel's block of requests: R must be a multiple of
 #: min(R_BLOCK, R)
 R_BLOCK = 512
 #: the CUDA kernel's tile of requests and its experts per pass (kTile and
-#: kChunk of csrc/moe_dispatch.cu): the size of its scratch buffer
+#: kChunk of csrc/moe_dispatch.cu)
 TILE, EXPERT_CHUNK = 4096, 1024
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
+#: the look-back's status word (kFlagBit, kTagShift, kTagLimit of the
+#: source): the count in bits 0-31, the flag in bit 32 (1: inclusive
+#: prefix, 0: the tile's aggregate), the call's tag (1 to TAG_LIMIT; 0 is
+#: never valid) in bits 33-63
+FLAG_BIT, TAG_SHIFT, TAG_LIMIT = 32, 33, 2 ** 31 - 1
+#: the workspace's header (ticket, done counter, epoch) in int64 words
+HEADER_WORDS = 2
+
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-#: the three C entries, one launch each (their ``launches``), called in
-#: this order once per chunk of up to 1024 experts; with no experts the
-#: rank launch runs alone
-HIST = CudaEntry("moe_dispatch", "moe_dispatch_hist",
-                 [_P, _P, _I64, _I32, _I32, _I32])
-SCAN = CudaEntry("moe_dispatch", "moe_dispatch_scan", [_P, _I32, _I32])
-RANK = CudaEntry("moe_dispatch", "moe_dispatch_rank",
-                 [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _I32, _I32])
-ENTRIES = (HIST, SCAN, RANK)
+#: the C entry, one launch a pass of up to 1024 experts (one with none),
+#: and its launch count (``DISPATCH.launches``)
+DISPATCH = CudaEntry("moe_dispatch", "moe_dispatch_launch",
+                     [_P, _I32, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                      _P, _I64])
 
-#: the dispatch's launch count, the sum of its entries'
-#: (``DISPATCH.launches``)
-DISPATCH = EntryGroup(*ENTRIES)
+
+def pack_status(tag: int, inclusive: bool, count: int) -> int:
+    """The status word a tile publishes for one expert, as an int64 (the
+    workspace's dtype): ``count`` (0 <= count < 2^32) in bits 0-31, the
+    flag in bit 32 and ``tag`` (1 <= tag <= TAG_LIMIT) in bits 33-63."""
+    if not (0 <= count < 2 ** 32 and 0 <= tag <= TAG_LIMIT):
+        raise ValueError(f"tag {tag} or count {count} out of range")
+    word = tag << TAG_SHIFT | int(inclusive) << FLAG_BIT | count
+    return word - 2 ** 64 if word >= 2 ** 63 else word
+
+
+def unpack_status(word: int) -> tuple[int, bool, int]:
+    """(tag, inclusive, count) of a status word."""
+    word %= 2 ** 64
+    return word >> TAG_SHIFT, bool(word >> FLAG_BIT & 1), word & 0xFFFFFFFF
+
+
+def workspace_words(r: int, n_experts: int) -> int:
+    """The int64 words a call of R requests over n_experts needs: the header
+    and one status word per (tile, expert of a pass)."""
+    return HEADER_WORDS + -(-r // TILE) * min(n_experts, EXPERT_CHUNK)
+
+
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+#: workspaces replaced by larger ones, kept alive: a CUDA graph that
+#: captured a call still launches on the old one's address
+_RETIRED: list[torch.Tensor] = []
+
+
+def workspace(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The look-back's workspace for calls on ``stream`` of ``device``: at
+    least ``words`` int64 words, zeroed when allocated and then kept
+    consistent by the kernel alone (its epoch advances on the device).
+    Keyed by (device, stream), so calls on two streams never share one:
+    calls on one stream run in order, and a captured call replays on the
+    workspace of the stream it was captured on (graphs captured on one
+    stream share it, so their replays must not overlap)."""
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < words:
+        if ws is not None:
+            _RETIRED.append(ws)
+        size = max(words, 2 * ws.numel()) if ws is not None else words
+        ws = _WORKSPACES[key] = torch.zeros(size, dtype=torch.int64,
+                                            device=device)
+    return ws
 
 
 def check_dispatch(experts: torch.Tensor, n_experts: int,
@@ -90,25 +137,32 @@ def moe_dispatch_positions(experts: torch.Tensor, n_experts: int,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(R,) flat priority-ordered expert ids -> ((R,) int32 position within
     the expert, (R,) bool kept): the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU one."""
+    plain version on a CPU one.
+
+    On the card: one launch a pass of up to 1024 experts (one with none);
+    int32 and int64 ids go to the kernel as they are (int64 ids keep their
+    low 32 bits, as ``astype(int32)``), other integer types are narrowed
+    first; ``pos`` and ``kept`` are views of one allocation.  A stream of
+    2^31 requests or more is refused: positions are int32."""
     check_dispatch(experts, n_experts, capacity)
     if experts.device.type == "cpu":
         return moe_dispatch_plain(experts, n_experts, capacity)
     require_cuda(experts)
-    ids = experts.to(torch.int32).contiguous()      # as astype(jnp.int32)
+    ids = experts if experts.dtype in (torch.int32, torch.int64) else \
+        experts.to(torch.int32)
+    ids = ids.contiguous()
     r = ids.shape[0]
-    pos = torch.empty(r, dtype=torch.int32, device=ids.device)
-    kept = torch.empty(r, dtype=torch.bool, device=ids.device)
-    n_tiles = -(-r // TILE)
-    hist = torch.empty((min(n_experts, EXPERT_CHUNK), n_tiles),
-                       dtype=torch.int32, device=ids.device)
+    if r > INT32_MAX:
+        raise ValueError(f"{r} requests: positions are int32")
+    out = torch.empty(5 * r, dtype=torch.uint8, device=ids.device)
+    pos, kept = out[:4 * r].view(torch.int32), out[4 * r:].view(torch.bool)
+    stream = current_stream()
+    ws = workspace(ids.device, stream, workspace_words(r, n_experts))
     for e_lo in range(0, max(n_experts, 1), EXPERT_CHUNK):
-        ew = min(EXPERT_CHUNK, n_experts - e_lo)
-        if ew:
-            HIST(ids.data_ptr(), hist.data_ptr(), r, e_lo, ew, n_tiles)
-            SCAN(hist.data_ptr(), ew, n_tiles)
-        RANK(ids.data_ptr(), pos.data_ptr(), kept.data_ptr(), r, n_experts,
-             e_lo, ew, n_tiles, hist.data_ptr(), capacity, e_lo == 0)
+        DISPATCH(ids.data_ptr(), ids.element_size(), pos.data_ptr(),
+                 kept.data_ptr(), r, n_experts, e_lo,
+                 min(EXPERT_CHUNK, n_experts - e_lo), capacity, e_lo == 0,
+                 ws.data_ptr(), ws.numel())
     return pos, kept
 
 

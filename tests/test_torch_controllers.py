@@ -31,7 +31,8 @@ from repro_torch.core import arch as PA
 from repro_torch.core.arbiter import pack_requests
 from repro_torch.core.conflicts import bank_onehot
 from repro_torch.core.cost_engine import cost_many
-from repro_torch.kernels.carry_arbiter.ops import carry_arbiter
+from repro_torch.kernels.carry_arbiter.ops import (carry_arbiter,
+                                                   carry_arbiter_plain)
 from repro_torch.kernels.carry_arbiter.ref import carry_arbiter_ref
 from repro_torch.kernels.conflict_popcount.ops import conflict_popcount
 from repro_torch.kernels.conflict_popcount.ref import conflict_popcount_ref
@@ -215,6 +216,118 @@ def test_arbiter_property_equals_pallas(words):
     for b, w in enumerate(words):
         low = [1 << i for i in range(32) if w >> i & 1][:16]
         assert grants[0, :, b].tolist() == low + [0] * (16 - len(low))
+
+
+def test_arbiter_kernel_reads_int32_and_int64_words_as_they_are():
+    """Contiguous int32 and int64 requests reach the kernel with no
+    conversion (the very tensor); other integer types and non-contiguous
+    views are copied once to contiguous int64 words with the same low 32
+    bits."""
+    from repro_torch.kernels.carry_arbiter.ops import (KERNEL_DTYPES,
+                                                       kernel_words)
+    assert KERNEL_DTYPES == (torch.int32, torch.int64)
+    rng = np.random.default_rng(14)
+    for dtype in KERNEL_DTYPES:
+        t = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (128, 16))).to(
+            dtype)
+        assert kernel_words(t) is t
+    wide = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (16, 128)))
+    for t in (wide.t(), wide[:, ::2], torch.from_numpy(
+            rng.integers(-100, 100, (8, 16))).to(torch.int8),
+              torch.from_numpy(rng.integers(0, 255, (8, 16))).to(torch.uint8),
+              torch.from_numpy(rng.integers(-3000, 3000, (8, 16))).to(
+                  torch.int16)):
+        got = kernel_words(t)
+        assert got is not t and got.dtype == torch.int64
+        assert got.is_contiguous()
+        assert torch.equal(got & 0xFFFFFFFF, t.to(torch.int64) & 0xFFFFFFFF)
+
+
+def _emulate_arbiter(words: np.ndarray, out_bytes: int,
+                     store: str) -> np.ndarray:
+    """csrc/controllers.cu's ``carry_arbiter_launch`` in numpy: each word's
+    low 32 bits (``static_cast<uint32_t>``), 16 carry-chain steps, and the
+    grants written as the chosen design writes them — V words a thread
+    with 16-byte stores (V = 16 / out_bytes when it divides B, else 1), or
+    a block's tile of whole ops (at most 32 KB) in one bulk store.  Every
+    store is checked for 16-byte alignment where the design needs it, and
+    every grant word must be written exactly once."""
+    from repro_torch.kernels.carry_arbiter.ops import MAX_CYCLES, STORES
+    assert store in STORES
+    n_ops, b = words.shape
+    v = (words.reshape(-1).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+    grants = np.empty((v.size, MAX_CYCLES), np.uint32)
+    for c in range(MAX_CYCLES):
+        grants[:, c] = v & (~(v - np.uint32(1)))
+        v &= v - np.uint32(1)
+    out = np.zeros(n_ops * MAX_CYCLES * b, np.uint64)
+    writes = np.zeros(out.size, np.int64)
+    w = np.arange(v.size)
+    op, bank = w // b, w % b
+    row_bytes = MAX_CYCLES * b * out_bytes
+    if store == "bulk" and row_bytes <= 32 * 1024:
+        per_block = 32 * 1024 // row_bytes
+        for op0 in range(0, n_ops, per_block):
+            n_op = min(per_block, n_ops - op0)
+            lo, hi = op0 * b, (op0 + n_op) * b      # the block's words
+            tile = np.zeros(n_op * MAX_CYCLES * b, np.uint64)
+            o, bk = op[lo:hi] - op0, bank[lo:hi]
+            for c in range(MAX_CYCLES):
+                tile[o * MAX_CYCLES * b + c * b + bk] = grants[lo:hi, c]
+            dst = op0 * MAX_CYCLES * b
+            assert (dst * out_bytes) % 16 == 0
+            assert (tile.size * out_bytes) % 16 == 0
+            out[dst:dst + tile.size] = tile
+            writes[dst:dst + tile.size] += 1
+    else:
+        per = 16 // out_bytes if b % (16 // out_bytes) == 0 else 1
+        first = w[::per]                            # each thread's word
+        for c in range(MAX_CYCLES):
+            at = op[first] * MAX_CYCLES * b + c * b + bank[first]
+            if per > 1:
+                assert ((at * out_bytes) % 16 == 0).all()
+            for j in range(per):                    # one op row a thread
+                assert (op[first + j] == op[first]).all()
+                out[at + j] = grants[first + j, c]
+                writes[at + j] += 1
+    assert (writes == 1).all()
+    out = out.reshape(n_ops, MAX_CYCLES, b)
+    return out.astype(np.int64) if out_bytes == 8 else \
+        out.astype(np.uint32).view(np.int32)
+
+
+ARB_WIDE = {
+    # int64 words with high bits set and negative words: the low 32 bits
+    "negative_and_above_2_32": np.array(
+        [[-1, -2 ** 31, 2 ** 32 + 5, 2 ** 63 - 1, -2 ** 63, 2 ** 40 - 3,
+          -(2 ** 33) + 0xF0F0, 0x1_0000_FFFF]] * 8, np.int64),
+    "random_pm_2_40": np.random.default_rng(15).integers(
+        -2 ** 40, 2 ** 40, (128, 16)),
+    "random_b12": np.random.default_rng(16).integers(-2 ** 34, 2 ** 34,
+                                                     (256, 12)),
+    "odd_b5": np.random.default_rng(17).integers(-2 ** 34, 2 ** 34, (3, 5)),
+    # a row of more than 32 KB of int64 grants: the bulk design takes
+    # the vector one
+    "b300": np.random.default_rng(18).integers(0, 2 ** 32, (128, 300)),
+}
+
+
+@pytest.mark.parametrize("store", ["vector", "bulk"])
+@pytest.mark.parametrize("case", list(ARB_EDGES) + list(ARB_WIDE))
+def test_arbiter_emulated_kernel_bit_equal_to_plain_and_pallas(case, store):
+    """The kernel's reads and writes, emulated for int32 and int64 words
+    in and int64 (and 32-bit) grants out, equal ``carry_arbiter_plain``
+    and the Pallas kernel on the words' low 32 bits."""
+    reqs = ARB_EDGES.get(case, ARB_WIDE.get(case))
+    plain = carry_arbiter_plain(torch.from_numpy(reqs)).numpy()
+    want = np.asarray(r_arbiter(jnp.asarray(reqs.astype(np.uint32)))
+                      ).astype(np.int64)
+    np.testing.assert_array_equal(plain, want)
+    for words in {reqs.dtype: reqs, np.int32: reqs.astype(np.int32)}.values():
+        np.testing.assert_array_equal(_emulate_arbiter(words, 8, store), want)
+        np.testing.assert_array_equal(
+            _emulate_arbiter(words, 4, store),
+            want.astype(np.uint32).view(np.int32))
 
 
 # -------------------------------------------------------------- traces --

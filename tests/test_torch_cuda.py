@@ -5,9 +5,10 @@ pass within rtol = atol = 1e-5, the reference's tolerance; the FFT
 transform bit-equal to the plain passes and within 2e-3·max|X| of the
 oracle), one launch a call (for the row kernels, one for both tables of a
 pair, and a claim and a copy launch for a scatter of more than 256
-indices; for the dispatch, one launch of each of its three entries a pass
-of experts; for the transform, one tile launch after log4(n / 4096) wide
-passes), and the serving path, the
+indices; for the dispatch, one launch a pass of up to 1024 experts; for
+the arbiter, one CUDA kernel in all on int32 or int64 words; for the
+transform, one tile launch after log4(n / 4096) wide passes), and the
+serving path, the
 paper tables, the kernel micro-bench and the cost engine on the card
 against the same code on the host.  Every test here needs a card and
 skips without one; the file imports no JAX, so it runs where only the port
@@ -454,6 +455,52 @@ def test_arbiter_kernel_drains_and_takes_int32_words(cuda):
                                                       for c in range(16)]
 
 
+def _cuda_kernels(fn) -> list[str]:
+    """The names of the CUDA kernels one call of ``fn`` runs, by
+    torch.profiler (it sees torch's own conversion kernels too)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                         # warm: workspaces, builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_arbiter_call_runs_one_cuda_kernel(cuda, dtype):
+    from repro_torch.kernels.carry_arbiter.ops import (carry_arbiter,
+                                                       carry_arbiter_plain)
+    reqs = torch.as_tensor(np.random.default_rng(3).integers(
+        -2 ** 40, 2 ** 40, (1024, 16)), device=cuda).to(dtype)
+    names = _cuda_kernels(lambda: carry_arbiter(reqs))
+    assert len(names) == 1 and "arbiter" in names[0], names
+    assert torch.equal(carry_arbiter(reqs), carry_arbiter_plain(reqs))
+
+
+@pytest.mark.parametrize("store", ["vector", "bulk"])
+def test_arbiter_store_designs_bit_equal_on_wide_words(cuda, store):
+    """Both store designs, on int64 words with high bits set and negative
+    words (the low 32 bits count), int32 words, odd and wide bank counts,
+    and 32-bit grants out."""
+    from repro_torch.kernels.carry_arbiter.ops import (arbiter_launch,
+                                                       carry_arbiter_plain)
+    rng = np.random.default_rng(4)
+    for shape in ((256, 16), (128, 12), (3, 5), (128, 300)):
+        reqs = torch.as_tensor(rng.integers(-2 ** 40, 2 ** 40, shape),
+                               device=cuda)
+        reqs[0, :4] = torch.tensor([-1, -2 ** 31, 2 ** 32 + 5, 2 ** 63 - 1])
+        want = carry_arbiter_plain(reqs)
+        for words in (reqs, reqs.to(torch.int32)):
+            got = arbiter_launch(words, store=store)
+            assert got.dtype == torch.int64 and torch.equal(got, want)
+            got32 = arbiter_launch(words, torch.int32, store)
+            assert torch.equal(got32.view(torch.uint32).to(torch.int64),
+                               want)
+
+
 # -------------------------------------------------- the dispatch kernel --
 
 DISPATCH_CASES = {
@@ -478,28 +525,88 @@ DISPATCH_CASES = {
 @pytest.mark.parametrize("case", list(DISPATCH_CASES))
 def test_dispatch_kernel_bit_equal_to_plain(cuda, case):
     from repro_torch.kernels.moe_dispatch.ops import (DISPATCH,
-                                                      EXPERT_CHUNK, HIST,
-                                                      RANK, SCAN,
+                                                      EXPERT_CHUNK,
                                                       moe_dispatch_plain,
                                                       moe_dispatch_positions)
     r, lo, hi, n_experts, cap = DISPATCH_CASES[case]
     ids = torch.as_tensor(np.random.default_rng(2).integers(lo, hi, r),
                           device=cuda)
-    before = [e.launches for e in (HIST, SCAN, RANK, DISPATCH)]
+    before = DISPATCH.launches
     got = moe_dispatch_positions(ids, n_experts, cap)
-    # histogram, scan and rank per pass of up to 1024 experts; the rank
-    # launch alone with no experts
-    passes = -(-n_experts // EXPERT_CHUNK)
-    ran = [e.launches - b
-           for e, b in zip((HIST, SCAN, RANK, DISPATCH), before)]
-    assert ran == [passes, passes, max(passes, 1), 2 * passes +
-                   max(passes, 1)]
+    # one launch a pass of up to 1024 experts; one with no experts
+    assert DISPATCH.launches - before == max(-(-n_experts // EXPERT_CHUNK),
+                                             1)
     want = moe_dispatch_plain(ids, n_experts, cap)
     torch.cuda.synchronize()
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(moe_dispatch_positions(ids.to(torch.int32),
+                                              n_experts, cap)[0], want[0])
     if case == "block_boundary":
         assert got[0].tolist() == list(range(r))
+
+
+def test_dispatch_call_runs_one_cuda_kernel(cuda):
+    from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_positions
+    for dtype in (torch.int32, torch.int64):
+        ids = torch.randint(0, 16, (8192,), device=cuda, dtype=dtype)
+        names = _cuda_kernels(lambda: moe_dispatch_positions(ids, 16, 1024))
+        assert len(names) == 1 and "dispatch_scan" in names[0], names
+
+
+def test_dispatch_replays_in_a_cuda_graph(cuda):
+    """Captured once, replayed 5 times with eager calls of other shapes in
+    between (on the default stream's workspace) and new ids copied in
+    before each replay: bit-equal to the plain version every time."""
+    from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ids = torch.randint(0, 128, (1 << 20,), device=cuda, generator=gen)
+    moe_dispatch_positions(ids, 128, 5000)                # warm-up, eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pos, kept = moe_dispatch_positions(ids, 128, 5000)
+    for step in range(5):
+        ids.copy_(torch.randint(0, 128, ids.shape, device=cuda,
+                                generator=gen))
+        graph.replay()
+        other = torch.randint(-2, 20, (8192,), device=cuda, generator=gen)
+        got = moe_dispatch_positions(other, 16, 300)
+        want = moe_dispatch_plain(ids, 128, 5000)
+        torch.cuda.synchronize()
+        assert torch.equal(pos, want[0]) and torch.equal(kept, want[1])
+        for g, w in zip(got, moe_dispatch_plain(other, 16, 300)):
+            assert torch.equal(g, w)
+
+
+def test_dispatch_across_the_epoch_wrap(cuda):
+    """The epoch set just below its wrap and stale words under the tags
+    that follow it: three passes of experts (tags 2^31 - 2, 2^31 - 1, then
+    1 after the last block has zeroed the status words) and the calls
+    after it stay bit-equal."""
+    from repro_torch.kernels.moe_dispatch import ops
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    small = torch.randint(0, 16, (4096,), device=cuda, generator=gen)
+    big = torch.randint(-3, 3003, (1 << 16,), device=cuda, generator=gen)
+    ops.moe_dispatch_positions(big, 3000, 20)    # the workspace, this size
+    from repro_torch.kernels.cuda_lib import current_stream
+    ws = ops.workspace(big.device, current_stream(),
+                       ops.workspace_words(1 << 16, 3000))
+    stale = torch.tensor([ops.pack_status(t, True, 12345)
+                          for t in (1, 2, 3)], device=cuda)
+    ws[ops.HEADER_WORDS:] = stale[torch.randint(
+        0, 3, (ws.numel() - ops.HEADER_WORDS,), device=cuda, generator=gen)]
+    ws[1] = ops.TAG_LIMIT - 2                    # epoch; next tag LIMIT - 1
+    for ids, e, cap in ((small, 16, 100), (big, 3000, 20), (small, 16, 7),
+                        (big, 3000, 20)):
+        got = ops.moe_dispatch_positions(ids, e, cap)
+        want = ops.moe_dispatch_plain(ids, e, cap)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+    # tags LIMIT - 1; LIMIT, (wrap) 1, 2; 3; 4, 5, 6: the epoch ends at 6
+    head = ws[:ops.HEADER_WORDS].view(torch.int32).tolist()
+    assert head[:3] == [0, 0, 6], head
 
 
 def test_dispatch_wrapper_refuses_what_the_reference_refuses(cuda):

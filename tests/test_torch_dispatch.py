@@ -12,6 +12,7 @@ tests/test_dispatch.py.  The CUDA kernel is held to the plain version by
 the ``cuda`` tests of test_torch_cuda.py (and by chip_smoke.py) on the
 card.  Inputs are made with numpy from fixed seeds."""
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -114,17 +115,15 @@ def test_moe_dispatch_edge_cases_bit_equal_to_pallas(case):
 
 
 def test_cpu_path_launches_no_kernel():
-    """A CPU tensor runs the plain version: no entry's launch count
-    moves; the summed count resets to 0 and only to 0."""
-    from repro_torch.kernels.moe_dispatch.ops import DISPATCH, ENTRIES
-    before = [e.launches for e in ENTRIES]
-    moe_dispatch_positions(torch.zeros(512, dtype=torch.int32), 16, 8)
-    assert [e.launches for e in ENTRIES] == before
-    assert DISPATCH.launches == sum(before)
-    DISPATCH.launches = 0
-    assert [e.launches for e in ENTRIES] == [0, 0, 0]
-    with pytest.raises(ValueError):
-        DISPATCH.launches = 3
+    """A CPU tensor runs the plain version: the one C entry's launch count
+    does not move, and no workspace is made."""
+    from repro_torch.kernels.moe_dispatch import ops
+    before = ops.DISPATCH.launches
+    for dtype in (torch.int32, torch.int64, torch.int16):
+        moe_dispatch_positions(torch.zeros(512, dtype=dtype), 16, 8)
+    assert ops.DISPATCH.launches == before
+    assert ops.DISPATCH.symbol == "moe_dispatch_launch"
+    assert not ops._WORKSPACES
 
 
 def test_moe_dispatch_matches_the_arbiter():
@@ -156,6 +155,297 @@ def test_moe_dispatch_refuses_what_the_reference_refuses(shape, n_experts,
        st.integers(0, 8), st.integers(-2, 40))
 def test_moe_dispatch_property_equals_pallas(ids, n_experts, capacity):
     _moe_equal(np.array(ids, np.int32), n_experts, capacity)
+
+
+# ------------------------- the CUDA kernel's single pass, emulated --
+#
+# csrc/moe_dispatch.cu runs one launch a pass of experts: tiles taken from a
+# ticket counter, per-warp ranks, tile aggregates published as packed
+# status words, a warp-wide look-back over windows of 32 predecessors, and
+# a header (ticket, done, epoch) that the last block readies for the next
+# call.  The emulation below runs that algorithm in numpy on an int64
+# workspace laid out as the kernel's, with blocks as generators that a
+# seeded scheduler advances in random order (up to `resident` at once), so
+# tiles publish, wait and finish in random orders.  The card runs the
+# kernel itself against the plain version (test_torch_cuda.py,
+# chip_smoke.py).
+
+def _source_constant(name: str) -> int:
+    """A ``constexpr`` of csrc/moe_dispatch.cu, read from the source."""
+    import re
+    from repro_torch.kernels.cuda_lib import CSRC
+    text = (CSRC / "moe_dispatch.cu").read_text()
+    m = re.search(rf"constexpr \w+ {name} = (0x[0-9a-f]+|\d+)u?;", text)
+    assert m, name
+    return int(m.group(1), 0)
+
+
+def _packed(tag, inclusive, counts) -> np.ndarray:
+    """Status words of ``counts`` (the kernel's packing) as int64."""
+    from repro_torch.kernels.moe_dispatch import ops
+    words = (np.uint64(tag) << np.uint64(ops.TAG_SHIFT)) | (
+        np.uint64(bool(inclusive)) << np.uint64(ops.FLAG_BIT)) | \
+        np.asarray(counts).astype(np.uint64)
+    return words.view(np.int64)
+
+
+def _dispatch_block(ids32, r, n_experts, capacity, e_lo, ew, n_tiles, ws,
+                    pos, kept, warps, rows):
+    """One block of the kernel, as a generator: each ``yield`` is a point
+    where other blocks may run."""
+    from repro_torch.kernels.moe_dispatch import ops
+    head = ws[:ops.HEADER_WORDS].view(np.uint32)   # ticket, done, epoch
+    status = ws[ops.HEADER_WORDS:]                 # status[e * n_tiles + t]
+    tile = int(head[0])
+    head[0] += 1
+    tag = int(head[2]) + 1
+    yield
+    warp_tile = rows * 32
+    lo = tile * warps * warp_tile
+    seg = np.full(warps * warp_tile, -1, np.int64)
+    part = ids32[lo:lo + warps * warp_tile]
+    seg[:len(part)] = part
+    slot = np.where((seg >= e_lo) & (seg < e_lo + ew), seg - e_lo, -1)
+    # rank_rows: row by row within each warp; a lane's rank is the warp's
+    # running count of its expert plus its earlier peers in the row
+    rank = np.zeros_like(seg)
+    count = np.zeros((warps, max(ew, 1)), np.int64)
+    earlier = np.tril(np.ones((32, 32), bool), -1)
+    for w in range(warps):
+        for k in range(rows):
+            at = w * warp_tile + k * 32
+            row = slot[at:at + 32]
+            peers = (row[:, None] == row[None, :]) & earlier
+            ok = row >= 0
+            rank[at:at + 32][ok] = (count[w, row[ok]] + peers.sum(1)[ok])
+            np.add.at(count[w], row[ok], 1)
+    count = count[:, :ew]
+    agg = count.sum(0)
+    warp_base = np.cumsum(count, 0) - count          # earlier warps
+    cols = np.arange(ew) * n_tiles
+    status[cols + tile] = _packed(tag, tile == 0, agg)
+    yield
+    base = np.zeros(ew, np.int64)
+    if tile > 0:
+        lanes = np.arange(32)
+        frm = np.full(ew, tile)                      # each expert's window
+        total = np.zeros(ew, np.int64)
+        left = np.arange(ew)
+        while left.size:
+            t = frm[left, None] - 1 - lanes          # lane l: tile from-1-l
+            words = status[cols[left, None] + np.maximum(t, 0)].view(
+                np.uint64)
+            valid = (words >> np.uint64(ops.TAG_SHIFT)) == tag
+            incl = valid & ((words >> np.uint64(ops.FLAG_BIT)) & 1 == 1)
+            cnt = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            below = t < 0                            # below tile 0: incl 0
+            valid, incl = valid | below, incl | below
+            cnt[below] = 0
+            # lanes below the first unpublished word, and the nearest
+            # inclusive prefix among them
+            ready = np.cumprod(valid, 1).astype(bool)
+            stop = incl & ready
+            hit = stop.any(1)
+            k = np.argmax(stop, 1)
+            before = total[left] + np.where(lanes <= k[:, None], cnt,
+                                            0).sum(1)
+            done = left[hit]
+            status[cols[done] + tile] = _packed(tag, True,
+                                                before[hit] + agg[done])
+            base[done] = before[hit]
+            move = ~hit & valid.all(1)
+            frm[left[move]] -= 32
+            total[left[move]] += cnt[move].sum(1)
+            left = left[~hit]
+            if left.size:
+                yield
+    j = np.arange(min(len(seg), r - lo))
+    w, sl, idv = j // warp_tile, slot[j], seg[j]
+    mine = sl >= 0
+    p = base[sl[mine]] + warp_base[w[mine], sl[mine]] + rank[j[mine]]
+    pos[lo + j[mine]], kept[lo + j[mine]] = p, p < capacity
+    if e_lo == 0:
+        out = ~mine & ((idv < 0) | (idv >= n_experts))
+        pos[lo + j[out]], kept[lo + j[out]] = 0, 0 < capacity
+    yield
+    done = int(head[1])
+    head[1] += 1
+    if done == n_tiles - 1:
+        head[0] = head[1] = 0
+        nxt = int(head[2]) + 1
+        if nxt == ops.TAG_LIMIT:
+            nxt = 0
+            status[:] = 0
+        head[2] = nxt
+
+
+def _emulate_dispatch(ids, n_experts, capacity, ws, rng, warps=8, rows=16,
+                      resident=None):
+    """The kernel's passes over ``ids`` on workspace ``ws`` (int64, shared
+    across calls), blocks interleaved at random -> (pos int32, kept
+    bool); every output element must be written."""
+    from repro_torch.kernels.moe_dispatch import ops
+    ids32 = np.asarray(ids).astype(np.int32).astype(np.int64)
+    r = len(ids32)
+    n_tiles = -(-r // (warps * rows * 32))
+    pos = np.full(r, -7, np.int64)
+    kept = np.full(r, 7, np.int64)
+    for e_lo in range(0, max(n_experts, 1), ops.EXPERT_CHUNK):
+        ew = min(ops.EXPERT_CHUNK, n_experts - e_lo)
+        assert ws.size >= ops.HEADER_WORDS + n_tiles * ew
+        limit = resident or int(rng.integers(1, 9))
+        waiting, running = n_tiles, []
+        for _ in range(10 ** 6):
+            while waiting and len(running) < limit:
+                block = _dispatch_block(ids32, r, n_experts, capacity, e_lo,
+                                        ew, n_tiles, ws, pos, kept, warps,
+                                        rows)
+                next(block)                            # takes its ticket
+                running.append(block)
+                waiting -= 1
+            if not running:
+                break
+            pick = int(rng.integers(len(running)))
+            try:
+                next(running[pick])
+            except StopIteration:
+                running.pop(pick)
+        else:
+            raise AssertionError("the emulated look-back did not end")
+        head = ws[:ops.HEADER_WORDS].view(np.uint32)
+        assert head[0] == head[1] == 0          # ticket and done readied
+    assert (kept <= 1).all() and (pos >= 0).all(), "an output not written"
+    return pos.astype(np.int32), kept.astype(bool)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_dispatch(case: str):
+    ids, e, cap = _EMULATED[case]
+    got = r_moe(jnp.asarray(ids.astype(np.int32)), e, cap)
+    return tuple(np.asarray(g) for g in got)
+
+
+_EMULATED = {f"sweep_{r}_{e}_{c}": (np.random.default_rng(r).integers(
+    0, e, r), e, c) for r, e, c in ((512, 16, 40), (1024, 8, 100),
+                                     (2048, 16, 16))}
+_EMULATED.update(MOE_EDGES)
+# int64 ids beyond int32: the kernel keeps their low 32 bits
+_EMULATED["int64_beyond_int32"] = (
+    np.random.default_rng(12).integers(-3, 19, 2048)
+    + np.random.default_rng(13).integers(-4, 5, 2048) * 2 ** 32, 16, 30)
+
+# (warps, rows of 32 a warp): the kernel's own tile of 4096 requests, and
+# tiles of 64 so that the sweep spans up to 32 tiles and two windows
+_GEOMETRIES = {"tile4096": (8, 16), "tile64": (2, 1)}
+
+
+@pytest.mark.parametrize("geometry", list(_GEOMETRIES))
+@pytest.mark.parametrize("case", list(_EMULATED))
+def test_emulated_single_pass_bit_equal_to_plain_and_pallas(case, geometry):
+    from repro_torch.kernels.moe_dispatch import ops
+    ids, e, cap = _EMULATED[case]
+    warps, rows = _GEOMETRIES[geometry]
+    rng = np.random.default_rng(abs(hash((case, geometry))) % 2 ** 32)
+    n_tiles = -(-len(ids) // (warps * rows * 32))
+    ws = np.zeros(ops.HEADER_WORDS + n_tiles * min(e, ops.EXPERT_CHUNK),
+                  np.int64)
+    pos, kept = _emulate_dispatch(ids, e, cap, ws, rng, warps, rows)
+    want = moe_dispatch_plain(torch.from_numpy(np.asarray(ids)), e, cap)
+    np.testing.assert_array_equal(pos, want[0].numpy())
+    np.testing.assert_array_equal(kept, want[1].numpy())
+    for g, w in zip((pos, kept), _pallas_dispatch(case), strict=True):
+        np.testing.assert_array_equal(g, w)
+    # the epoch advanced once a pass; the workspace is ready for the next
+    head = ws[:ops.HEADER_WORDS].view(np.uint32)
+    assert head.tolist()[:3] == [0, 0, max(-(-e // ops.EXPERT_CHUNK), 1)]
+
+
+def test_emulated_calls_share_one_workspace_and_replay():
+    """Successive calls of other sizes and expert counts, and a replay of
+    the first, on one workspace and its epoch: each bit-equal to the plain
+    version, whatever order the tiles run in; stale words of earlier
+    calls (their tags are older) are never read as this call's."""
+    from repro_torch.kernels.moe_dispatch import ops
+    rng = np.random.default_rng(21)
+    calls = [(rng.integers(0, 16, 2048), 16, 40),
+             (rng.integers(-2, 40, 1024), 40, 7),
+             (rng.integers(0, 3000, 2048), 3000, 2),
+             (rng.integers(0, 4, 512), 4, 100),
+             (rng.integers(-1, 2, 100), 0, 1)]
+    calls.append(calls[0])                         # the replay
+    ws = np.zeros(ops.workspace_words(2048 * 64, 3000), np.int64)
+    epoch = 0
+    for ids, e, cap in calls:
+        for resident in (1, 3, 8):
+            pos, kept = _emulate_dispatch(ids, e, cap, ws, rng, 2, 1,
+                                          resident)
+            want = moe_dispatch_plain(torch.from_numpy(ids), e, cap)
+            np.testing.assert_array_equal(pos, want[0].numpy())
+            np.testing.assert_array_equal(kept, want[1].numpy())
+            epoch += max(-(-e // ops.EXPERT_CHUNK), 1)
+            assert ws[:2].view(np.uint32)[2] == epoch
+
+
+def test_emulated_epoch_wrap_clears_stale_words():
+    """Across the epoch's wrap (tags run 1 .. 2^31 - 1), the last block
+    zeroes every status word: stale words that carry the tags the next
+    calls take are not read as theirs."""
+    from repro_torch.kernels.moe_dispatch import ops
+    rng = np.random.default_rng(22)
+    small = (rng.integers(0, 16, 512), 16, 5)
+    big = (rng.integers(0, 3000, 2048), 3000, 3)
+    ws = np.zeros(ops.HEADER_WORDS + 32 * 1024, np.int64)
+    # stale inclusive prefixes under tags 1 to 3, the ones the call after
+    # the wrap takes, where the call before it writes nothing
+    ws[ops.HEADER_WORDS:] = rng.choice(
+        [ops.pack_status(t, True, 12345) for t in (1, 2, 3)],
+        ws.size - ops.HEADER_WORDS)
+    ws[:2].view(np.uint32)[2] = ops.TAG_LIMIT - 1   # the next tag: LIMIT
+    for (ids, e, cap), epoch in ((small, 0), (big, 3), (small, 4)):
+        want = moe_dispatch_plain(torch.from_numpy(ids), e, cap)
+        pos, kept = _emulate_dispatch(ids, e, cap, ws, rng, 2, 1)
+        np.testing.assert_array_equal(pos, want[0].numpy())
+        np.testing.assert_array_equal(kept, want[1].numpy())
+        assert ws[:2].view(np.uint32)[2] == epoch
+
+
+def test_status_word_and_workspace_are_pinned():
+    """The status word: count in bits 0-31, flag in bit 32, tag in bits
+    33-63, as the source packs it; counts up to 2^32 - 1 (a prefix is at
+    most R <= 2^31 - 1) and tags 1 .. 2^31 - 1 round-trip.  The workspace
+    holds the 16-byte header and one word per (tile, expert of a pass)."""
+    from repro_torch.kernels.moe_dispatch import ops
+    assert (ops.FLAG_BIT, ops.TAG_SHIFT, ops.TAG_LIMIT,
+            ops.HEADER_WORDS) == (32, 33, 2 ** 31 - 1, 2)
+    assert (_source_constant("kFlagBit"), _source_constant("kTagShift"),
+            _source_constant("kTagLimit"), _source_constant("kHeaderWords"),
+            _source_constant("kWarps") * _source_constant("kRows") * 32,
+            _source_constant("kChunk"), _source_constant("kWindow")) == (
+        ops.FLAG_BIT, ops.TAG_SHIFT, ops.TAG_LIMIT, ops.HEADER_WORDS,
+        ops.TILE, ops.EXPERT_CHUNK, 32)
+    assert ops.pack_status(1, False, 0) == 1 << 33
+    assert ops.pack_status(1, True, 5) == (1 << 33) | (1 << 32) | 5
+    assert ops.pack_status(ops.TAG_LIMIT, True, 2 ** 31 - 1) == \
+        -(1 << 33) + (1 << 32) + 2 ** 31 - 1
+    for tag, incl, count in ((1, False, 0), (ops.TAG_LIMIT, True,
+                                             2 ** 31 - 1),
+                             (12345, True, 2 ** 32 - 1), (7, False, 4096)):
+        word = ops.pack_status(tag, incl, count)
+        assert -2 ** 63 <= word < 2 ** 63
+        assert ops.unpack_status(word) == (tag, incl, count)
+        assert ops.unpack_status(int(np.int64(word))) == (tag, incl, count)
+    for bad in ((0, False, 2 ** 32), (2 ** 31, False, 0), (1, True, -1)):
+        with pytest.raises(ValueError):
+            ops.pack_status(*bad)
+    assert _packed(12345, True, [0, 4096, 2 ** 31 - 1]).tolist() == [
+        ops.pack_status(12345, True, c) for c in (0, 4096, 2 ** 31 - 1)]
+    # a zeroed word is tag 0: never valid
+    assert ops.unpack_status(0)[0] == 0
+    assert ops.workspace_words(2 ** 24, 16) == 2 + 4096 * 16
+    assert ops.workspace_words(2 ** 24, 128) == 2 + 4096 * 128
+    assert ops.workspace_words(8192, 3000) == 2 + 2 * 1024
+    assert ops.workspace_words(100, 0) == 2
+    assert ops.workspace_words(4097, 1) == 2 + 2
 
 
 # -------------------------------------------------- traces and pricing --
