@@ -110,85 +110,160 @@ __device__ __forceinline__ u64 pack(unsigned tag, bool inclusive,
          (static_cast<u64>(inclusive) << kFlagBit) | count;
 }
 
-// The warp's 16 ids (beyond the stream: -1; int64 ids keep their low 32
-// bits) and each one's counter in the chunk [e_lo, e_lo + ew), -1 for an
-// id the chunk does not count.
+// The warp's 16 requests as keys: an id's counter in the chunk [e_lo, e_lo
+// + ew), or ew for an id the chunk does not count (and for lanes beyond the
+// stream).  int64 ids keep their low 32 bits.  Bit k of `outside` marks
+// request k as outside [0, n_experts) when this is the first chunk: it
+// gets pos = 0.
 template <typename Id>
-__device__ __forceinline__ void load_ids(const Id* __restrict__ ids,
-                                         long long start, long long r,
-                                         int lane, int e_lo, int ew,
-                                         int (&id)[kRows],
-                                         int (&slot)[kRows]) {
+__device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
+                                          long long start, long long r,
+                                          int lane, int n_experts, int e_lo,
+                                          int ew, bool first_chunk,
+                                          int (&key)[kRows],
+                                          unsigned& outside) {
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const long long i = start + k * 32 + lane;
-    id[k] = i < r ? static_cast<int>(__ldg(ids + i)) : -1;
+    key[k] = i < r ? static_cast<int>(__ldg(ids + i)) : e_lo + ew;
   }
+  outside = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    const unsigned d = static_cast<unsigned>(id[k]) -
-                       static_cast<unsigned>(e_lo);
-    slot[k] = d < static_cast<unsigned>(ew) ? static_cast<int>(d) : -1;
+    const int id = key[k];
+    const unsigned d =
+        static_cast<unsigned>(id) - static_cast<unsigned>(e_lo);
+    key[k] = d < static_cast<unsigned>(ew) ? static_cast<int>(d) : ew;
+    if (first_chunk && start + k * 32 + lane < r &&
+        (id < 0 || id >= n_experts))
+      outside |= 1u << k;
   }
 }
 
-// Walk the warp's rows in order: rank[k] is the number of earlier requests
-// of the warp's 512 with the same counted id; count (the warp's row of the
-// shared counters, zeroed) ends holding the warp's count per expert.
-__device__ __forceinline__ void rank_rows(const int (&slot)[kRows],
-                                          int* count, int lane,
-                                          int (&rank)[kRows]) {
+// The lanes of the warp whose key equals this lane's (peers) and those
+// whose key equals `probe`, from one ballot per key bit (keys < 2^nbits):
+// nbits ballots in place of __match_any_sync, which runs far slower.
+template <int kMaxBits>
+__device__ __forceinline__ unsigned match_key(int key, int probe, int nbits,
+                                              unsigned& probed) {
+  unsigned peers = 0xffffffffu;
+  probed = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < kMaxBits; ++b) {
+    if (b < nbits) {
+      const unsigned m = __ballot_sync(0xffffffffu, (key >> b) & 1);
+      peers &= (key >> b) & 1 ? m : ~m;
+      probed &= (probe >> b) & 1 ? m : ~m;
+    }
+  }
+  return peers;
+}
+
+// Walk the warp's rows in order.  Each request's rank (the number of
+// earlier requests of the warp's 512 with the same counted key) goes into
+// the high half of its key word, kr[k] = key | rank << 16; count (the
+// warp's row of the shared counters) ends holding the warp's count per
+// expert.  With at most 32 experts (kSmall) lane j keeps the running count
+// of expert j in a register (a shuffle reads it, the probe mask adds to
+// it); with more, the counters live in shared memory and a row's first
+// lane of each key updates them.
+template <bool kSmall>
+__device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
+                                          int ew, int lane) {
   const unsigned below = (1u << lane) - 1u;
+  const int nbits = 32 - __clz(ew);       // keys 0 .. ew
+  if constexpr (kSmall) {
+    int mine = 0;
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int s = slot[k];
-    const unsigned peers = __match_any_sync(0xffffffffu, s);
-    const int before = __popc(peers & below);
-    const int seen = s >= 0 ? count[s] : 0;
-    rank[k] = seen + before;
-    __syncwarp();
-    if (s >= 0 && before == 0) count[s] = seen + __popc(peers);
-    __syncwarp();
+    for (int k = 0; k < kRows; ++k) {
+      const int key = kr[k];
+      unsigned probed;
+      const unsigned peers = match_key<6>(key, lane, nbits, probed);
+      const int seen = __shfl_sync(0xffffffffu, mine, key & 31);
+      kr[k] = key | (seen + __popc(peers & below)) << 16;
+      mine += __popc(probed);
+    }
+    if (lane < ew) count[lane] = mine;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int key = kr[k];
+      unsigned unused;
+      const unsigned peers = match_key<11>(key, 0, nbits, unused);
+      const int before = __popc(peers & below);
+      const int seen = key < ew ? count[key] : 0;
+      kr[k] = key | (seen + before) << 16;
+      __syncwarp();
+      if (key < ew && before == 0) count[key] = seen + __popc(peers);
+      __syncwarp();
+    }
   }
 }
 
-// The count of one expert's requests in tiles [0, tile), tile > 0, by one
-// warp from the expert's row of status words (col[t]: tile t's word).
-// Lane l reads tile from - 1 - l; the window is used once every word below
-// its nearest inclusive prefix carries the call's tag (or, with no
-// inclusive prefix in it, once all 32 do, and the next window lies below).
-__device__ __forceinline__ unsigned look_back(u64* col, int tile,
-                                              unsigned tag, int lane) {
-  unsigned total = 0;
-  for (int from = tile;; from -= kWindow) {
-    const int t = from - 1 - lane;
-    unsigned count = 0, valid_mask, incl_mask, ready;
-    for (;;) {
-      bool valid = true, incl = true;      // below tile 0: inclusive 0
-      if (t >= 0) {
-        const u64 w = Word(col[t]).load(cuda::memory_order_acquire);
-        valid = static_cast<unsigned>(w >> kTagShift) == tag;
-        incl = valid && ((w >> kFlagBit) & 1u);
-        count = static_cast<unsigned>(w);
+// The look-back of the warp's experts e = warp + kWarps i, m of them at
+// once (m a power of two, at most 32): lane g W + j (W = 32 / m) reads the
+// status word of tile from_g - 1 - j of expert g.  An expert's window is
+// used once every word below its nearest inclusive prefix carries the
+// call's tag (then the prefix is found), or once all W words do and none
+// is inclusive (then the next window lies below).  Its result, the count
+// of its requests in tiles [0, tile), replaces base[e] (the tile's
+// aggregate, which the segment's first lane adds to publish the tile's
+// inclusive prefix).
+__device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
+                                          unsigned tag, int ew, int warp,
+                                          int lane, int* base) {
+  const int n_mine = ew > warp ? (ew - warp + kWarps - 1) / kWarps : 0;
+  if (n_mine == 0) return;
+  int log_m = 0;
+  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;
+  const int log_w = 5 - log_m, w = 1 << log_w;
+  const int g = lane >> log_w, j = lane & (w - 1);
+  const unsigned low = w == 32 ? 0xffffffffu : (1u << w) - 1u;
+  for (int i0 = 0; i0 < n_mine; i0 += 1 << log_m) {
+    const int e = warp + kWarps * (i0 + g);
+    bool done = i0 + g >= n_mine;
+    u64* col = status + static_cast<long long>(done ? 0 : e) * n_tiles;
+    int from = tile;
+    unsigned total = 0;
+    while (__any_sync(0xffffffffu, !done)) {
+      const int t = from - 1 - j;
+      bool valid = true, incl = true;    // below tile 0: inclusive 0
+      unsigned count = 0;
+      if (!done && t >= 0) {
+        const u64 word = Word(col[t]).load(cuda::memory_order_acquire);
+        valid = static_cast<unsigned>(word >> kTagShift) == tag;
+        incl = valid && ((word >> kFlagBit) & 1u);
+        count = static_cast<unsigned>(word);
       }
-      valid_mask = __ballot_sync(0xffffffffu, valid);
-      incl_mask = __ballot_sync(0xffffffffu, incl);
-      // the lanes below the first one whose word is not yet published
-      const unsigned waiting = ~valid_mask;
-      ready = waiting ? (waiting & (0u - waiting)) - 1u : 0xffffffffu;
-      if ((incl_mask & ready) || !waiting) break;
-      __nanosleep(32);
+      const unsigned vs = (__ballot_sync(0xffffffffu, valid) >> (g << log_w))
+                          & low;
+      const unsigned is = (__ballot_sync(0xffffffffu, incl) >> (g << log_w))
+                          & low;
+      // the lanes below the first word not yet published, and the nearest
+      // inclusive prefix among them
+      const unsigned waiting = ~vs & low;
+      const unsigned ready = waiting ? (waiting & (0u - waiting)) - 1u : low;
+      const unsigned stop = is & ready;
+      const int last = stop ? __ffs(stop) - 1 : w - 1;
+      unsigned sum = j <= last ? count : 0u;
+      for (int o = w >> 1; o; o >>= 1)    // the segment's sum
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (!done && (stop || !waiting)) {
+        total += sum;
+        done = stop != 0;
+        from -= w;
+      }
     }
-    const unsigned stop = incl_mask & ready;
-    if (stop) {                            // lanes up to the nearest one
-      const int k = __ffs(stop) - 1;
-      return total + __reduce_add_sync(0xffffffffu, lane <= k ? count : 0u);
+    if (i0 + g < n_mine && j == 0) {
+      Word(col[tile]).store(
+          pack(tag, true, total + static_cast<unsigned>(base[e])),
+          cuda::memory_order_release);
+      base[e] = static_cast<int>(total);
     }
-    total += __reduce_add_sync(0xffffffffu, count);
   }
 }
 
-template <typename Id>
+template <typename Id, bool kSmall>
 __global__ void __launch_bounds__(kThreads)
 dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               uint8_t* __restrict__ kept, long long r, int n_experts,
@@ -207,15 +282,18 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     s_tile = static_cast<int>(atomicAdd(&head->ticket, 1u));
     s_tag = *reinterpret_cast<volatile unsigned*>(&head->epoch) + 1u;
   }
-  for (int i = threadIdx.x; i < kWarps * ew; i += kThreads) smem[i] = 0;
+  if (!kSmall)
+    for (int i = threadIdx.x; i < kWarps * ew; i += kThreads) smem[i] = 0;
   __syncthreads();
   const int tile = s_tile;
   const unsigned tag = s_tag;
   const long long start =
       static_cast<long long>(tile) * kTile + warp * kWarpTile;
-  int id[kRows], slot[kRows], rank[kRows];
-  load_ids(ids, start, r, lane, e_lo, ew, id, slot);
-  rank_rows(slot, smem + warp * ew, lane, rank);
+  int kr[kRows];
+  unsigned outside;
+  load_keys(ids, start, r, lane, n_experts, e_lo, ew, first_chunk, kr,
+            outside);
+  rank_rows<kSmall>(kr, smem + warp * ew, ew, lane);
   __syncthreads();
   // per expert: an exclusive scan over the warps, and the tile's aggregate
   // published (tile 0: as its inclusive prefix, with nothing before it)
@@ -234,28 +312,19 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   }
   if (tile > 0) {
     __syncthreads();                // base[] holds the aggregates
-    for (int e = warp; e < ew; e += kWarps) {
-      u64* col = status + static_cast<long long>(e) * n_tiles;
-      const unsigned before = look_back(col, tile, tag, lane);
-      if (lane == 0) {
-        Word(col[tile]).store(
-            pack(tag, true, before + static_cast<unsigned>(base[e])),
-            cuda::memory_order_release);
-        base[e] = static_cast<int>(before);
-      }
-    }
+    look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
   }
   __syncthreads();
   const int* cnt = smem + warp * ew;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const long long i = start + k * 32 + lane;
-    if (i >= r) continue;
-    if (slot[k] >= 0) {
-      const int p = base[slot[k]] + cnt[slot[k]] + rank[k];
+    const int key = kr[k] & 0xffff;
+    if (key < ew) {                 // counted: never beyond the stream
+      const int p = base[key] + cnt[key] + (kr[k] >> 16);
       pos[i] = p;
       kept[i] = p < capacity;
-    } else if (first_chunk && (id[k] < 0 || id[k] >= n_experts)) {
+    } else if ((outside >> k) & 1u) {
       pos[i] = 0;
       kept[i] = 0 < capacity;
     }
@@ -306,14 +375,16 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
   const size_t smem = sizeof(int) * (kWarps + 1) * ew;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(n_tiles);
-  if (id_bytes == 4)
-    dispatch_scan<int><<<grid, kThreads, smem, s>>>(
-        static_cast<const int*>(experts), pos, kept, r, n_experts, e_lo, ew,
-        capacity, first_chunk != 0, ws, ws_words);
-  else
-    dispatch_scan<long long><<<grid, kThreads, smem, s>>>(
-        static_cast<const long long*>(experts), pos, kept, r, n_experts,
-        e_lo, ew, capacity, first_chunk != 0, ws, ws_words);
+#define DISPATCH_SCAN(Id, small)                                         \
+  dispatch_scan<Id, small><<<grid, kThreads, smem, s>>>(                 \
+      static_cast<const Id*>(experts), pos, kept, r, n_experts, e_lo, ew, \
+      capacity, first_chunk != 0, ws, ws_words)
+  const bool small = ew <= 32;
+  if (id_bytes == 4 && small) DISPATCH_SCAN(int, true);
+  else if (id_bytes == 4) DISPATCH_SCAN(int, false);
+  else if (small) DISPATCH_SCAN(long long, true);
+  else DISPATCH_SCAN(long long, false);
+#undef DISPATCH_SCAN
   return static_cast<int>(cudaGetLastError());
 }
 
