@@ -82,8 +82,9 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
     r = ids.shape[0]
     out = torch.empty(5 * r, dtype=torch.uint8, device="cuda")
     pos, kept = out[:4 * r].view(torch.int32), out[4 * r:].view(torch.bool)
-    ws = torch.zeros(ops.workspace_words(r, e), dtype=torch.int64,
-                     device="cuda")
+    # room for tiles down to 1024 requests (the variants' tiles differ)
+    ws = torch.zeros(ops.HEADER_WORDS + -(-r // 1024) * e,
+                     dtype=torch.int64, device="cuda")
     stream = cuda_lib.current_stream()
 
     def call():
