@@ -4,8 +4,9 @@
     python -m repro_torch.bench.dispatch_variants
 
 Each variant is the shipped source with one change made by text
-replacement into a copy under ``build/variants/``: relaxed status words
-in place of release/acquire, an occupancy hint, smaller tiles, and two
+replacement into a copy under ``build/variants/``: status words with
+release/acquire semantics, no occupancy hint, one look-back window a
+round trip, smaller tiles, and two
 that drop a phase (the look-back, the rank walk) and so give wrong
 positions: they are timed only, to see what that phase costs.  Device
 time per call: CUDA events around 20 back-to-back launches after 3
@@ -28,17 +29,20 @@ OUT = cuda_lib.BUILD_DIR / "variants"
 
 VARIANTS = {
     "shipped": [],
-    "relaxed": [("cuda::memory_order_acquire", "cuda::memory_order_relaxed"),
-                ("cuda::memory_order_release", "cuda::memory_order_relaxed")],
-    "min4blocks": [("__global__ void __launch_bounds__(kThreads)\n"
-                    "dispatch_scan(",
-                    "__global__ void __launch_bounds__(kThreads, 4)\n"
-                    "dispatch_scan(")],
-    "relaxed_min4blocks": [
-        ("cuda::memory_order_acquire", "cuda::memory_order_relaxed"),
-        ("cuda::memory_order_release", "cuda::memory_order_relaxed"),
-        ("__global__ void __launch_bounds__(kThreads)\ndispatch_scan(",
-         "__global__ void __launch_bounds__(kThreads, 4)\ndispatch_scan(")],
+    # status words stored with release and loaded with acquire semantics
+    "release_acquire": [
+        ("word[q] = Word(col[t]).load(cuda::memory_order_relaxed)",
+         "word[q] = Word(col[t]).load(cuda::memory_order_acquire)"),
+        ("          cuda::memory_order_relaxed);",
+         "          cuda::memory_order_release);"),
+        ("               cuda::memory_order_relaxed);",
+         "               cuda::memory_order_release);")],
+    # no occupancy hint: the compiler's own register count
+    "no_min_blocks": [("constexpr int kMinBlocks = 4;",
+                       "constexpr int kMinBlocks = 1;")],
+    # one sub-window a round: W tiles back per round trip
+    "one_window_a_round": [("constexpr int kSubs = 8;",
+                            "constexpr int kSubs = 1;")],
     "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
     "no_lookback": [("    look_back(status, n_tiles, tile, tag, ew, warp, "
                      "lane, base);", "")],

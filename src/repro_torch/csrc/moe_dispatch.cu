@@ -86,7 +86,9 @@ constexpr int kRows = 16;                  // rows of 32 requests per warp
 constexpr int kWarpTile = kRows * 32;      // 512 requests per warp
 constexpr int kTile = kWarps * kWarpTile;  // 4096 requests per block
 constexpr int kChunk = 1024;               // experts per pass
-constexpr int kWindow = 32;                // predecessors a warp reads at once
+constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
+constexpr int kWindow = 32;                // experts a warp looks back for
+constexpr int kSubs = 8;                   // status words a lane loads a round
 
 // The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
 constexpr int kFlagBit = 32;               // 1: inclusive prefix
@@ -201,14 +203,20 @@ __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
 }
 
 // The look-back of the warp's experts e = warp + kWarps i, m of them at
-// once (m a power of two, at most 32): lane g W + j (W = 32 / m) reads the
-// status word of tile from_g - 1 - j of expert g.  An expert's window is
-// used once every word below its nearest inclusive prefix carries the
-// call's tag (then the prefix is found), or once all W words do and none
-// is inclusive (then the next window lies below).  Its result, the count
-// of its requests in tiles [0, tile), replaces base[e] (the tile's
-// aggregate, which the segment's first lane adds to publish the tile's
-// inclusive prefix).
+// once (m a power of two, at most 32): the lanes g W .. g W + W - 1 (W =
+// 32 / m) serve expert g, and in each round lane j loads the status words
+// of tiles from - 1 - j - q W for q < subs (subs = min(kSubs, 128 / W)),
+// all at once, so a round reaches up to 128 tiles back.  The sub-windows
+// are then taken in order: one is used when every word below its nearest
+// inclusive prefix carries the call's tag (the prefix is found, the
+// expert is done) or when all its W words do and none is inclusive (the
+// next one lies below); otherwise the expert waits and the next round
+// reloads from there.  A round must reach further back than the tiles
+// that start while one round trip to L2 lasts, or the look-back falls
+// behind the inclusive prefixes being published.  The result, the count
+// of the expert's requests in tiles [0, tile), replaces base[e] (the
+// tile's aggregate, which the segment's first lane adds to publish the
+// tile's inclusive prefix).
 __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
                                           unsigned tag, int ew, int warp,
                                           int lane, int* base) {
@@ -217,6 +225,7 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
   int log_m = 0;
   while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;
   const int log_w = 5 - log_m, w = 1 << log_w;
+  const int subs = min(kSubs, 128 >> log_w);
   const int g = lane >> log_w, j = lane & (w - 1);
   const unsigned low = w == 32 ? 0xffffffffu : (1u << w) - 1u;
   for (int i0 = 0; i0 < n_mine; i0 += 1 << log_m) {
@@ -226,45 +235,56 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
     int from = tile;
     unsigned total = 0;
     while (__any_sync(0xffffffffu, !done)) {
-      const int t = from - 1 - j;
-      bool valid = true, incl = true;    // below tile 0: inclusive 0
-      unsigned count = 0;
-      if (!done && t >= 0) {
-        const u64 word = Word(col[t]).load(cuda::memory_order_acquire);
-        valid = static_cast<unsigned>(word >> kTagShift) == tag;
-        incl = valid && ((word >> kFlagBit) & 1u);
-        count = static_cast<unsigned>(word);
+      u64 word[kSubs];
+#pragma unroll
+      for (int q = 0; q < kSubs; ++q) {
+        const int t = from - 1 - j - q * w;
+        // done, or below tile 0: an inclusive prefix of 0
+        word[q] = pack(tag, true, 0);
+        if (!done && q < subs && t >= 0)
+          word[q] = Word(col[t]).load(cuda::memory_order_relaxed);
       }
-      const unsigned vs = (__ballot_sync(0xffffffffu, valid) >> (g << log_w))
-                          & low;
-      const unsigned is = (__ballot_sync(0xffffffffu, incl) >> (g << log_w))
-                          & low;
-      // the lanes below the first word not yet published, and the nearest
-      // inclusive prefix among them
-      const unsigned waiting = ~vs & low;
-      const unsigned ready = waiting ? (waiting & (0u - waiting)) - 1u : low;
-      const unsigned stop = is & ready;
-      const int last = stop ? __ffs(stop) - 1 : w - 1;
-      unsigned sum = j <= last ? count : 0u;
-      for (int o = w >> 1; o; o >>= 1)    // the segment's sum
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (!done && (stop || !waiting)) {
-        total += sum;
-        done = stop != 0;
-        from -= w;
+      bool stalled = false;
+#pragma unroll
+      for (int q = 0; q < kSubs; ++q) {
+        if (q >= subs) break;
+        const bool valid = static_cast<unsigned>(word[q] >> kTagShift) == tag;
+        const bool incl = valid && ((word[q] >> kFlagBit) & 1u);
+        const unsigned vs =
+            (__ballot_sync(0xffffffffu, valid) >> (g << log_w)) & low;
+        const unsigned is =
+            (__ballot_sync(0xffffffffu, incl) >> (g << log_w)) & low;
+        // the lanes below the first word not yet published, and the
+        // nearest inclusive prefix among them
+        const unsigned waiting = ~vs & low;
+        const unsigned ready = waiting ? (waiting & (0u - waiting)) - 1u : low;
+        const unsigned stop = is & ready;
+        const int last = stop ? __ffs(stop) - 1 : w - 1;
+        unsigned sum = j <= last ? static_cast<unsigned>(word[q]) : 0u;
+        for (int o = w >> 1; o; o >>= 1)  // the segment's sum
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (!done && !stalled) {
+          if (stop || !waiting) {
+            total += sum;
+            done = stop != 0;
+            from -= w;
+          } else {
+            stalled = true;
+          }
+        }
       }
     }
     if (i0 + g < n_mine && j == 0) {
       Word(col[tile]).store(
           pack(tag, true, total + static_cast<unsigned>(base[e])),
-          cuda::memory_order_release);
+          cuda::memory_order_relaxed);
       base[e] = static_cast<int>(total);
     }
   }
 }
 
 template <typename Id, bool kSmall>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               uint8_t* __restrict__ kept, long long r, int n_experts,
               int e_lo, int ew, int capacity, bool first_chunk,
@@ -307,7 +327,7 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     }
     Word(status[static_cast<long long>(e) * n_tiles + tile])
         .store(pack(tag, tile == 0, static_cast<unsigned>(run)),
-               cuda::memory_order_release);
+               cuda::memory_order_relaxed);
     base[e] = tile == 0 ? 0 : run;
   }
   if (tile > 0) {
