@@ -31,17 +31,31 @@ VARIANTS = {
     "shipped": [],
     # status words stored with release and loaded with acquire semantics
     "release_acquire": [
-        ("word[q] = Word(col[t]).load(cuda::memory_order_relaxed)",
-         "word[q] = Word(col[t]).load(cuda::memory_order_acquire)"),
-        ("          cuda::memory_order_relaxed);",
+        ("Word(col[t]).load(cuda::memory_order_relaxed)",
+         "Word(col[t]).load(cuda::memory_order_acquire)"),
+        ("pack(tag, true, total + static_cast<unsigned>(base[e])),\n"
+         "          cuda::memory_order_relaxed);",
+         "pack(tag, true, total + static_cast<unsigned>(base[e])),\n"
          "          cuda::memory_order_release);"),
-        ("               cuda::memory_order_relaxed);",
+        ("static_cast<unsigned>(run)),\n"
+         "               cuda::memory_order_relaxed);",
+         "static_cast<unsigned>(run)),\n"
          "               cuda::memory_order_release);")],
+    # eight words a lane a round (up to 128 tiles back)
+    "eight_words_a_round": [
+        ("constexpr int kSubs = 4;", "constexpr int kSubs = 8;"),
+        ("min(kSubs, 64 >> log_w)", "min(kSubs, 128 >> log_w)")],
+    # the key words stay in registers through the look-back
+    "no_stash": [
+        ("#pragma unroll\n    for (int k = 0; k < kRows; ++k) stash[k * "
+         "kThreads + threadIdx.x] = kr[k];\n", ""),
+        ("#pragma unroll\n    for (int k = 0; k < kRows; ++k) kr[k] = "
+         "stash[k * kThreads + threadIdx.x];\n", "")],
     # no occupancy hint: the compiler's own register count
     "no_min_blocks": [("constexpr int kMinBlocks = 4;",
                        "constexpr int kMinBlocks = 1;")],
     # one sub-window a round: W tiles back per round trip
-    "one_window_a_round": [("constexpr int kSubs = 8;",
+    "one_window_a_round": [("constexpr int kSubs = 4;",
                             "constexpr int kSubs = 1;")],
     "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
     "no_lookback": [("    look_back(status, n_tiles, tile, tag, ew, warp, "

@@ -88,7 +88,7 @@ constexpr int kTile = kWarps * kWarpTile;  // 4096 requests per block
 constexpr int kChunk = 1024;               // experts per pass
 constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
 constexpr int kWindow = 32;                // experts a warp looks back for
-constexpr int kSubs = 8;                   // status words a lane loads a round
+constexpr int kSubs = 4;                   // status words a lane loads a round
 
 // The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
 constexpr int kFlagBit = 32;               // 1: inclusive prefix
@@ -205,8 +205,8 @@ __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
 // The look-back of the warp's experts e = warp + kWarps i, m of them at
 // once (m a power of two, at most 32): the lanes g W .. g W + W - 1 (W =
 // 32 / m) serve expert g, and in each round lane j loads the status words
-// of tiles from - 1 - j - q W for q < subs (subs = min(kSubs, 128 / W)),
-// all at once, so a round reaches up to 128 tiles back.  The sub-windows
+// of tiles from - 1 - j - q W for q < subs (subs = min(kSubs, 64 / W)),
+// all at once, so a round reaches up to 64 tiles back.  The sub-windows
 // are then taken in order: one is used when every word below its nearest
 // inclusive prefix carries the call's tag (the prefix is found, the
 // expert is done) or when all its W words do and none is inclusive (the
@@ -225,7 +225,7 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
   int log_m = 0;
   while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;
   const int log_w = 5 - log_m, w = 1 << log_w;
-  const int subs = min(kSubs, 128 >> log_w);
+  const int subs = min(kSubs, 64 >> log_w);
   const int g = lane >> log_w, j = lane & (w - 1);
   const unsigned low = w == 32 ? 0xffffffffu : (1u << w) - 1u;
   for (int i0 = 0; i0 < n_mine; i0 += 1 << log_m) {
@@ -289,8 +289,10 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               uint8_t* __restrict__ kept, long long r, int n_experts,
               int e_lo, int ew, int capacity, bool first_chunk,
               u64* __restrict__ ws, long long ws_words) {
-  extern __shared__ int smem[];     // count[kWarps][ew], then base[ew]
+  // count[kWarps][ew], base[ew], then the key words' stash [kRows][kThreads]
+  extern __shared__ int smem[];
   int* base = smem + kWarps * ew;
+  int* stash = base + ew;
   __shared__ int s_tile;
   __shared__ unsigned s_tag;
   __shared__ bool s_wrap;
@@ -331,8 +333,14 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     base[e] = tile == 0 ? 0 : run;
   }
   if (tile > 0) {
+    // the key words wait in shared memory, so the look-back has the
+    // registers
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) stash[k * kThreads + threadIdx.x] = kr[k];
     __syncthreads();                // base[] holds the aggregates
     look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) kr[k] = stash[k * kThreads + threadIdx.x];
   }
   __syncthreads();
   const int* cnt = smem + warp * ew;
@@ -392,13 +400,23 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
   const long long n_tiles = (r + kTile - 1) / kTile;
   if (ws_words < kHeaderWords + n_tiles * ew)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(int) * (kWarps + 1) * ew;
+  const int smem = static_cast<int>(sizeof(int)) *
+                   ((kWarps + 1) * ew + kRows * kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(n_tiles);
-#define DISPATCH_SCAN(Id, small)                                         \
-  dispatch_scan<Id, small><<<grid, kThreads, smem, s>>>(                 \
-      static_cast<const Id*>(experts), pos, kept, r, n_experts, e_lo, ew, \
-      capacity, first_chunk != 0, ws, ws_words)
+  // above the default 48 KB (ew > 896) the kernel must be allowed more
+#define DISPATCH_SCAN(Id, small)                                            \
+  do {                                                                      \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t err = cudaFuncSetAttribute(                        \
+          dispatch_scan<Id, small>,                                         \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);               \
+      if (err != cudaSuccess) return static_cast<int>(err);                 \
+    }                                                                       \
+    dispatch_scan<Id, small><<<grid, kThreads, smem, s>>>(                  \
+        static_cast<const Id*>(experts), pos, kept, r, n_experts, e_lo, ew, \
+        capacity, first_chunk != 0, ws, ws_words);                          \
+  } while (0)
   const bool small = ew <= 32;
   if (id_bytes == 4 && small) DISPATCH_SCAN(int, true);
   else if (id_bytes == 4) DISPATCH_SCAN(int, false);
