@@ -27,6 +27,17 @@ from repro_torch.kernels.moe_dispatch import ops
 
 OUT = cuda_lib.BUILD_DIR / "variants"
 
+COUNT_ROUNDS = [
+    ("    unsigned total = 0;\n    while (__any_sync(",
+     "    unsigned total = 0;\n    unsigned rounds = 0;\n"
+     "    while (__any_sync("),
+    ("      bool stalled = false;\n",
+     "      bool stalled = false;\n      ++rounds;\n"),
+    ("    if (i0 + g < n_mine && j == 0) {\n",
+     "    if (i0 + g < n_mine && j == 0) {\n"
+     "      atomicAdd(reinterpret_cast<unsigned*>(status - kHeaderWords) + 3,"
+     " rounds);\n")]
+
 VARIANTS = {
     "shipped": [],
     # status words stored with release and loaded with acquire semantics
@@ -57,6 +68,13 @@ VARIANTS = {
     # one sub-window a round: W tiles back per round trip
     "one_window_a_round": [("constexpr int kSubs = 4;",
                             "constexpr int kSubs = 1;")],
+    # a warp looks back for one expert at a time, with all 32 lanes
+    "one_expert_a_time": [
+        ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
+    # diagnostics: look-back rounds summed into the header's spare word
+    "count_rounds": COUNT_ROUNDS,
+    "count_rounds_one_window": [*COUNT_ROUNDS, ("constexpr int kSubs = 4;",
+                                                "constexpr int kSubs = 1;")],
     "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
     "no_lookback": [("    look_back(status, n_tiles, tile, tag, ew, warp, "
                      "lane, base);", "")],
@@ -123,7 +141,10 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
     end.synchronize()
     want = ops.moe_dispatch_plain(ids, e, cap)
     same = torch.equal(pos, want[0]) and torch.equal(kept, want[1])
-    return start.elapsed_time(end) / 20 * 1e3, same
+    # the header's spare word: rounds over the 23 calls (count_rounds)
+    rounds = int(ws[1].item()) >> 32
+    per = rounds / (23 * (-(-r // ops.TILE) - 1) * e)
+    return start.elapsed_time(end) / 20 * 1e3, same, per
 
 
 def main() -> int:
@@ -138,10 +159,11 @@ def main() -> int:
         ids = torch.randint(0, e, (1 << 24,), device="cuda", generator=gen,
                             dtype=torch.int32)
         for name in [*VARIANTS, *reversed(VARIANTS)]:
-            us, same = device_us(fns[name], ids, e, cap)
+            us, same, rounds = device_us(fns[name], ids, e, cap)
             out.setdefault(f"E={e}", {}).setdefault(name, []).append(us)
             print(f"[variants] 2^24 requests, E={e}: {name} {us:.3f} us, "
-                  f"bit-equal to plain: {same}", flush=True)
+                  f"bit-equal to plain: {same}, look-back rounds a (tile, "
+                  f"expert): {rounds:.2f}", flush=True)
     print(json.dumps(out))
     return 0
 
