@@ -161,21 +161,45 @@ __device__ __forceinline__ unsigned match_key(int key, int probe, int nbits,
   return peers;
 }
 
-// Walk the warp's rows in order.  Each request's rank (the number of
-// earlier requests of the warp's 512 with the same counted key) goes into
-// the high half of its key word, kr[k] = key | rank << 16; count (the
-// warp's row of the shared counters) ends holding the warp's count per
-// expert.  With at most 32 experts (kSmall) lane j keeps the running count
-// of expert j in a register (a shuffle reads it, the probe mask adds to
-// it); with more, the counters live in shared memory and a row's first
-// lane of each key updates them.
+// The warp's count of each counted key over its 512 requests, into count
+// (its zeroed row of the shared counters): with at most 32 experts
+// (kSmall) lane j sums the rows' probe masks for key j in a register; with
+// more, shared-memory atomics.
+template <bool kSmall>
+__device__ __forceinline__ void count_keys(const int (&key)[kRows],
+                                           int* count, int ew, int lane) {
+  if constexpr (kSmall) {
+    const int nbits = 32 - __clz(ew);     // keys 0 .. ew
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      unsigned probed;
+      match_key<6>(key[k], lane, nbits, probed);
+      mine += __popc(probed);
+    }
+    if (lane < ew) count[lane] = mine;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k)
+      if (key[k] < ew) atomicAdd(count + key[k], 1);
+  }
+}
+
+// Walk the warp's rows in order.  Each request's rank in the tile (the
+// number of earlier requests of the tile with the same counted key) goes
+// into the high half of its key word, kr[k] = key | rank << 16.  count
+// (the warp's row) starts as the count of the tile's earlier warps per
+// expert and runs on through the rows: with at most 32 experts (kSmall)
+// lane j keeps expert j's in a register (a shuffle reads it, the probe
+// mask adds to it); with more, the counters stay in shared memory and a
+// row's first lane of each key updates them.
 template <bool kSmall>
 __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
                                           int ew, int lane) {
   const unsigned below = (1u << lane) - 1u;
   const int nbits = 32 - __clz(ew);       // keys 0 .. ew
   if constexpr (kSmall) {
-    int mine = 0;
+    int mine = lane < ew ? count[lane] : 0;
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int key = kr[k];
@@ -185,7 +209,6 @@ __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
       kr[k] = key | (seen + __popc(peers & below)) << 16;
       mine += __popc(probed);
     }
-    if (lane < ew) count[lane] = mine;
   } else {
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
@@ -315,10 +338,11 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   unsigned outside;
   load_keys(ids, start, r, lane, n_experts, e_lo, ew, first_chunk, kr,
             outside);
-  rank_rows<kSmall>(kr, smem + warp * ew, ew, lane);
+  count_keys<kSmall>(kr, smem + warp * ew, ew, lane);
   __syncthreads();
   // per expert: an exclusive scan over the warps, and the tile's aggregate
-  // published (tile 0: as its inclusive prefix, with nothing before it)
+  // published at once (tile 0: as its inclusive prefix, with nothing
+  // before it), so that the tiles after it wait as little as possible
   for (int e = threadIdx.x; e < ew; e += kThreads) {
     int run = 0;
 #pragma unroll
@@ -332,24 +356,25 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
                cuda::memory_order_relaxed);
     base[e] = tile == 0 ? 0 : run;
   }
+  __syncthreads();
+  // the rank walk runs while the tiles before this one publish theirs
+  rank_rows<kSmall>(kr, smem + warp * ew, ew, lane);
   if (tile > 0) {
     // the key words wait in shared memory, so the look-back has the
     // registers
 #pragma unroll
     for (int k = 0; k < kRows; ++k) stash[k * kThreads + threadIdx.x] = kr[k];
-    __syncthreads();                // base[] holds the aggregates
     look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
 #pragma unroll
     for (int k = 0; k < kRows; ++k) kr[k] = stash[k * kThreads + threadIdx.x];
   }
   __syncthreads();
-  const int* cnt = smem + warp * ew;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const long long i = start + k * 32 + lane;
     const int key = kr[k] & 0xffff;
     if (key < ew) {                 // counted: never beyond the stream
-      const int p = base[key] + cnt[key] + (kr[k] >> 16);
+      const int p = base[key] + (kr[k] >> 16);
       pos[i] = p;
       kept[i] = p < capacity;
     } else if ((outside >> k) & 1u) {
