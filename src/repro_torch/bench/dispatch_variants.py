@@ -5,10 +5,10 @@
 
 Each variant is the shipped source with one change made by text
 replacement into a copy under ``build/variants/``: status words with
-release/acquire semantics, no occupancy hint, one look-back window a
-round trip, smaller tiles, and two
-that drop a phase (the look-back, the rank walk) and so give wrong
-positions: they are timed only, to see what that phase costs.  Device
+release/acquire semantics, no occupancy hint, other look-back windows,
+smaller tiles, a look-back round count, and one that drops the look-back
+and so gives wrong positions: it is timed only, to see what the
+look-back costs.  Device
 time per call: CUDA events around 20 back-to-back launches after 3
 warm-up launches.  Runs on the card only.
 """
@@ -56,12 +56,6 @@ VARIANTS = {
     "eight_words_a_round": [
         ("constexpr int kSubs = 4;", "constexpr int kSubs = 8;"),
         ("min(kSubs, 64 >> log_w)", "min(kSubs, 128 >> log_w)")],
-    # the key words stay in registers through the look-back
-    "no_stash": [
-        ("#pragma unroll\n    for (int k = 0; k < kRows; ++k) stash[k * "
-         "kThreads + threadIdx.x] = kr[k];\n", ""),
-        ("#pragma unroll\n    for (int k = 0; k < kRows; ++k) kr[k] = "
-         "stash[k * kThreads + threadIdx.x];\n", "")],
     # no occupancy hint: the compiler's own register count
     "no_min_blocks": [("constexpr int kMinBlocks = 4;",
                        "constexpr int kMinBlocks = 1;")],
@@ -76,11 +70,8 @@ VARIANTS = {
     "count_rounds_one_window": [*COUNT_ROUNDS, ("constexpr int kSubs = 4;",
                                                 "constexpr int kSubs = 1;")],
     "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
-    "no_lookback": [("    look_back(status, n_tiles, tile, tag, ew, warp, "
-                     "lane, base);", "")],
-    "no_rank": [("  rank_rows<kSmall>(kr, smem + warp * ew, ew, lane);",
-                 "  if (!kSmall) {} else if (lane < ew) "
-                 "smem[warp * ew + lane] = kr[0];")],
+    "no_lookback": [("look_back(status, n_tiles, tile, tag, ew, warp, "
+                     "lane, base);", "(void)0;")],
 }
 
 

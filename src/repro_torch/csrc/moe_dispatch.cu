@@ -112,22 +112,55 @@ __device__ __forceinline__ u64 pack(unsigned tag, bool inclusive,
          (static_cast<u64>(inclusive) << kFlagBit) | count;
 }
 
-// The warp's 16 requests as keys: an id's counter in the chunk [e_lo, e_lo
-// + ew), or ew for an id the chunk does not count (and for lanes beyond the
-// stream).  int64 ids keep their low 32 bits.  Bit k of `outside` marks
-// request k as outside [0, n_experts) when this is the first chunk: it
-// gets pos = 0.
-template <typename Id>
+// Request k of a lane: with at most 32 experts (kSmall) lane j owns the 16
+// consecutive requests start + 16 j + k (16-byte loads and stores);
+// otherwise row k of 32, start + 32 k + j (one request a lane a row).
+template <bool kSmall>
+__device__ __forceinline__ long long request(long long start, int lane,
+                                             int k) {
+  return kSmall ? start + lane * kRows + k : start + k * 32 + lane;
+}
+
+// The lane's 16 requests as keys: an id's counter in the chunk [e_lo, e_lo
+// + ew), or ew for an id the chunk does not count (and for requests beyond
+// the stream).  int64 ids keep their low 32 bits.  Bit k of `outside`
+// marks request k as outside [0, n_experts) when this is the first chunk:
+// it gets pos = 0.
+template <typename Id, bool kSmall>
 __device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
                                           long long start, long long r,
                                           int lane, int n_experts, int e_lo,
                                           int ew, bool first_chunk,
                                           int (&key)[kRows],
                                           unsigned& outside) {
+  const long long first = request<kSmall>(start, lane, 0);
+  if (kSmall && first + kRows <= r &&
+      (reinterpret_cast<uintptr_t>(ids + first) & 15) == 0) {
+    if constexpr (sizeof(Id) == 4) {
+      const int4* v = reinterpret_cast<const int4*>(ids + first);
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const long long i = start + k * 32 + lane;
-    key[k] = i < r ? static_cast<int>(__ldg(ids + i)) : e_lo + ew;
+      for (int q = 0; q < kRows / 4; ++q) {
+        const int4 w = __ldg(v + q);
+        key[4 * q] = w.x;
+        key[4 * q + 1] = w.y;
+        key[4 * q + 2] = w.z;
+        key[4 * q + 3] = w.w;
+      }
+    } else {
+      const longlong2* v = reinterpret_cast<const longlong2*>(ids + first);
+#pragma unroll
+      for (int q = 0; q < kRows / 2; ++q) {
+        const longlong2 w = __ldg(v + q);
+        key[2 * q] = static_cast<int>(w.x);
+        key[2 * q + 1] = static_cast<int>(w.y);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const long long i = request<kSmall>(start, lane, k);
+      key[k] = i < r ? static_cast<int>(__ldg(ids + i)) : e_lo + ew;
+    }
   }
   outside = 0;
 #pragma unroll
@@ -136,92 +169,90 @@ __device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
     const unsigned d =
         static_cast<unsigned>(id) - static_cast<unsigned>(e_lo);
     key[k] = d < static_cast<unsigned>(ew) ? static_cast<int>(d) : ew;
-    if (first_chunk && start + k * 32 + lane < r &&
+    if (first_chunk && request<kSmall>(start, lane, k) < r &&
         (id < 0 || id >= n_experts))
       outside |= 1u << k;
   }
 }
 
-// The lanes of the warp whose key equals this lane's (peers) and those
-// whose key equals `probe`, from one ballot per key bit (keys < 2^nbits):
-// nbits ballots in place of __match_any_sync, which runs far slower.
-template <int kMaxBits>
-__device__ __forceinline__ unsigned match_key(int key, int probe, int nbits,
-                                              unsigned& probed) {
-  unsigned peers = 0xffffffffu;
-  probed = 0xffffffffu;
+// kSmall: each lane counts its 16 requests, in order, in its own column of
+// the warp's counters h[e][lane] (column `lane` is bank `lane`: no
+// conflicts), so a request's rank among the lane's is the column's count
+// before it; then, per expert, a shuffle scan over the lanes leaves in
+// h[e][lane] the count of the warp's earlier lanes, and the warp's count
+// of each expert goes to count (the warp's row of the shared counters).
+__device__ __forceinline__ void count_lanes(int (&kr)[kRows], int* h,
+                                            int* count, int ew, int lane) {
+  for (int e = 0; e < ew; ++e) h[e * 32 + lane] = 0;
 #pragma unroll
-  for (int b = 0; b < kMaxBits; ++b) {
+  for (int k = 0; k < kRows; ++k) {
+    const int key = kr[k];
+    if (key < ew) {
+      const int c = h[key * 32 + lane];
+      h[key * 32 + lane] = c + 1;
+      kr[k] = key | c << 16;
+    }
+  }
+  int mine = 0;
+  for (int e = 0; e < ew; ++e) {
+    const int v = h[e * 32 + lane];
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    h[e * 32 + lane] = incl - v;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == e) mine = total;
+  }
+  if (lane < ew) count[lane] = mine;
+}
+
+// More than 32 experts: the lanes of the warp whose key equals this
+// lane's, from one ballot per key bit (keys < 2^nbits, nbits <= 11): nbits
+// ballots in place of __match_any_sync, which runs far slower.
+__device__ __forceinline__ unsigned match_key(int key, int nbits) {
+  unsigned peers = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < 11; ++b) {
     if (b < nbits) {
       const unsigned m = __ballot_sync(0xffffffffu, (key >> b) & 1);
       peers &= (key >> b) & 1 ? m : ~m;
-      probed &= (probe >> b) & 1 ? m : ~m;
     }
   }
   return peers;
 }
 
-// The warp's count of each counted key over its 512 requests, into count
-// (its zeroed row of the shared counters): with at most 32 experts
-// (kSmall) lane j sums the rows' probe masks for key j in a register; with
-// more, shared-memory atomics.
-template <bool kSmall>
+// More than 32 experts: the warp's count of each counted key over its 512
+// requests, by shared-memory atomics into count (its zeroed row).
 __device__ __forceinline__ void count_keys(const int (&key)[kRows],
-                                           int* count, int ew, int lane) {
-  if constexpr (kSmall) {
-    const int nbits = 32 - __clz(ew);     // keys 0 .. ew
-    int mine = 0;
+                                           int* count, int ew) {
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      unsigned probed;
-      match_key<6>(key[k], lane, nbits, probed);
-      mine += __popc(probed);
-    }
-    if (lane < ew) count[lane] = mine;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k)
-      if (key[k] < ew) atomicAdd(count + key[k], 1);
-  }
+  for (int k = 0; k < kRows; ++k)
+    if (key[k] < ew) atomicAdd(count + key[k], 1);
 }
 
-// Walk the warp's rows in order.  Each request's rank in the tile (the
-// number of earlier requests of the tile with the same counted key) goes
-// into the high half of its key word, kr[k] = key | rank << 16.  count
-// (the warp's row) starts as the count of the tile's earlier warps per
-// expert and runs on through the rows: with at most 32 experts (kSmall)
-// lane j keeps expert j's in a register (a shuffle reads it, the probe
-// mask adds to it); with more, the counters stay in shared memory and a
-// row's first lane of each key updates them.
-template <bool kSmall>
+// More than 32 experts: walk the warp's rows in order.  Each request's rank
+// in the tile (the number of earlier requests of the tile with the same
+// counted key) goes into the high half of its key word, kr[k] = key | rank
+// << 16.  count (the warp's row) starts as the count of the tile's earlier
+// warps per expert and runs on through the rows: a row's first lane of
+// each key updates it.
 __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
                                           int ew, int lane) {
   const unsigned below = (1u << lane) - 1u;
   const int nbits = 32 - __clz(ew);       // keys 0 .. ew
-  if constexpr (kSmall) {
-    int mine = lane < ew ? count[lane] : 0;
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int key = kr[k];
-      unsigned probed;
-      const unsigned peers = match_key<6>(key, lane, nbits, probed);
-      const int seen = __shfl_sync(0xffffffffu, mine, key & 31);
-      kr[k] = key | (seen + __popc(peers & below)) << 16;
-      mine += __popc(probed);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int key = kr[k];
-      unsigned unused;
-      const unsigned peers = match_key<11>(key, 0, nbits, unused);
-      const int before = __popc(peers & below);
-      const int seen = key < ew ? count[key] : 0;
-      kr[k] = key | (seen + before) << 16;
-      __syncwarp();
-      if (key < ew && before == 0) count[key] = seen + __popc(peers);
-      __syncwarp();
-    }
+  for (int k = 0; k < kRows; ++k) {
+    const int key = kr[k];
+    const unsigned peers = match_key(key, nbits);
+    const int before = __popc(peers & below);
+    const int seen = key < ew ? count[key] : 0;
+    kr[k] = key | (seen + before) << 16;
+    __syncwarp();
+    if (key < ew && before == 0) count[key] = seen + __popc(peers);
+    __syncwarp();
   }
 }
 
@@ -312,10 +343,11 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               uint8_t* __restrict__ kept, long long r, int n_experts,
               int e_lo, int ew, int capacity, bool first_chunk,
               u64* __restrict__ ws, long long ws_words) {
-  // count[kWarps][ew], base[ew], then the key words' stash [kRows][kThreads]
+  // count[kWarps][ew], base[ew], then kSmall: the lanes' counters
+  // h[kWarps][ew][32]; else the key words' stash [kRows][kThreads]
   extern __shared__ int smem[];
   int* base = smem + kWarps * ew;
-  int* stash = base + ew;
+  int* more = base + ew;
   __shared__ int s_tile;
   __shared__ unsigned s_tag;
   __shared__ bool s_wrap;
@@ -323,6 +355,7 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   u64* status = ws + kHeaderWords;  // status[e * n_tiles + tile]
   const int n_tiles = static_cast<int>(gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* h = more + warp * ew * 32;   // kSmall: this warp's lane counters
   if (threadIdx.x == 0) {
     s_tile = static_cast<int>(atomicAdd(&head->ticket, 1u));
     s_tag = *reinterpret_cast<volatile unsigned*>(&head->epoch) + 1u;
@@ -336,9 +369,12 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
       static_cast<long long>(tile) * kTile + warp * kWarpTile;
   int kr[kRows];
   unsigned outside;
-  load_keys(ids, start, r, lane, n_experts, e_lo, ew, first_chunk, kr,
-            outside);
-  count_keys<kSmall>(kr, smem + warp * ew, ew, lane);
+  load_keys<Id, kSmall>(ids, start, r, lane, n_experts, e_lo, ew,
+                        first_chunk, kr, outside);
+  if constexpr (kSmall)
+    count_lanes(kr, h, smem + warp * ew, ew, lane);
+  else
+    count_keys(kr, smem + warp * ew, ew);
   __syncthreads();
   // per expert: an exclusive scan over the warps, and the tile's aggregate
   // published at once (tile 0: as its inclusive prefix, with nothing
@@ -357,29 +393,66 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     base[e] = tile == 0 ? 0 : run;
   }
   __syncthreads();
-  // the rank walk runs while the tiles before this one publish theirs
-  rank_rows<kSmall>(kr, smem + warp * ew, ew, lane);
-  if (tile > 0) {
-    // the key words wait in shared memory, so the look-back has the
-    // registers
+  if constexpr (kSmall) {
+    if (tile > 0) look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
+    __syncthreads();
+    // each lane's column: the count of its expert's requests before the
+    // lane's first, in the stream
+    for (int e = 0; e < ew; ++e)
+      h[e * 32 + lane] += base[e] + smem[warp * ew + e];
+    int p[kRows];
+    uint32_t keep[kRows / 4] = {};
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) stash[k * kThreads + threadIdx.x] = kr[k];
-    look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
+    for (int k = 0; k < kRows; ++k) {
+      const int key = kr[k] & 0xffff;
+      p[k] = key < ew ? h[key * 32 + lane] + (kr[k] >> 16) : 0;
+      keep[k / 4] |= static_cast<uint32_t>(p[k] < capacity) << (8 * (k % 4));
+    }
+    const long long first = request<true>(start, lane, 0);
+    // one pass over every expert writes every request: 16-byte stores
+    if (e_lo == 0 && ew == n_experts && first + kRows <= r &&
+        ((reinterpret_cast<uintptr_t>(pos + first) |
+          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0) {
+      int4* pv = reinterpret_cast<int4*>(pos + first);
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) kr[k] = stash[k * kThreads + threadIdx.x];
-  }
-  __syncthreads();
+      for (int q = 0; q < kRows / 4; ++q)
+        pv[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
+      *reinterpret_cast<uint4*>(kept + first) =
+          make_uint4(keep[0], keep[1], keep[2], keep[3]);
+    } else {
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const long long i = start + k * 32 + lane;
-    const int key = kr[k] & 0xffff;
-    if (key < ew) {                 // counted: never beyond the stream
-      const int p = base[key] + (kr[k] >> 16);
-      pos[i] = p;
-      kept[i] = p < capacity;
-    } else if ((outside >> k) & 1u) {
-      pos[i] = 0;
-      kept[i] = 0 < capacity;
+      for (int k = 0; k < kRows; ++k) {
+        if ((kr[k] & 0xffff) < ew || ((outside >> k) & 1u)) {
+          pos[first + k] = p[k];
+          kept[first + k] = p[k] < capacity;
+        }
+      }
+    }
+  } else {
+    // the rank walk runs while the tiles before this one publish theirs
+    rank_rows(kr, smem + warp * ew, ew, lane);
+    if (tile > 0) {
+      // the key words wait in shared memory, so the look-back has the
+      // registers
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) more[k * kThreads + threadIdx.x] = kr[k];
+      look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) kr[k] = more[k * kThreads + threadIdx.x];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const long long i = request<false>(start, lane, k);
+      const int key = kr[k] & 0xffff;
+      if (key < ew) {               // counted: never beyond the stream
+        const int p = base[key] + (kr[k] >> 16);
+        pos[i] = p;
+        kept[i] = p < capacity;
+      } else if ((outside >> k) & 1u) {
+        pos[i] = 0;
+        kept[i] = 0 < capacity;
+      }
     }
   }
   // the last block to finish readies the workspace for the next call
@@ -425,8 +498,10 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
   const long long n_tiles = (r + kTile - 1) / kTile;
   if (ws_words < kHeaderWords + n_tiles * ew)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool small = ew <= 32;
   const int smem = static_cast<int>(sizeof(int)) *
-                   ((kWarps + 1) * ew + kRows * kThreads);
+                   ((kWarps + 1) * ew +
+                    (small ? kWarps * ew * 32 : kRows * kThreads));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(n_tiles);
   // above the default 48 KB (ew > 896) the kernel must be allowed more
@@ -442,7 +517,6 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
         static_cast<const Id*>(experts), pos, kept, r, n_experts, e_lo, ew, \
         capacity, first_chunk != 0, ws, ws_words);                          \
   } while (0)
-  const bool small = ew <= 32;
   if (id_bytes == 4 && small) DISPATCH_SCAN(int, true);
   else if (id_bytes == 4) DISPATCH_SCAN(int, false);
   else if (small) DISPATCH_SCAN(long long, true);
