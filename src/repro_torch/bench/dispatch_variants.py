@@ -38,6 +38,45 @@ COUNT_ROUNDS = [
      "      atomicAdd(reinterpret_cast<unsigned*>(status - kHeaderWords) + 3,"
      " rounds);\n")]
 
+# diagnostics: %globaltimer spans summed over blocks into g_diag[0..4):
+# block lifetime, start to the aggregate published, the look-back (warp 0),
+# and warp 0's stalled look-back rounds; read by dispatch_diag()
+TIMER = "static_cast<long long>(__globaltimer())"
+TIMINGS = [
+    ("namespace {\n",
+     "__device__ unsigned long long g_diag[4];\n"
+     "__device__ __forceinline__ unsigned long long __globaltimer() {\n"
+     "  unsigned long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\nnamespace {\n"),
+    ("            stalled = true;\n",
+     "            stalled = true;\n"
+     "            if (threadIdx.x == 0) atomicAdd(&g_diag[3], 1ull);\n"),
+    ("  if (threadIdx.x == 0) {\n    s_tile =",
+     f"  const long long t_start = {TIMER};\n"
+     "  if (threadIdx.x == 0) {\n    s_tile ="),
+    ("    base[e] = tile == 0 ? 0 : run;\n  }\n  __syncthreads();\n",
+     "    base[e] = tile == 0 ? 0 : run;\n  }\n  __syncthreads();\n"
+     f"  const long long t_agg = {TIMER};\n"
+     "  if (threadIdx.x == 0) atomicAdd(&g_diag[1], "
+     "static_cast<unsigned long long>(t_agg - t_start));\n"),
+    ("    if (tile > 0) look_back(status, n_tiles, tile, tag, ew, warp, lane, "
+     "base);\n",
+     "    if (tile > 0) look_back(status, n_tiles, tile, tag, ew, warp, lane, "
+     "base);\n"
+     "    if (threadIdx.x == 0) atomicAdd(&g_diag[2], "
+     f"static_cast<unsigned long long>({TIMER} - t_agg));\n"),
+    ("  // the last block to finish readies the workspace for the next call\n",
+     "  if (threadIdx.x == 0) atomicAdd(&g_diag[0], "
+     f"static_cast<unsigned long long>({TIMER} - t_start));\n"
+     "  // the last block to finish readies the workspace for the next call\n"),
+    ("const char* moe_dispatch_error_string(int err) {",
+     "int dispatch_diag(unsigned long long* out) {\n"
+     "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_diag, "
+     "sizeof(g_diag)));\n}\n\n"
+     "const char* moe_dispatch_error_string(int err) {"),
+]
+
 VARIANTS = {
     "shipped": [],
     # status words stored with release and loaded with acquire semantics
@@ -67,6 +106,9 @@ VARIANTS = {
         ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
     # diagnostics: look-back rounds summed into the header's spare word
     "count_rounds": COUNT_ROUNDS,
+    "timings": TIMINGS,
+    "timings_one_window": [*TIMINGS, ("constexpr int kSubs = 4;",
+                                      "constexpr int kSubs = 1;")],
     "count_rounds_one_window": [*COUNT_ROUNDS, ("constexpr int kSubs = 4;",
                                                 "constexpr int kSubs = 1;")],
     "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
@@ -99,6 +141,7 @@ def build(name: str) -> ctypes.CDLL:
     fn = lib.moe_dispatch_launch
     fn.argtypes = [*DISPATCH_ARGS, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn.diag = getattr(lib, "dispatch_diag", None)
     return fn
 
 
@@ -135,6 +178,14 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
     # the header's spare word: rounds over the 23 calls (count_rounds)
     rounds = int(ws[1].item()) >> 32
     per = rounds / (23 * (-(-r // ops.TILE) - 1) * e)
+    if fn.diag is not None:
+        buf = (ctypes.c_ulonglong * 4)()
+        fn.diag(buf)
+        tiles = 23 * -(-r // ops.TILE)
+        print(f"[variants]   per block, mean over {tiles}: lifetime "
+              f"{buf[0] / tiles / 1e3:.3f} us, start to aggregate "
+              f"{buf[1] / tiles / 1e3:.3f} us, look-back {buf[2] / tiles / 1e3:.3f}"
+              f" us; stalled rounds (warp 0) {buf[3] / tiles:.2f}", flush=True)
     return start.elapsed_time(end) / 20 * 1e3, same, per
 
 
