@@ -98,6 +98,19 @@ VARIANTS = {
     # no occupancy hint: the compiler's own register count
     "no_min_blocks": [("constexpr int kMinBlocks = 4;",
                        "constexpr int kMinBlocks = 1;")],
+    # more blocks an SM: fewer registers
+    "min6blocks": [("constexpr int kMinBlocks = 4;",
+                    "constexpr int kMinBlocks = 6;")],
+    "min8blocks": [("constexpr int kMinBlocks = 4;",
+                    "constexpr int kMinBlocks = 8;")],
+    "min6blocks_one_window": [("constexpr int kMinBlocks = 4;",
+                               "constexpr int kMinBlocks = 6;"),
+                              ("constexpr int kSubs = 4;",
+                               "constexpr int kSubs = 1;")],
+    "min8blocks_one_window": [("constexpr int kMinBlocks = 4;",
+                               "constexpr int kMinBlocks = 8;"),
+                              ("constexpr int kSubs = 4;",
+                               "constexpr int kSubs = 1;")],
     # one sub-window a round: W tiles back per round trip
     "one_window_a_round": [("constexpr int kSubs = 4;",
                             "constexpr int kSubs = 1;")],

@@ -400,34 +400,34 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     // lane's first, in the stream
     for (int e = 0; e < ew; ++e)
       h[e * 32 + lane] += base[e] + smem[warp * ew + e];
-    int p[kRows];
-    uint32_t keep[kRows / 4] = {};
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int key = kr[k] & 0xffff;
-      p[k] = key < ew ? h[key * 32 + lane] + (kr[k] >> 16) : 0;
-      keep[k / 4] |= static_cast<uint32_t>(p[k] < capacity) << (8 * (k % 4));
-    }
     const long long first = request<true>(start, lane, 0);
     // one pass over every expert writes every request: 16-byte stores
-    if (e_lo == 0 && ew == n_experts && first + kRows <= r &&
+    const bool whole =
+        e_lo == 0 && ew == n_experts && first + kRows <= r &&
         ((reinterpret_cast<uintptr_t>(pos + first) |
-          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0) {
-      int4* pv = reinterpret_cast<int4*>(pos + first);
+          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0;
+    uint32_t keep[kRows / 4];
 #pragma unroll
-      for (int q = 0; q < kRows / 4; ++q)
-        pv[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
-      *reinterpret_cast<uint4*>(kept + first) =
-          make_uint4(keep[0], keep[1], keep[2], keep[3]);
-    } else {
+    for (int q = 0; q < kRows / 4; ++q) {
+      int p[4];
+      keep[q] = 0;
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        if ((kr[k] & 0xffff) < ew || ((outside >> k) & 1u)) {
-          pos[first + k] = p[k];
-          kept[first + k] = p[k] < capacity;
+      for (int k = 0; k < 4; ++k) {
+        const int w = kr[4 * q + k], key = w & 0xffff;
+        p[k] = key < ew ? h[key * 32 + lane] + (w >> 16) : 0;
+        keep[q] |= static_cast<uint32_t>(p[k] < capacity) << (8 * k);
+        if (!whole && (key < ew || ((outside >> (4 * q + k)) & 1u))) {
+          pos[first + 4 * q + k] = p[k];
+          kept[first + 4 * q + k] = p[k] < capacity;
         }
       }
+      if (whole)
+        reinterpret_cast<int4*>(pos + first)[q] =
+            make_int4(p[0], p[1], p[2], p[3]);
     }
+    if (whole)
+      *reinterpret_cast<uint4*>(kept + first) =
+          make_uint4(keep[0], keep[1], keep[2], keep[3]);
   } else {
     // the rank walk runs while the tiles before this one publish theirs
     rank_rows(kr, smem + warp * ew, ew, lane);
