@@ -66,13 +66,17 @@ TIMINGS = [
      "base);\n"
      "    if (threadIdx.x == 0) atomicAdd(&g_diag[2], "
      f"static_cast<unsigned long long>({TIMER} - t_agg));\n"),
-    ("  // the last block to finish readies the workspace for the next call\n",
-     "  if (threadIdx.x == 0) atomicAdd(&g_diag[0], "
-     f"static_cast<unsigned long long>({TIMER} - t_start));\n"
-     "  // the last block to finish readies the workspace for the next call\n"),
+    ("    finish(head, status, n_tiles, ws_words);\n",
+     "    finish(head, status, n_tiles, ws_words);\n"
+     "    if (threadIdx.x == 0) atomicAdd(&g_diag[0], "
+     f"static_cast<unsigned long long>({TIMER} - t_start));\n"),
     ("const char* moe_dispatch_error_string(int err) {",
      "int dispatch_diag(unsigned long long* out) {\n"
      "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_diag, "
+     "sizeof(g_diag)));\n}\n\n"
+     "int dispatch_diag_zero(unsigned long long* zeros) {\n"
+     "  for (int i = 0; i < 4; ++i) zeros[i] = 0;\n"
+     "  return static_cast<int>(cudaMemcpyToSymbol(g_diag, zeros, "
      "sizeof(g_diag)));\n}\n\n"
      "const char* moe_dispatch_error_string(int err) {"),
 ]
@@ -91,40 +95,20 @@ VARIANTS = {
          "               cuda::memory_order_relaxed);",
          "static_cast<unsigned>(run)),\n"
          "               cuda::memory_order_release);")],
-    # eight words a lane a round (up to 128 tiles back)
-    "eight_words_a_round": [
-        ("constexpr int kSubs = 4;", "constexpr int kSubs = 8;"),
-        ("min(kSubs, 64 >> log_w)", "min(kSubs, 128 >> log_w)")],
+    # four words a lane a round (up to 64 tiles back)
+    "four_words_a_round": [("constexpr int kSubs = 1;",
+                            "constexpr int kSubs = 4;")],
     # no occupancy hint: the compiler's own register count
     "no_min_blocks": [("constexpr int kMinBlocks = 4;",
                        "constexpr int kMinBlocks = 1;")],
-    # more blocks an SM: fewer registers
-    "min6blocks": [("constexpr int kMinBlocks = 4;",
-                    "constexpr int kMinBlocks = 6;")],
-    "min8blocks": [("constexpr int kMinBlocks = 4;",
-                    "constexpr int kMinBlocks = 8;")],
-    "min6blocks_one_window": [("constexpr int kMinBlocks = 4;",
-                               "constexpr int kMinBlocks = 6;"),
-                              ("constexpr int kSubs = 4;",
-                               "constexpr int kSubs = 1;")],
-    "min8blocks_one_window": [("constexpr int kMinBlocks = 4;",
-                               "constexpr int kMinBlocks = 8;"),
-                              ("constexpr int kSubs = 4;",
-                               "constexpr int kSubs = 1;")],
-    # one sub-window a round: W tiles back per round trip
-    "one_window_a_round": [("constexpr int kSubs = 4;",
-                            "constexpr int kSubs = 1;")],
+    "min5blocks": [("constexpr int kMinBlocks = 4;",
+                    "constexpr int kMinBlocks = 5;")],
     # a warp looks back for one expert at a time, with all 32 lanes
     "one_expert_a_time": [
         ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
-    # diagnostics: look-back rounds summed into the header's spare word
+    # diagnostics
     "count_rounds": COUNT_ROUNDS,
     "timings": TIMINGS,
-    "timings_one_window": [*TIMINGS, ("constexpr int kSubs = 4;",
-                                      "constexpr int kSubs = 1;")],
-    "count_rounds_one_window": [*COUNT_ROUNDS, ("constexpr int kSubs = 4;",
-                                                "constexpr int kSubs = 1;")],
-    "rows8": [("constexpr int kRows = 16;", "constexpr int kRows = 8;")],
     "no_lookback": [("look_back(status, n_tiles, tile, tag, ew, warp, "
                      "lane, base);", "(void)0;")],
 }
@@ -155,6 +139,7 @@ def build(name: str) -> ctypes.CDLL:
     fn.argtypes = [*DISPATCH_ARGS, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn.diag = getattr(lib, "dispatch_diag", None)
+    fn.diag_zero = getattr(lib, "dispatch_diag_zero", None)
     return fn
 
 
@@ -176,6 +161,8 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
                  ws.numel(), stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
+    if fn.diag_zero is not None:
+        fn.diag_zero((ctypes.c_ulonglong * 4)())
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -196,9 +183,10 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
         fn.diag(buf)
         tiles = 23 * -(-r // ops.TILE)
         print(f"[variants]   per block, mean over {tiles}: lifetime "
-              f"{buf[0] / tiles / 1e3:.3f} us, start to aggregate "
-              f"{buf[1] / tiles / 1e3:.3f} us, look-back {buf[2] / tiles / 1e3:.3f}"
-              f" us; stalled rounds (warp 0) {buf[3] / tiles:.2f}", flush=True)
+              f"{buf[0] / tiles / 1e3:.3f} us (to its done count), start to "
+              f"aggregate {buf[1] / tiles / 1e3:.3f} us, look-back "
+              f"{buf[2] / tiles / 1e3:.3f} us; stalled rounds (warp 0) "
+              f"{buf[3] / tiles:.2f}", flush=True)
     return start.elapsed_time(end) / 20 * 1e3, same, per
 
 

@@ -88,7 +88,7 @@ constexpr int kTile = kWarps * kWarpTile;  // 4096 requests per block
 constexpr int kChunk = 1024;               // experts per pass
 constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
 constexpr int kWindow = 32;                // experts a warp looks back for
-constexpr int kSubs = 4;                   // status words a lane loads a round
+constexpr int kSubs = 1;                   // status words a lane loads a round
 
 // The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
 constexpr int kFlagBit = 32;               // 1: inclusive prefix
@@ -337,6 +337,26 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
   }
 }
 
+// After its look-back a block reads no status word and every tile has been
+// handed out, so it counts itself done then, before its position stores;
+// the last block to do so readies the workspace for the next call (on the
+// epoch's wrap it zeroes every status word alone: once in 2^31 - 1 calls).
+// The fence orders the block's status words before its count (so none
+// lands after the zeroing); it waits on those few stores only.
+__device__ __forceinline__ void finish(Header* head, u64* status,
+                                       int n_tiles, long long ws_words) {
+  if (threadIdx.x != 0) return;
+  __threadfence();
+  if (atomicAdd(&head->done, 1u) != static_cast<unsigned>(n_tiles) - 1u)
+    return;
+  head->ticket = 0;
+  head->done = 0;
+  const unsigned next = head->epoch + 1u;
+  head->epoch = next == kTagLimit ? 0u : next;
+  if (next == kTagLimit)
+    for (long long i = 0; i < ws_words - kHeaderWords; ++i) status[i] = 0;
+}
+
 template <typename Id, bool kSmall>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
@@ -350,7 +370,6 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   int* more = base + ew;
   __shared__ int s_tile;
   __shared__ unsigned s_tag;
-  __shared__ bool s_wrap;
   Header* head = reinterpret_cast<Header*>(ws);
   u64* status = ws + kHeaderWords;  // status[e * n_tiles + tile]
   const int n_tiles = static_cast<int>(gridDim.x);
@@ -396,38 +415,39 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   if constexpr (kSmall) {
     if (tile > 0) look_back(status, n_tiles, tile, tag, ew, warp, lane, base);
     __syncthreads();
+    finish(head, status, n_tiles, ws_words);
     // each lane's column: the count of its expert's requests before the
     // lane's first, in the stream
     for (int e = 0; e < ew; ++e)
       h[e * 32 + lane] += base[e] + smem[warp * ew + e];
+    int p[kRows];
+    uint32_t keep[kRows / 4] = {};
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int key = kr[k] & 0xffff;
+      p[k] = key < ew ? h[key * 32 + lane] + (kr[k] >> 16) : 0;
+      keep[k / 4] |= static_cast<uint32_t>(p[k] < capacity) << (8 * (k % 4));
+    }
     const long long first = request<true>(start, lane, 0);
     // one pass over every expert writes every request: 16-byte stores
-    const bool whole =
-        e_lo == 0 && ew == n_experts && first + kRows <= r &&
+    if (e_lo == 0 && ew == n_experts && first + kRows <= r &&
         ((reinterpret_cast<uintptr_t>(pos + first) |
-          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0;
-    uint32_t keep[kRows / 4];
+          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0) {
+      int4* pv = reinterpret_cast<int4*>(pos + first);
 #pragma unroll
-    for (int q = 0; q < kRows / 4; ++q) {
-      int p[4];
-      keep[q] = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int w = kr[4 * q + k], key = w & 0xffff;
-        p[k] = key < ew ? h[key * 32 + lane] + (w >> 16) : 0;
-        keep[q] |= static_cast<uint32_t>(p[k] < capacity) << (8 * k);
-        if (!whole && (key < ew || ((outside >> (4 * q + k)) & 1u))) {
-          pos[first + 4 * q + k] = p[k];
-          kept[first + 4 * q + k] = p[k] < capacity;
-        }
-      }
-      if (whole)
-        reinterpret_cast<int4*>(pos + first)[q] =
-            make_int4(p[0], p[1], p[2], p[3]);
-    }
-    if (whole)
+      for (int q = 0; q < kRows / 4; ++q)
+        pv[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
       *reinterpret_cast<uint4*>(kept + first) =
           make_uint4(keep[0], keep[1], keep[2], keep[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if ((kr[k] & 0xffff) < ew || ((outside >> k) & 1u)) {
+          pos[first + k] = p[k];
+          kept[first + k] = p[k] < capacity;
+        }
+      }
+    }
   } else {
     // the rank walk runs while the tiles before this one publish theirs
     rank_rows(kr, smem + warp * ew, ew, lane);
@@ -441,6 +461,7 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
       for (int k = 0; k < kRows; ++k) kr[k] = more[k * kThreads + threadIdx.x];
     }
     __syncthreads();
+    finish(head, status, n_tiles, ws_words);
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const long long i = request<false>(start, lane, k);
@@ -454,25 +475,6 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
         kept[i] = 0 < capacity;
       }
     }
-  }
-  // the last block to finish readies the workspace for the next call
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    s_wrap = false;
-    if (atomicAdd(&head->done, 1u) == static_cast<unsigned>(n_tiles) - 1u) {
-      head->ticket = 0;
-      head->done = 0;
-      const unsigned next = head->epoch + 1u;
-      s_wrap = next == kTagLimit;
-      head->epoch = s_wrap ? 0u : next;
-    }
-  }
-  __syncthreads();
-  if (s_wrap) {
-    for (long long i = kHeaderWords + threadIdx.x; i < ws_words;
-         i += kThreads)
-      ws[i] = 0;
   }
 }
 
