@@ -89,6 +89,7 @@ constexpr int kChunk = 1024;               // experts per pass
 constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
 constexpr int kWindow = 32;                // experts a warp looks back for
 constexpr int kSubs = 1;                   // status words a lane loads a round
+constexpr int kRowPad = 33;                // kSmall: a lane counter row
 
 // The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
 constexpr int kFlagBit = 32;               // 1: inclusive prefix
@@ -176,37 +177,43 @@ __device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
 }
 
 // kSmall: each lane counts its 16 requests, in order, in its own column of
-// the warp's counters h[e][lane] (column `lane` is bank `lane`: no
-// conflicts), so a request's rank among the lane's is the column's count
-// before it; then, per expert, a shuffle scan over the lanes leaves in
-// h[e][lane] the count of the warp's earlier lanes, and the warp's count
-// of each expert goes to count (the warp's row of the shared counters).
+// the warp's counters h[e][lane] (rows padded to kRowPad = 33 words, so a
+// lane's column and a row read across lanes both fall in distinct banks),
+// so a request's rank among the lane's is the column's count before it.
+// Then lane e scans row e (expert e's count in each lane) in registers,
+// leaving in h[e][lane] the count of the warp's earlier lanes, and puts the
+// warp's count of expert e into count (the warp's row of the shared
+// counters).
 __device__ __forceinline__ void count_lanes(int (&kr)[kRows], int* h,
                                             int* count, int ew, int lane) {
-  for (int e = 0; e < ew; ++e) h[e * 32 + lane] = 0;
+  for (int e = 0; e < ew; ++e) h[e * kRowPad + lane] = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int key = kr[k];
     if (key < ew) {
-      const int c = h[key * 32 + lane];
-      h[key * 32 + lane] = c + 1;
+      const int c = h[key * kRowPad + lane];
+      h[key * kRowPad + lane] = c + 1;
       kr[k] = key | c << 16;
     }
   }
-  int mine = 0;
-  for (int e = 0; e < ew; ++e) {
-    const int v = h[e * 32 + lane];
-    int incl = v;
+  __syncwarp();
+  if (lane < ew) {
+    int* row = h + lane * kRowPad;
+    int v[32];
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += t;
+    for (int j = 0; j < 32; ++j) v[j] = row[j];
+    int run = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = v[j];
+      v[j] = run;
+      run += c;
     }
-    h[e * 32 + lane] = incl - v;
-    const int total = __shfl_sync(0xffffffffu, incl, 31);
-    if (lane == e) mine = total;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) row[j] = v[j];
+    count[lane] = run;
   }
-  if (lane < ew) count[lane] = mine;
+  __syncwarp();
 }
 
 // More than 32 experts: the lanes of the warp whose key equals this
@@ -364,7 +371,7 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               int e_lo, int ew, int capacity, bool first_chunk,
               u64* __restrict__ ws, long long ws_words) {
   // count[kWarps][ew], base[ew], then kSmall: the lanes' counters
-  // h[kWarps][ew][32]; else the key words' stash [kRows][kThreads]
+  // h[kWarps][ew][kRowPad]; else the key words' stash [kRows][kThreads]
   extern __shared__ int smem[];
   int* base = smem + kWarps * ew;
   int* more = base + ew;
@@ -374,7 +381,7 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   u64* status = ws + kHeaderWords;  // status[e * n_tiles + tile]
   const int n_tiles = static_cast<int>(gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* h = more + warp * ew * 32;   // kSmall: this warp's lane counters
+  int* h = more + warp * ew * kRowPad;  // kSmall: the warp's lane counters
   if (threadIdx.x == 0) {
     s_tile = static_cast<int>(atomicAdd(&head->ticket, 1u));
     s_tag = *reinterpret_cast<volatile unsigned*>(&head->epoch) + 1u;
@@ -419,13 +426,13 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     // each lane's column: the count of its expert's requests before the
     // lane's first, in the stream
     for (int e = 0; e < ew; ++e)
-      h[e * 32 + lane] += base[e] + smem[warp * ew + e];
+      h[e * kRowPad + lane] += base[e] + smem[warp * ew + e];
     int p[kRows];
     uint32_t keep[kRows / 4] = {};
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int key = kr[k] & 0xffff;
-      p[k] = key < ew ? h[key * 32 + lane] + (kr[k] >> 16) : 0;
+      p[k] = key < ew ? h[key * kRowPad + lane] + (kr[k] >> 16) : 0;
       keep[k / 4] |= static_cast<uint32_t>(p[k] < capacity) << (8 * (k % 4));
     }
     const long long first = request<true>(start, lane, 0);
@@ -503,7 +510,7 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
   const bool small = ew <= 32;
   const int smem = static_cast<int>(sizeof(int)) *
                    ((kWarps + 1) * ew +
-                    (small ? kWarps * ew * 32 : kRows * kThreads));
+                    (small ? kWarps * ew * kRowPad : kRows * kThreads));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(n_tiles);
   // above the default 48 KB (ew > 896) the kernel must be allowed more
