@@ -103,6 +103,17 @@ VARIANTS = {
                        "constexpr int kMinBlocks = 1;")],
     "min5blocks": [("constexpr int kMinBlocks = 4;",
                     "constexpr int kMinBlocks = 5;")],
+    # tiles of 8192 requests (32 a lane) or 2048 (8 a lane)
+    "rows32_min3": [("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
+                    ("constexpr int kMinBlocks = 4;",
+                     "constexpr int kMinBlocks = 3;")],
+    "rows32_min2": [("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
+                    ("constexpr int kMinBlocks = 4;",
+                     "constexpr int kMinBlocks = 2;")],
+    "rows32_min3_timings": [
+        ("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
+        ("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),
+        *TIMINGS],
     # a warp looks back for one expert at a time, with all 32 lanes
     "one_expert_a_time": [
         ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
@@ -146,7 +157,7 @@ def build(name: str) -> ctypes.CDLL:
 DISPATCH_ARGS = ops.DISPATCH.argtypes[:-1]
 
 
-def device_us(fn, ids, e, cap) -> tuple[float, bool]:
+def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
     r = ids.shape[0]
     out = torch.empty(5 * r, dtype=torch.uint8, device="cuda")
     pos, kept = out[:4 * r].view(torch.int32), out[4 * r:].view(torch.bool)
@@ -181,7 +192,7 @@ def device_us(fn, ids, e, cap) -> tuple[float, bool]:
     if fn.diag is not None:
         buf = (ctypes.c_ulonglong * 4)()
         fn.diag(buf)
-        tiles = 23 * -(-r // ops.TILE)
+        tiles = 23 * -(-r // (ops.TILE * tile_scale))
         print(f"[variants]   per block, mean over {tiles}: lifetime "
               f"{buf[0] / tiles / 1e3:.3f} us (to its done count), start to "
               f"aggregate {buf[1] / tiles / 1e3:.3f} us, look-back "
@@ -202,7 +213,8 @@ def main() -> int:
         ids = torch.randint(0, e, (1 << 24,), device="cuda", generator=gen,
                             dtype=torch.int32)
         for name in [*VARIANTS, *reversed(VARIANTS)]:
-            us, same, rounds = device_us(fns[name], ids, e, cap)
+            us, same, rounds = device_us(fns[name], ids, e, cap,
+                                         2 if "rows32" in name else 1)
             out.setdefault(f"E={e}", {}).setdefault(name, []).append(us)
             print(f"[variants] 2^24 requests, E={e}: {name} {us:.3f} us, "
                   f"bit-equal to plain: {same}, look-back rounds a (tile, "

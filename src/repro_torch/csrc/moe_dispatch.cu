@@ -444,8 +444,10 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
 #pragma unroll
       for (int q = 0; q < kRows / 4; ++q)
         pv[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
-      *reinterpret_cast<uint4*>(kept + first) =
-          make_uint4(keep[0], keep[1], keep[2], keep[3]);
+#pragma unroll
+      for (int q = 0; q < kRows / 16; ++q)
+        reinterpret_cast<uint4*>(kept + first)[q] = make_uint4(
+            keep[4 * q], keep[4 * q + 1], keep[4 * q + 2], keep[4 * q + 3]);
     } else {
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
