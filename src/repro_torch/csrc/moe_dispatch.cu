@@ -113,70 +113,44 @@ __device__ __forceinline__ u64 pack(unsigned tag, bool inclusive,
          (static_cast<u64>(inclusive) << kFlagBit) | count;
 }
 
-// Request k of a lane: with at most 32 experts (kSmall) lane j owns the 16
-// consecutive requests start + 16 j + k (16-byte loads and stores);
-// otherwise row k of 32, start + 32 k + j (one request a lane a row).
-template <bool kSmall>
-__device__ __forceinline__ long long request(long long start, int lane,
-                                             int k) {
-  return kSmall ? start + lane * kRows + k : start + k * 32 + lane;
-}
-
-// The lane's 16 requests as keys: an id's counter in the chunk [e_lo, e_lo
-// + ew), or ew for an id the chunk does not count (and for requests beyond
-// the stream).  int64 ids keep their low 32 bits.  Bit k of `outside`
-// marks request k as outside [0, n_experts) when this is the first chunk:
-// it gets pos = 0.
-template <typename Id, bool kSmall>
+// The warp's 512 requests as 16 rows of 32, request k of a lane at start +
+// 32 k + lane (coalesced loads and stores), as keys: an id's counter in the
+// chunk [e_lo, e_lo + ew), or ew for an id the chunk does not count (and
+// for requests beyond the stream).  int64 ids keep their low 32 bits.  Bit
+// k of `writes` marks request k as one this pass writes: counted, or
+// outside [0, n_experts) in the first chunk (it gets pos = 0).
+template <typename Id>
 __device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
                                           long long start, long long r,
                                           int lane, int n_experts, int e_lo,
                                           int ew, bool first_chunk,
                                           int (&key)[kRows],
-                                          unsigned& outside) {
-  const long long first = request<kSmall>(start, lane, 0);
-  if (kSmall && first + kRows <= r &&
-      (reinterpret_cast<uintptr_t>(ids + first) & 15) == 0) {
-    if constexpr (sizeof(Id) == 4) {
-      const int4* v = reinterpret_cast<const int4*>(ids + first);
+                                          unsigned& writes) {
 #pragma unroll
-      for (int q = 0; q < kRows / 4; ++q) {
-        const int4 w = __ldg(v + q);
-        key[4 * q] = w.x;
-        key[4 * q + 1] = w.y;
-        key[4 * q + 2] = w.z;
-        key[4 * q + 3] = w.w;
-      }
-    } else {
-      const longlong2* v = reinterpret_cast<const longlong2*>(ids + first);
-#pragma unroll
-      for (int q = 0; q < kRows / 2; ++q) {
-        const longlong2 w = __ldg(v + q);
-        key[2 * q] = static_cast<int>(w.x);
-        key[2 * q + 1] = static_cast<int>(w.y);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const long long i = request<kSmall>(start, lane, k);
-      key[k] = i < r ? static_cast<int>(__ldg(ids + i)) : e_lo + ew;
-    }
+  for (int k = 0; k < kRows; ++k) {
+    const long long i = start + k * 32 + lane;
+    key[k] = i < r ? static_cast<int>(__ldg(ids + i)) : e_lo + ew;
   }
-  outside = 0;
+  writes = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int id = key[k];
     const unsigned d =
         static_cast<unsigned>(id) - static_cast<unsigned>(e_lo);
     key[k] = d < static_cast<unsigned>(ew) ? static_cast<int>(d) : ew;
-    if (first_chunk && request<kSmall>(start, lane, k) < r &&
-        (id < 0 || id >= n_experts))
-      outside |= 1u << k;
+    if (key[k] < ew || (first_chunk && start + k * 32 + lane < r &&
+                        (id < 0 || id >= n_experts)))
+      writes |= 1u << k;
   }
 }
 
-// kSmall: each lane counts its 16 requests, in order, in its own column of
+// kSmall: the warp's 16 x 32 words pass between rows (request 32 k + j in
+// lane j) and lanes (request 16 j + k in lane j) through a shared buffer
+// padded by a word every 32, so both sides hit 32 distinct banks.
+__host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
+
+// kSmall: each lane counts its 16 consecutive requests (lane j: requests
+// 16 j + k of the warp's 512), in order, in its own column of
 // the warp's counters h[e][lane] (rows padded to kRowPad = 33 words, so a
 // lane's column and a row read across lanes both fall in distinct banks),
 // so a request's rank among the lane's is the column's count before it.
@@ -371,7 +345,8 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
               int e_lo, int ew, int capacity, bool first_chunk,
               u64* __restrict__ ws, long long ws_words) {
   // count[kWarps][ew], base[ew], then kSmall: the lanes' counters
-  // h[kWarps][ew][kRowPad]; else the key words' stash [kRows][kThreads]
+  // h[kWarps][ew][kRowPad] and the transpose buffers [kWarps][528]; else
+  // the key words' stash [kRows][kThreads]
   extern __shared__ int smem[];
   int* base = smem + kWarps * ew;
   int* more = base + ew;
@@ -382,6 +357,8 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   const int n_tiles = static_cast<int>(gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int* h = more + warp * ew * kRowPad;  // kSmall: the warp's lane counters
+  int* t = more + kWarps * ew * kRowPad +
+           warp * padded(kWarpTile);      // kSmall: the warp's transpose
   if (threadIdx.x == 0) {
     s_tile = static_cast<int>(atomicAdd(&head->ticket, 1u));
     s_tag = *reinterpret_cast<volatile unsigned*>(&head->epoch) + 1u;
@@ -394,13 +371,19 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
   const long long start =
       static_cast<long long>(tile) * kTile + warp * kWarpTile;
   int kr[kRows];
-  unsigned outside;
-  load_keys<Id, kSmall>(ids, start, r, lane, n_experts, e_lo, ew,
-                        first_chunk, kr, outside);
-  if constexpr (kSmall)
+  unsigned writes;
+  load_keys(ids, start, r, lane, n_experts, e_lo, ew, first_chunk, kr,
+            writes);
+  if constexpr (kSmall) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) t[padded(k * 32 + lane)] = kr[k];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) kr[k] = t[padded(lane * kRows + k)];
     count_lanes(kr, h, smem + warp * ew, ew, lane);
-  else
+  } else {
     count_keys(kr, smem + warp * ew, ew);
+  }
   __syncthreads();
   // per expert: an exclusive scan over the warps, and the tile's aggregate
   // published at once (tile 0: as its inclusive prefix, with nothing
@@ -427,34 +410,21 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     // lane's first, in the stream
     for (int e = 0; e < ew; ++e)
       h[e * kRowPad + lane] += base[e] + smem[warp * ew + e];
-    int p[kRows];
-    uint32_t keep[kRows / 4] = {};
+    // positions in lane order, back to rows through the buffer
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int key = kr[k] & 0xffff;
-      p[k] = key < ew ? h[key * kRowPad + lane] + (kr[k] >> 16) : 0;
-      keep[k / 4] |= static_cast<uint32_t>(p[k] < capacity) << (8 * (k % 4));
+      t[padded(lane * kRows + k)] =
+          key < ew ? h[key * kRowPad + lane] + (kr[k] >> 16) : 0;
     }
-    const long long first = request<true>(start, lane, 0);
-    // one pass over every expert writes every request: 16-byte stores
-    if (e_lo == 0 && ew == n_experts && first + kRows <= r &&
-        ((reinterpret_cast<uintptr_t>(pos + first) |
-          reinterpret_cast<uintptr_t>(kept + first)) & 15) == 0) {
-      int4* pv = reinterpret_cast<int4*>(pos + first);
+    __syncwarp();
 #pragma unroll
-      for (int q = 0; q < kRows / 4; ++q)
-        pv[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
-#pragma unroll
-      for (int q = 0; q < kRows / 16; ++q)
-        reinterpret_cast<uint4*>(kept + first)[q] = make_uint4(
-            keep[4 * q], keep[4 * q + 1], keep[4 * q + 2], keep[4 * q + 3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        if ((kr[k] & 0xffff) < ew || ((outside >> k) & 1u)) {
-          pos[first + k] = p[k];
-          kept[first + k] = p[k] < capacity;
-        }
+    for (int k = 0; k < kRows; ++k) {
+      if ((writes >> k) & 1u) {
+        const long long i = start + k * 32 + lane;
+        const int p = t[padded(k * 32 + lane)];
+        pos[i] = p;
+        kept[i] = p < capacity;
       }
     }
   } else {
@@ -473,15 +443,12 @@ dispatch_scan(const Id* __restrict__ ids, int* __restrict__ pos,
     finish(head, status, n_tiles, ws_words);
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
-      const long long i = request<false>(start, lane, k);
-      const int key = kr[k] & 0xffff;
-      if (key < ew) {               // counted: never beyond the stream
-        const int p = base[key] + (kr[k] >> 16);
+      if ((writes >> k) & 1u) {
+        const long long i = start + k * 32 + lane;
+        const int key = kr[k] & 0xffff;
+        const int p = key < ew ? base[key] + (kr[k] >> 16) : 0;
         pos[i] = p;
         kept[i] = p < capacity;
-      } else if ((outside >> k) & 1u) {
-        pos[i] = 0;
-        kept[i] = 0 < capacity;
       }
     }
   }
@@ -512,7 +479,8 @@ int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,
   const bool small = ew <= 32;
   const int smem = static_cast<int>(sizeof(int)) *
                    ((kWarps + 1) * ew +
-                    (small ? kWarps * ew * kRowPad : kRows * kThreads));
+                    (small ? kWarps * (ew * kRowPad + padded(kWarpTile))
+                           : kRows * kThreads));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(n_tiles);
   // above the default 48 KB (ew > 896) the kernel must be allowed more
