@@ -99,21 +99,22 @@ VARIANTS = {
     "four_words_a_round": [("constexpr int kSubs = 1;",
                             "constexpr int kSubs = 4;")],
     # no occupancy hint: the compiler's own register count
-    "no_min_blocks": [("constexpr int kMinBlocks = 4;",
+    "no_min_blocks": [("constexpr int kMinBlocks = 3;",
                        "constexpr int kMinBlocks = 1;")],
-    "min5blocks": [("constexpr int kMinBlocks = 4;",
-                    "constexpr int kMinBlocks = 5;")],
-    # tiles of 8192 requests (32 a lane) or 2048 (8 a lane)
-    "rows32_min3": [("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
-                    ("constexpr int kMinBlocks = 4;",
-                     "constexpr int kMinBlocks = 3;")],
-    "rows32_min2": [("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
-                    ("constexpr int kMinBlocks = 4;",
+    "min4blocks": [("constexpr int kMinBlocks = 3;",
+                    "constexpr int kMinBlocks = 4;")],
+    # tiles of 4096 requests (16 rows a warp) at 4 blocks an SM, or of
+    # 16384 (64 rows) at 2; 16 warps of 16 rows at 2 blocks an SM
+    "rows16_min4": [("constexpr int kRows = 32;", "constexpr int kRows = 16;"),
+                    ("constexpr int kMinBlocks = 3;",
+                     "constexpr int kMinBlocks = 4;")],
+    "rows64_min2": [("constexpr int kRows = 32;", "constexpr int kRows = 64;"),
+                    ("constexpr int kMinBlocks = 3;",
                      "constexpr int kMinBlocks = 2;")],
-    "rows32_min3_timings": [
-        ("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
-        ("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),
-        *TIMINGS],
+    "warps16_rows16": [("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+                       ("constexpr int kRows = 32;", "constexpr int kRows = 16;"),
+                       ("constexpr int kMinBlocks = 3;",
+                        "constexpr int kMinBlocks = 2;")],
     # a warp looks back for one expert at a time, with all 32 lanes
     "one_expert_a_time": [
         ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
@@ -157,6 +158,10 @@ def build(name: str) -> ctypes.CDLL:
 DISPATCH_ARGS = ops.DISPATCH.argtypes[:-1]
 
 
+#: the variants' tiles over the shipped one's
+TILE_SCALE = {"rows16_min4": 0.5, "rows64_min2": 2}
+
+
 def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
     r = ids.shape[0]
     out = torch.empty(5 * r, dtype=torch.uint8, device="cuda")
@@ -188,11 +193,11 @@ def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
     same = torch.equal(pos, want[0]) and torch.equal(kept, want[1])
     # the header's spare word: rounds over the 23 calls (count_rounds)
     rounds = int(ws[1].item()) >> 32
-    per = rounds / (23 * (-(-r // ops.TILE) - 1) * e)
+    per = rounds / (23 * (-(-r // int(ops.TILE * tile_scale)) - 1) * e)
     if fn.diag is not None:
         buf = (ctypes.c_ulonglong * 4)()
         fn.diag(buf)
-        tiles = 23 * -(-r // (ops.TILE * tile_scale))
+        tiles = 23 * -(-r // int(ops.TILE * tile_scale))
         print(f"[variants]   per block, mean over {tiles}: lifetime "
               f"{buf[0] / tiles / 1e3:.3f} us (to its done count), start to "
               f"aggregate {buf[1] / tiles / 1e3:.3f} us, look-back "
@@ -214,7 +219,7 @@ def main() -> int:
                             dtype=torch.int32)
         for name in [*VARIANTS, *reversed(VARIANTS)]:
             us, same, rounds = device_us(fns[name], ids, e, cap,
-                                         2 if "rows32" in name else 1)
+                                         TILE_SCALE.get(name, 1))
             out.setdefault(f"E={e}", {}).setdefault(name, []).append(us)
             print(f"[variants] 2^24 requests, E={e}: {name} {us:.3f} us, "
                   f"bit-equal to plain: {same}, look-back rounds a (tile, "

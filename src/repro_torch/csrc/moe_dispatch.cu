@@ -82,11 +82,11 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16;                  // rows of 32 requests per warp
-constexpr int kWarpTile = kRows * 32;      // 512 requests per warp
-constexpr int kTile = kWarps * kWarpTile;  // 4096 requests per block
+constexpr int kRows = 32;                  // rows of 32 requests per warp
+constexpr int kWarpTile = kRows * 32;      // 1024 requests per warp
+constexpr int kTile = kWarps * kWarpTile;  // 8192 requests per block
 constexpr int kChunk = 1024;               // experts per pass
-constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
+constexpr int kMinBlocks = 3;              // blocks an SM: <= 80 registers
 constexpr int kWindow = 32;                // experts a warp looks back for
 constexpr int kSubs = 1;                   // status words a lane loads a round
 constexpr int kRowPad = 33;                // kSmall: a lane counter row

@@ -27,7 +27,7 @@ from repro_torch.kernels.cuda_lib import CudaEntry, current_stream
 R_BLOCK = 512
 #: the CUDA kernel's tile of requests and its experts per pass (kTile and
 #: kChunk of csrc/moe_dispatch.cu)
-TILE, EXPERT_CHUNK = 4096, 1024
+TILE, EXPERT_CHUNK = 8192, 1024
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 #: the look-back's status word (kFlagBit, kTagShift, kTagLimit of the
