@@ -5,10 +5,11 @@
 
 Each variant is the shipped source with one change made by text
 replacement into a copy under ``build/variants/``: status words with
-release/acquire semantics, no occupancy hint, other look-back windows,
-smaller tiles, a look-back round count, and one that drops the look-back
-and so gives wrong positions: it is timed only, to see what the
-look-back costs.  Device
+release/acquire semantics, fewer blocks an SM, smaller tiles, a look-back
+of one expert at a time, a build that sums each block's phase times
+(``%globaltimer``) into a device array, and one that drops the look-back
+and so gives wrong positions: it is timed only, to see what the look-back
+costs.  Device
 time per call: CUDA events around 20 back-to-back launches after 3
 warm-up launches.  Runs on the card only.
 """
@@ -26,17 +27,6 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.moe_dispatch import ops
 
 OUT = cuda_lib.BUILD_DIR / "variants"
-
-COUNT_ROUNDS = [
-    ("    unsigned total = 0;\n    while (__any_sync(",
-     "    unsigned total = 0;\n    unsigned rounds = 0;\n"
-     "    while (__any_sync("),
-    ("      bool stalled = false;\n",
-     "      bool stalled = false;\n      ++rounds;\n"),
-    ("    if (i0 + g < n_mine && j == 0) {\n",
-     "    if (i0 + g < n_mine && j == 0) {\n"
-     "      atomicAdd(reinterpret_cast<unsigned*>(status - kHeaderWords) + 3,"
-     " rounds);\n")]
 
 # diagnostics: %globaltimer spans summed over blocks into g_diag[0..4):
 # block lifetime, start to the aggregate published, the look-back (warp 0),
@@ -95,31 +85,15 @@ VARIANTS = {
          "               cuda::memory_order_relaxed);",
          "static_cast<unsigned>(run)),\n"
          "               cuda::memory_order_release);")],
-    # four words a lane a round (up to 64 tiles back)
-    "four_words_a_round": [("constexpr int kSubs = 1;",
-                            "constexpr int kSubs = 4;")],
-    # no occupancy hint: the compiler's own register count
-    "no_min_blocks": [("constexpr int kMinBlocks = 3;",
-                       "constexpr int kMinBlocks = 1;")],
-    "min4blocks": [("constexpr int kMinBlocks = 3;",
-                    "constexpr int kMinBlocks = 4;")],
-    # tiles of 4096 requests (16 rows a warp) at 4 blocks an SM, or of
-    # 16384 (64 rows) at 2; 16 warps of 16 rows at 2 blocks an SM
-    "rows16_min4": [("constexpr int kRows = 32;", "constexpr int kRows = 16;"),
-                    ("constexpr int kMinBlocks = 3;",
-                     "constexpr int kMinBlocks = 4;")],
-    "rows64_min2": [("constexpr int kRows = 32;", "constexpr int kRows = 64;"),
-                    ("constexpr int kMinBlocks = 3;",
-                     "constexpr int kMinBlocks = 2;")],
-    "warps16_rows16": [("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
-                       ("constexpr int kRows = 32;", "constexpr int kRows = 16;"),
-                       ("constexpr int kMinBlocks = 3;",
-                        "constexpr int kMinBlocks = 2;")],
+    # three blocks an SM (up to 80 registers)
+    "min3blocks": [("constexpr int kMinBlocks = 4;",
+                    "constexpr int kMinBlocks = 3;")],
+    # tiles of 4096 requests (16 rows a warp)
+    "rows16": [("constexpr int kRows = 32;", "constexpr int kRows = 16;")],
     # a warp looks back for one expert at a time, with all 32 lanes
     "one_expert_a_time": [
         ("  while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;\n", "")],
     # diagnostics
-    "count_rounds": COUNT_ROUNDS,
     "timings": TIMINGS,
     "no_lookback": [("look_back(status, n_tiles, tile, tag, ew, warp, "
                      "lane, base);", "(void)0;")],
@@ -159,10 +133,10 @@ DISPATCH_ARGS = ops.DISPATCH.argtypes[:-1]
 
 
 #: the variants' tiles over the shipped one's
-TILE_SCALE = {"rows16_min4": 0.5, "rows64_min2": 2}
+TILE_SCALE = {"rows16": 0.5}
 
 
-def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
+def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool]:
     r = ids.shape[0]
     out = torch.empty(5 * r, dtype=torch.uint8, device="cuda")
     pos, kept = out[:4 * r].view(torch.int32), out[4 * r:].view(torch.bool)
@@ -191,9 +165,6 @@ def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
     end.synchronize()
     want = ops.moe_dispatch_plain(ids, e, cap)
     same = torch.equal(pos, want[0]) and torch.equal(kept, want[1])
-    # the header's spare word: rounds over the 23 calls (count_rounds)
-    rounds = int(ws[1].item()) >> 32
-    per = rounds / (23 * (-(-r // int(ops.TILE * tile_scale)) - 1) * e)
     if fn.diag is not None:
         buf = (ctypes.c_ulonglong * 4)()
         fn.diag(buf)
@@ -203,7 +174,7 @@ def device_us(fn, ids, e, cap, tile_scale=1) -> tuple[float, bool, float]:
               f"aggregate {buf[1] / tiles / 1e3:.3f} us, look-back "
               f"{buf[2] / tiles / 1e3:.3f} us; stalled rounds (warp 0) "
               f"{buf[3] / tiles:.2f}", flush=True)
-    return start.elapsed_time(end) / 20 * 1e3, same, per
+    return start.elapsed_time(end) / 20 * 1e3, same
 
 
 def main() -> int:
@@ -218,12 +189,11 @@ def main() -> int:
         ids = torch.randint(0, e, (1 << 24,), device="cuda", generator=gen,
                             dtype=torch.int32)
         for name in [*VARIANTS, *reversed(VARIANTS)]:
-            us, same, rounds = device_us(fns[name], ids, e, cap,
-                                         TILE_SCALE.get(name, 1))
+            us, same = device_us(fns[name], ids, e, cap,
+                                 TILE_SCALE.get(name, 1))
             out.setdefault(f"E={e}", {}).setdefault(name, []).append(us)
             print(f"[variants] 2^24 requests, E={e}: {name} {us:.3f} us, "
-                  f"bit-equal to plain: {same}, look-back rounds a (tile, "
-                  f"expert): {rounds:.2f}", flush=True)
+                  f"bit-equal to plain: {same}", flush=True)
     print(json.dumps(out))
     return 0
 

@@ -9,68 +9,70 @@
 // running count in VMEM scratch from one block to the next.  Blocks of a
 // CUDA grid run in no order, so nothing can be carried; the running count
 // becomes a single-pass scan with a decoupled look-back, one launch a pass
-// of up to kChunk = 1024 experts:
+// of up to kChunk = 1024 experts.  Each id is read once and each output
+// written once.
 //
 //   * Ordered tiles without an ordered grid.  Each block takes its tile of
-//     kTile = 4096 requests from a device ticket counter (atomicAdd), not
+//     kTile = 8192 requests from a device ticket counter (atomicAdd), not
 //     from blockIdx: every tile below its own was taken by a block that is
 //     already running, so waiting on those tiles always ends.
-//   * Inside a tile.  Warp w owns 512 consecutive requests as 16 rows of 32
-//     (one request a lane: loads and stores are coalesced), loads its ids
-//     once into registers (int32, or int64 keeping the low 32 bits as
-//     astype(int32) does) and walks the rows in order.  For each row,
-//     __match_any_sync finds the lanes with the same id; a lane's rank
-//     within the row is __popc(peers & lanes below it), and the warp's
-//     running count per expert lives in shared memory (count[w][e]: one
-//     row per warp, so no atomics).  An exclusive scan over the 8 warps,
-//     per expert, gives each warp the count of the tile's earlier warps,
-//     and its total is the tile's aggregate.
+//   * Inside a tile.  Warp w owns 1024 consecutive requests as 32 rows of
+//     32, loaded and stored a row at a time (coalesced); int64 ids keep
+//     their low 32 bits, as astype(int32) does.  With at most 32 experts
+//     in the pass the rows are transposed through shared memory so that
+//     each lane holds 32 consecutive requests, which it counts in order in
+//     its own column of per-lane counters (a request's rank among the
+//     lane's is the column's count before it); one scan per expert across
+//     the lanes (lane e scans row e in registers) gives each lane the
+//     count of the warp's earlier lanes.  With more experts each row's
+//     lanes find their peers with one ballot per key bit (__match_any_sync
+//     was slower) and the warp's running count per expert lives in shared
+//     memory.  A scan over the 8 warps, per expert, gives each warp the
+//     count of the tile's earlier warps, and the total is the tile's
+//     aggregate.
 //   * Publishing and looking back.  The tile publishes its aggregate per
-//     expert into a status word of the workspace (status[e][tile]), then
-//     looks back over the tiles below it until it meets an inclusive prefix
-//     for that expert; a warp takes one expert at a time and reads a
-//     window of kWindow = 32 predecessors' words at once (lane l: tile
-//     - 1 - l), waiting only while a word below the nearest inclusive one
-//     is not yet published.  The tile then publishes its inclusive prefix
-//     and writes pos = earlier tiles' count + earlier warps' count + rank,
-//     and kept = pos < capacity.  Tile 0 publishes its inclusive prefix at
-//     once.  Positions are exact ranks in stream order: deterministic and
-//     equal to the reference bit for bit (an atomicAdd on per-expert
-//     counters would hand out some slot, not the rank).
+//     expert (status[e][tile]) as soon as it has counted, then looks back
+//     over the tiles below it until it meets an inclusive prefix for each
+//     expert: a warp serves m of its experts at once, W = 32 / m lanes
+//     each, and in a round each lane reads one predecessor's word.  The
+//     tile then publishes its inclusive prefix and writes pos = earlier
+//     tiles' count + rank in the tile, and kept = pos < capacity.  Tile 0
+//     publishes its inclusive prefix at once.  Positions are exact ranks in
+//     stream order, deterministic and equal to the reference bit for bit.
 //   * The status word.  64 bits: the count in bits 0-31 (an inclusive
 //     prefix is at most R <= 2^31 - 1), the flag in bit 32 (1: inclusive
 //     prefix, 0: the tile's aggregate alone) and the call's tag in bits
-//     33-63.  It is stored with release and loaded with acquire semantics
-//     (cuda::atomic_ref), so no word tears and no reader mistakes an old
-//     word for a new one: a word counts only when its tag is the call's.
+//     33-63, stored and loaded whole through cuda::atomic_ref, so no word
+//     tears, and a word counts only when its tag is the call's.  The word
+//     carries all a reader needs, so relaxed order suffices; release and
+//     acquire cost 6-13 % (PERF.md).
 //   * Safe to replay from a CUDA graph.  The workspace (allocated zeroed by
 //     the wrapper, one per device and stream) starts with a header of the
 //     ticket counter, a done counter and the epoch; the call's tag is
-//     epoch + 1, read on the device.  The last block to finish resets the
-//     ticket and done counters and advances the epoch, so the host passes
-//     nothing that a replayed launch could find stale.  Tags run from 1 to
-//     kTagLimit = 2^31 - 1 (a zeroed word, tag 0, is never valid); when
-//     the epoch wraps, the last block zeroes every status word, so a word
-//     from 2^31 - 1 calls ago cannot pass for a new one.
+//     epoch + 1, read on the device.  The last block to count itself done
+//     resets the ticket and done counters and advances the epoch, so the
+//     host passes nothing that a replayed launch could find stale.  Tags
+//     run from 1 to kTagLimit = 2^31 - 1 (a zeroed word, tag 0, is never
+//     valid); when the epoch wraps, the last block zeroes every status
+//     word, so a word from 2^31 - 1 calls ago cannot pass for a new one.
 //
 // Edge cases, as the Pallas body (kernel.py:33-50) has them: an id outside
 // [0, E), negative ones included, counts nowhere, gets pos = 0 and is kept
 // iff 0 < capacity; capacity <= 0 keeps nothing; capacity > R keeps all.
 // kept is written as bytes 0 and 1 only (torch.bool).
 //
-// Expert counts: a pass handles up to kChunk experts (8 warps x 1024
-// counters and 1024 bases, 36 KB of shared memory, in the default 48 KB).
-// A larger E runs one launch per chunk of 1024 experts, each counting only
-// the ids of its chunk and writing only their positions (chunk 0 also
-// writes the ids outside [0, E)).  E = 0 (the reference takes it: every id
-// is outside [0, 0)) is one launch with no experts and no look-back.
+// Expert counts: a pass handles up to kChunk experts.  A larger E runs one
+// launch per chunk of 1024 experts, each counting only the ids of its chunk
+// and writing only their positions (chunk 0 also writes the ids outside
+// [0, E)).  E = 0 (the reference takes it: every id is outside [0, 0)) is
+// one launch with no experts and no look-back.
 //
 // What bounds it: bytes.  The function reads 4 bytes and writes 5 a
 // request: at 2^24 requests 151 MB, 45.1 us at 3.35 TB/s; at the bench's
-// 8192 requests 0.022 us, far below a launch.  This design reads the ids
-// once and writes each output once; besides, it moves two status words
-// per tile and expert (256 KB at 2^24 requests and E = 16) and the
-// look-back's reads of them.
+// 8192 requests 0.022 us, far below a launch.  Besides, it moves two status
+// words per tile and expert and the look-back's reads of them.  What the
+// design still loses is latency: a block's load, count, look-back and
+// stores run one after another, 4 blocks an SM (PERF.md).
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -86,9 +88,8 @@ constexpr int kRows = 32;                  // rows of 32 requests per warp
 constexpr int kWarpTile = kRows * 32;      // 1024 requests per warp
 constexpr int kTile = kWarps * kWarpTile;  // 8192 requests per block
 constexpr int kChunk = 1024;               // experts per pass
-constexpr int kMinBlocks = 3;              // blocks an SM: <= 80 registers
-constexpr int kWindow = 32;                // experts a warp looks back for
-constexpr int kSubs = 1;                   // status words a lane loads a round
+constexpr int kMinBlocks = 4;              // blocks an SM: <= 64 registers
+constexpr int kWindow = 32;                // lanes a warp looks back with
 constexpr int kRowPad = 33;                // kSmall: a lane counter row
 
 // The status word (repro_torch.kernels.moe_dispatch.ops pins the same).
@@ -238,20 +239,15 @@ __device__ __forceinline__ void rank_rows(int (&kr)[kRows], int* count,
 }
 
 // The look-back of the warp's experts e = warp + kWarps i, m of them at
-// once (m a power of two, at most 32): the lanes g W .. g W + W - 1 (W =
-// 32 / m) serve expert g, and in each round lane j loads the status words
-// of tiles from - 1 - j - q W for q < subs (subs = min(kSubs, 64 / W)),
-// all at once, so a round reaches up to 64 tiles back.  The sub-windows
-// are then taken in order: one is used when every word below its nearest
-// inclusive prefix carries the call's tag (the prefix is found, the
-// expert is done) or when all its W words do and none is inclusive (the
-// next one lies below); otherwise the expert waits and the next round
-// reloads from there.  A round must reach further back than the tiles
-// that start while one round trip to L2 lasts, or the look-back falls
-// behind the inclusive prefixes being published.  The result, the count
-// of the expert's requests in tiles [0, tile), replaces base[e] (the
-// tile's aggregate, which the segment's first lane adds to publish the
-// tile's inclusive prefix).
+// once (m a power of two, at most 32): lanes g W .. g W + W - 1 (W = 32 /
+// m) serve expert g, lane j reading the status word of tile from - 1 - j.
+// An expert's window is used once every word below its nearest inclusive
+// prefix carries the call's tag (the prefix is found, the expert is done)
+// or once all W words do and none is inclusive (the next window lies
+// below); otherwise the expert waits and the next round reads again.  The
+// result, the count of the expert's requests in tiles [0, tile), replaces
+// base[e] (the tile's aggregate, which the segment's first lane adds to
+// publish the tile's inclusive prefix).
 __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
                                           unsigned tag, int ew, int warp,
                                           int lane, int* base) {
@@ -260,7 +256,6 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
   int log_m = 0;
   while ((1 << log_m) < min(n_mine, kWindow)) ++log_m;
   const int log_w = 5 - log_m, w = 1 << log_w;
-  const int subs = min(kSubs, 64 >> log_w);
   const int g = lane >> log_w, j = lane & (w - 1);
   const unsigned low = w == 32 ? 0xffffffffu : (1u << w) - 1u;
   for (int i0 = 0; i0 < n_mine; i0 += 1 << log_m) {
@@ -270,43 +265,30 @@ __device__ __forceinline__ void look_back(u64* status, int n_tiles, int tile,
     int from = tile;
     unsigned total = 0;
     while (__any_sync(0xffffffffu, !done)) {
-      u64 word[kSubs];
-#pragma unroll
-      for (int q = 0; q < kSubs; ++q) {
-        const int t = from - 1 - j - q * w;
-        // done, or below tile 0: an inclusive prefix of 0
-        word[q] = pack(tag, true, 0);
-        if (!done && q < subs && t >= 0)
-          word[q] = Word(col[t]).load(cuda::memory_order_relaxed);
-      }
-      bool stalled = false;
-#pragma unroll
-      for (int q = 0; q < kSubs; ++q) {
-        if (q >= subs) break;
-        const bool valid = static_cast<unsigned>(word[q] >> kTagShift) == tag;
-        const bool incl = valid && ((word[q] >> kFlagBit) & 1u);
-        const unsigned vs =
-            (__ballot_sync(0xffffffffu, valid) >> (g << log_w)) & low;
-        const unsigned is =
-            (__ballot_sync(0xffffffffu, incl) >> (g << log_w)) & low;
-        // the lanes below the first word not yet published, and the
-        // nearest inclusive prefix among them
-        const unsigned waiting = ~vs & low;
-        const unsigned ready = waiting ? (waiting & (0u - waiting)) - 1u : low;
-        const unsigned stop = is & ready;
-        const int last = stop ? __ffs(stop) - 1 : w - 1;
-        unsigned sum = j <= last ? static_cast<unsigned>(word[q]) : 0u;
-        for (int o = w >> 1; o; o >>= 1)  // the segment's sum
-          sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (!done && !stalled) {
-          if (stop || !waiting) {
-            total += sum;
-            done = stop != 0;
-            from -= w;
-          } else {
-            stalled = true;
-          }
-        }
+      const int t = from - 1 - j;
+      // done, or below tile 0: an inclusive prefix of 0
+      u64 word = pack(tag, true, 0);
+      if (!done && t >= 0)
+        word = Word(col[t]).load(cuda::memory_order_relaxed);
+      const bool valid = static_cast<unsigned>(word >> kTagShift) == tag;
+      const bool incl = valid && ((word >> kFlagBit) & 1u);
+      const unsigned vs =
+          (__ballot_sync(0xffffffffu, valid) >> (g << log_w)) & low;
+      const unsigned is =
+          (__ballot_sync(0xffffffffu, incl) >> (g << log_w)) & low;
+      // the lanes below the first word not yet published, and the nearest
+      // inclusive prefix among them
+      const unsigned waiting = ~vs & low;
+      const unsigned ready = waiting ? (waiting & (0u - waiting)) - 1u : low;
+      const unsigned stop = is & ready;
+      const int last = stop ? __ffs(stop) - 1 : w - 1;
+      unsigned sum = j <= last ? static_cast<unsigned>(word) : 0u;
+      for (int o = w >> 1; o; o >>= 1)    // the segment's sum
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (!done && (stop || !waiting)) {
+        total += sum;
+        done = stop != 0;
+        from -= w;
       }
     }
     if (i0 + g < n_mine && j == 0) {

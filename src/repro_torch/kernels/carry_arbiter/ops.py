@@ -43,8 +43,8 @@ ARBITER = CudaEntry("controllers", "carry_arbiter_launch",
 #: streaming stores from registers, or one TMA bulk store of a block's tile
 #: staged in shared memory
 STORES = {"vector": 0, "bulk": 1}
-#: the design the wrapper launches
-STORE = "vector"
+#: the design the wrapper launches: the faster on the H100 (PERF.md)
+STORE = "bulk"
 #: request dtypes the kernel reads as they are: 4- and 8-byte words
 KERNEL_DTYPES = (torch.int32, torch.int64)
 

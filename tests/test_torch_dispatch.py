@@ -189,6 +189,42 @@ def _packed(tag, inclusive, counts) -> np.ndarray:
     return words.view(np.int64)
 
 
+def _warp_ranks(wk: np.ndarray, ew: int, rows: int):
+    """One warp's requests (keys in stream order; ew: not counted) -> (rank
+    of each among the warp's requests with its key, the warp's count of
+    each key), as the kernel forms them: with at most 32 experts, lane j
+    holds requests rows j .. rows j + rows - 1 (after the transpose) and
+    counts them in its own column, then one scan per expert across the
+    lanes; with more, row k holds requests 32 k .. 32 k + 31, and each
+    request's peers earlier in its row add to the warp's running count."""
+    rank = np.zeros(wk.size, np.int64)
+    if ew == 0:
+        return rank, np.zeros(0, np.int64)
+    if ew <= 32:
+        lanes = wk.reshape(32, rows)                 # lane j, request k
+        col = np.zeros((ew + 1, 32), np.int64)       # + a row for ew
+        at = np.arange(32)
+        own = np.zeros((32, rows), np.int64)
+        for k in range(rows):
+            own[:, k] = col[lanes[:, k], at]
+            col[lanes[:, k], at] += 1
+        col = col[:ew]
+        before = np.cumsum(col, 1) - col             # earlier lanes
+        counted = lanes < ew
+        rank = np.where(counted, before[np.minimum(lanes, ew - 1),
+                                        at[:, None]] + own, 0).reshape(-1)
+        return rank, col.sum(1)
+    running = np.zeros(ew + 1, np.int64)
+    earlier = np.tril(np.ones((32, 32), bool), -1)
+    grid = wk.reshape(rows, 32)                      # row k, lane j
+    for k in range(rows):
+        row = grid[k]
+        peers = ((row[:, None] == row[None, :]) & earlier).sum(1)
+        rank[32 * k:32 * k + 32] = running[row] + peers
+        np.add.at(running, row, 1)
+    return np.where(wk < ew, rank, 0), running[:ew]
+
+
 def _dispatch_block(ids32, r, n_experts, capacity, e_lo, ew, n_tiles, ws,
                     pos, kept, warps, rows):
     """One block of the kernel, as a generator: each ``yield`` is a point
@@ -200,74 +236,81 @@ def _dispatch_block(ids32, r, n_experts, capacity, e_lo, ew, n_tiles, ws,
     head[0] += 1
     tag = int(head[2]) + 1
     yield
-    warp_tile = rows * 32
-    lo = tile * warps * warp_tile
-    seg = np.full(warps * warp_tile, -1, np.int64)
-    part = ids32[lo:lo + warps * warp_tile]
-    seg[:len(part)] = part
-    slot = np.where((seg >= e_lo) & (seg < e_lo + ew), seg - e_lo, -1)
-    # rank_rows: row by row within each warp; a lane's rank is the warp's
-    # running count of its expert plus its earlier peers in the row
-    rank = np.zeros_like(seg)
-    count = np.zeros((warps, max(ew, 1)), np.int64)
-    earlier = np.tril(np.ones((32, 32), bool), -1)
+    size = warps * rows * 32
+    lo = tile * size
+    idx = lo + np.arange(size)
+    ids = np.full(size, e_lo + ew, np.int64)
+    ids[idx < r] = ids32[lo:lo + size]
+    key = np.where((ids >= e_lo) & (ids < e_lo + ew), ids - e_lo, ew)
+    writes = (key < ew) | ((e_lo == 0) & (idx < r) &
+                           ((ids < 0) | (ids >= n_experts)))
+    rank = np.zeros(size, np.int64)
+    count = np.zeros((warps, ew), np.int64)
     for w in range(warps):
-        for k in range(rows):
-            at = w * warp_tile + k * 32
-            row = slot[at:at + 32]
-            peers = (row[:, None] == row[None, :]) & earlier
-            ok = row >= 0
-            rank[at:at + 32][ok] = (count[w, row[ok]] + peers.sum(1)[ok])
-            np.add.at(count[w], row[ok], 1)
-    count = count[:, :ew]
-    agg = count.sum(0)
+        part = slice(w * rows * 32, (w + 1) * rows * 32)
+        rank[part], count[w] = _warp_ranks(key[part], ew, rows)
     warp_base = np.cumsum(count, 0) - count          # earlier warps
+    agg = count.sum(0)
     cols = np.arange(ew) * n_tiles
     status[cols + tile] = _packed(tag, tile == 0, agg)
     yield
     base = np.zeros(ew, np.int64)
     if tile > 0:
-        lanes = np.arange(32)
-        frm = np.full(ew, tile)                      # each expert's window
-        total = np.zeros(ew, np.int64)
-        left = np.arange(ew)
-        while left.size:
-            t = frm[left, None] - 1 - lanes          # lane l: tile from-1-l
-            words = status[cols[left, None] + np.maximum(t, 0)].view(
-                np.uint64)
-            valid = (words >> np.uint64(ops.TAG_SHIFT)) == tag
-            incl = valid & ((words >> np.uint64(ops.FLAG_BIT)) & 1 == 1)
-            cnt = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
-            below = t < 0                            # below tile 0: incl 0
-            valid, incl = valid | below, incl | below
-            cnt[below] = 0
-            # lanes below the first unpublished word, and the nearest
-            # inclusive prefix among them
-            ready = np.cumprod(valid, 1).astype(bool)
-            stop = incl & ready
-            hit = stop.any(1)
-            k = np.argmax(stop, 1)
-            before = total[left] + np.where(lanes <= k[:, None], cnt,
-                                            0).sum(1)
-            done = left[hit]
-            status[cols[done] + tile] = _packed(tag, True,
-                                                before[hit] + agg[done])
-            base[done] = before[hit]
-            move = ~hit & valid.all(1)
-            frm[left[move]] -= 32
-            total[left[move]] += cnt[move].sum(1)
-            left = left[~hit]
-            if left.size:
+        # warp w looks back for its experts e = w + warps i, m at a time
+        # (m a power of two, at most 32), W = 32 / m lanes each
+        batches = []
+        for w in range(min(warps, ew)):
+            mine = np.arange(w, ew, warps)
+            m = 1
+            while m < min(mine.size, 32):
+                m *= 2
+            batches.append([mine[i:i + m] for i in range(0, mine.size, m)]
+                           + [32 // m])
+        state = {w: [b[0], np.full(b[0].size, tile), np.zeros(b[0].size,
+                                                             np.int64)]
+                 for w, b in enumerate(batches)}
+        while state:
+            for w in list(state):
+                left, frm, total = state[w]
+                width = batches[w][-1]
+                lanes = np.arange(width)
+                t = frm[:, None] - 1 - lanes             # lane j: from-1-j
+                words = status[cols[left, None] + np.maximum(t, 0)].view(
+                    np.uint64)
+                valid = (words >> np.uint64(ops.TAG_SHIFT)) == tag
+                incl = valid & ((words >> np.uint64(ops.FLAG_BIT)) & 1 == 1)
+                cnt = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                below = t < 0                            # below tile 0
+                valid, incl = valid | below, incl | below
+                cnt[below] = 0
+                # lanes below the first unpublished word, and the nearest
+                # inclusive prefix among them
+                ready = np.cumprod(valid, 1).astype(bool)
+                stop = incl & ready
+                hit = stop.any(1)
+                k = np.argmax(stop, 1)
+                got = total + np.where(lanes <= k[:, None], cnt, 0).sum(1)
+                done = left[hit]
+                status[cols[done] + tile] = _packed(tag, True,
+                                                    got[hit] + agg[done])
+                base[done] = got[hit]
+                move = ~hit & valid.all(1)
+                total = np.where(move, total + cnt.sum(1), total)
+                frm = np.where(move, frm - width, frm)
+                keep = ~hit
+                left, frm, total = left[keep], frm[keep], total[keep]
+                if left.size:
+                    state[w] = [left, frm, total]
+                elif len(batches[w]) > 2:                # the next batch
+                    batches[w] = batches[w][1:]
+                    nxt = batches[w][0]
+                    state[w] = [nxt, np.full(nxt.size, tile),
+                                np.zeros(nxt.size, np.int64)]
+                else:
+                    del state[w]
+            if state:
                 yield
-    j = np.arange(min(len(seg), r - lo))
-    w, sl, idv = j // warp_tile, slot[j], seg[j]
-    mine = sl >= 0
-    p = base[sl[mine]] + warp_base[w[mine], sl[mine]] + rank[j[mine]]
-    pos[lo + j[mine]], kept[lo + j[mine]] = p, p < capacity
-    if e_lo == 0:
-        out = ~mine & ((idv < 0) | (idv >= n_experts))
-        pos[lo + j[out]], kept[lo + j[out]] = 0, 0 < capacity
-    yield
+    # done after the look-back: the last block readies the workspace
     done = int(head[1])
     head[1] += 1
     if done == n_tiles - 1:
@@ -277,9 +320,16 @@ def _dispatch_block(ids32, r, n_experts, capacity, e_lo, ew, n_tiles, ws,
             nxt = 0
             status[:] = 0
         head[2] = nxt
+    yield
+    w = np.arange(size) // (rows * 32)
+    k = np.minimum(key, max(ew - 1, 0))
+    p = np.where(key < ew, base[k] + warp_base[w, k] + rank, 0) if ew else \
+        np.zeros(size, np.int64)
+    out = idx[writes]
+    pos[out], kept[out] = p[writes], p[writes] < capacity
 
 
-def _emulate_dispatch(ids, n_experts, capacity, ws, rng, warps=8, rows=16,
+def _emulate_dispatch(ids, n_experts, capacity, ws, rng, warps=8, rows=32,
                       resident=None):
     """The kernel's passes over ``ids`` on workspace ``ws`` (int64, shared
     across calls), blocks interleaved at random -> (pos int32, kept
@@ -334,9 +384,9 @@ _EMULATED["int64_beyond_int32"] = (
     np.random.default_rng(12).integers(-3, 19, 2048)
     + np.random.default_rng(13).integers(-4, 5, 2048) * 2 ** 32, 16, 30)
 
-# (warps, rows of 32 a warp): the kernel's own tile of 4096 requests, and
-# tiles of 64 so that the sweep spans up to 32 tiles and two windows
-_GEOMETRIES = {"tile4096": (8, 16), "tile64": (2, 1)}
+# (warps, rows of 32 a warp): the kernel's own tile of 8192 requests, and
+# tiles of 64 so that the sweep spans up to 32 tiles and several windows
+_GEOMETRIES = {"tile8192": (8, 32), "tile64": (2, 1)}
 
 
 @pytest.mark.parametrize("geometry", list(_GEOMETRIES))
@@ -373,7 +423,8 @@ def test_emulated_calls_share_one_workspace_and_replay():
              (rng.integers(0, 4, 512), 4, 100),
              (rng.integers(-1, 2, 100), 0, 1)]
     calls.append(calls[0])                         # the replay
-    ws = np.zeros(ops.workspace_words(2048 * 64, 3000), np.int64)
+    # tiles of 64 requests: 32 tiles of 2048 requests, 1024 experts a pass
+    ws = np.zeros(ops.HEADER_WORDS + 32 * 1024, np.int64)
     epoch = 0
     for ids, e, cap in calls:
         for resident in (1, 3, 8):
@@ -441,11 +492,12 @@ def test_status_word_and_workspace_are_pinned():
         ops.pack_status(12345, True, c) for c in (0, 4096, 2 ** 31 - 1)]
     # a zeroed word is tag 0: never valid
     assert ops.unpack_status(0)[0] == 0
-    assert ops.workspace_words(2 ** 24, 16) == 2 + 4096 * 16
-    assert ops.workspace_words(2 ** 24, 128) == 2 + 4096 * 128
-    assert ops.workspace_words(8192, 3000) == 2 + 2 * 1024
+    assert ops.workspace_words(2 ** 24, 16) == 2 + 2048 * 16
+    assert ops.workspace_words(2 ** 24, 128) == 2 + 2048 * 128
+    assert ops.workspace_words(8192, 3000) == 2 + 1 * 1024
+    assert ops.workspace_words(16384, 3000) == 2 + 2 * 1024
     assert ops.workspace_words(100, 0) == 2
-    assert ops.workspace_words(4097, 1) == 2 + 2
+    assert ops.workspace_words(8193, 1) == 2 + 2
 
 
 # -------------------------------------------------- traces and pricing --
