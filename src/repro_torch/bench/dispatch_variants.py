@@ -39,9 +39,10 @@ TIMINGS = [
      "  unsigned long long t;\n"
      "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
      "  return t;\n}\nnamespace {\n"),
-    ("            stalled = true;\n",
-     "            stalled = true;\n"
-     "            if (threadIdx.x == 0) atomicAdd(&g_diag[3], 1ull);\n"),
+    ("      if (!done && (stop || !waiting)) {\n",
+     "      if (threadIdx.x == 0 && !done && !(stop || !waiting))\n"
+     "        atomicAdd(&g_diag[3], 1ull);\n"
+     "      if (!done && (stop || !waiting)) {\n"),
     ("  if (threadIdx.x == 0) {\n    s_tile =",
      f"  const long long t_start = {TIMER};\n"
      "  if (threadIdx.x == 0) {\n    s_tile ="),
