@@ -1189,19 +1189,34 @@ def _held(name, entry, what, kern, plain, err) -> None:
                              f"{e}, launches {ran}")
 
 
-def _cuda_kernel_names(fn) -> list[str]:
-    """The CUDA kernels one call of ``fn`` runs (torch.profiler, after a
-    warm-up call): the wrapper's own and any conversion torch launches."""
+def _profiled_kernels(fn, tries: int = 3) -> list:
+    """The CUDA kernels (profiler events, in start order) that ``fn`` runs,
+    by torch.profiler after a warm-up call: the session brackets ``fn``
+    between two ``fill_`` marker kernels and keeps what lies between.  A
+    short session now and then records no CUDA event at all; one that
+    lacks its markers is taken again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mark.fill_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            mark.fill_(2)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        # the two markers are the first and the last kernel
+        if len(kernels) >= 2 and kernels[0].name == kernels[-1].name:
+            return kernels[1:-1]
+    raise AssertionError(f"torch.profiler recorded no marker kernels in "
+                         f"{tries} sessions")
 
 
 def phase_controllers() -> dict:
@@ -1274,7 +1289,8 @@ def phase_controllers() -> dict:
     kernels_per_call = {}
     for dtype in (torch.int64, torch.int32):
         reqs = cuda(rng.integers(-2 ** 40, 2 ** 40, (1024, 16))).to(dtype)
-        names = _cuda_kernel_names(lambda: carry_arbiter(reqs))
+        names = [e.name for e in _profiled_kernels(
+            lambda: carry_arbiter(reqs))]
         kernels_per_call[str(dtype)] = names
         log(f"[controllers] carry_arbiter on {dtype} words: CUDA kernels "
             f"of one call (torch.profiler): {names}")
@@ -1570,7 +1586,6 @@ def phase_dispatch_times() -> dict:
     a CUDA graph, the device time of its one launch (torch.profiler) and
     the byte bound (4 bytes read, 4 + 1 written a request)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.bench.kernel_bench import bound_ms, timed
     from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
@@ -1589,17 +1604,15 @@ def phase_dispatch_times() -> dict:
                   moe_dispatch_plain(experts, e, cap), None,
                   bound_ms(r * (4 + 4 + 1)), graph_iters=20, iters=50)
         # the device time of the one launch, and nothing else on the card
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        launches = [ev for ev in prof.key_averages()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                    and ev.count]
-        t["launch_device_ms"] = {ev.key: ev.self_device_time_total /
-                                 ev.count / 1e3 for ev in launches}
-        t["launch_counts"] = {ev.key: ev.count for ev in launches}
+        launches = _profiled_kernels(lambda call=call: [call()
+                                                         for _ in range(5)])
+        durations = {}
+        for ev in launches:
+            durations.setdefault(ev.name, []).append(
+                ev.time_range.elapsed_us() / 1e3)
+        t["launch_counts"] = {k: len(v) for k, v in durations.items()}
+        t["launch_device_ms"] = {k: sum(v) / len(v)
+                                 for k, v in durations.items()}
         out[f"{r}x{e}"] = t
         us = {k: v * 1e3 for k, v in t.items()
               if k.endswith("ms") and isinstance(v, float)}

@@ -114,7 +114,7 @@ __device__ __forceinline__ u64 pack(unsigned tag, bool inclusive,
          (static_cast<u64>(inclusive) << kFlagBit) | count;
 }
 
-// The warp's 512 requests as 16 rows of 32, request k of a lane at start +
+// The warp's 1024 requests as 32 rows of 32, request k of a lane at start +
 // 32 k + lane (coalesced loads and stores), as keys: an id's counter in the
 // chunk [e_lo, e_lo + ew), or ew for an id the chunk does not count (and
 // for requests beyond the stream).  int64 ids keep their low 32 bits.  Bit
@@ -145,16 +145,17 @@ __device__ __forceinline__ void load_keys(const Id* __restrict__ ids,
   }
 }
 
-// kSmall: the warp's 16 x 32 words pass between rows (request 32 k + j in
-// lane j) and lanes (request 16 j + k in lane j) through a shared buffer
+// kSmall: the warp's 32 x 32 words pass between rows (request 32 k + j in
+// lane j) and lanes (request 32 j + k in lane j) through a shared buffer
 // padded by a word every 32, so both sides hit 32 distinct banks.
 __host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
 
-// kSmall: each lane counts its 16 consecutive requests (lane j: requests
-// 16 j + k of the warp's 512), in order, in its own column of
-// the warp's counters h[e][lane] (rows padded to kRowPad = 33 words, so a
-// lane's column and a row read across lanes both fall in distinct banks),
-// so a request's rank among the lane's is the column's count before it.
+// kSmall: each lane counts its 32 consecutive requests (lane j: requests
+// 32 j + k of the warp's 1024), in order, in its own column of
+// the warp's counters h[e][lane] (rows padded to kRowPad = 33 words, so
+// the lanes' accesses to one row, and lane e's reads of row e at one
+// column, fall in distinct banks), so a request's rank among the lane's
+// is the column's count before it.
 // Then lane e scans row e (expert e's count in each lane) in registers,
 // leaving in h[e][lane] the count of the warp's earlier lanes, and puts the
 // warp's count of expert e into count (the warp's row of the shared
@@ -206,7 +207,7 @@ __device__ __forceinline__ unsigned match_key(int key, int nbits) {
   return peers;
 }
 
-// More than 32 experts: the warp's count of each counted key over its 512
+// More than 32 experts: the warp's count of each counted key over its 1024
 // requests, by shared-memory atomics into count (its zeroed row).
 __device__ __forceinline__ void count_keys(const int (&key)[kRows],
                                            int* count, int ew) {

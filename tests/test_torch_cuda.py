@@ -455,18 +455,33 @@ def test_arbiter_kernel_drains_and_takes_int32_words(cuda):
                                                       for c in range(16)]
 
 
-def _cuda_kernels(fn) -> list[str]:
+def _cuda_kernels(fn, tries: int = 3) -> list[str]:
     """The names of the CUDA kernels one call of ``fn`` runs, by
-    torch.profiler (it sees torch's own conversion kernels too)."""
+    torch.profiler (it sees torch's own conversion kernels too), after a
+    warm-up call: the session brackets the call between two ``fill_``
+    marker kernels and keeps what lies between.  A short session now and
+    then records no CUDA event at all; one that lacks its markers is
+    taken again."""
     from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros(1, device="cuda")
     fn()                                         # warm: workspaces, builds
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mark.fill_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            mark.fill_(2)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        # the two markers are the first and the last kernel
+        if len(kernels) >= 2 and kernels[0].name == kernels[-1].name:
+            return [e.name for e in kernels[1:-1]]
+    raise AssertionError("torch.profiler recorded no marker kernels")
 
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
