@@ -1557,6 +1557,9 @@ def phase_dispatch() -> dict:
         ("E=0: every id out of range", ids(-2, 3, 100), 0, 1),
         ("E=3000: three passes of experts, ids in [-3, 3003)",
          ids(-3, 3003, 8192), 3000, 3),
+        ("E=32 (lane columns), three tiles", ids(0, 32, 3 * 8192), 32, 500),
+        ("E=33 (ballot rows), ids in [-2, 36)", ids(-2, 36, 33 * 512), 33,
+         100),
         ("int64 ids beyond int32 (low 32 bits count)",
          ids(-3, 19, 8192).long() + torch.as_tensor(
              rng.integers(-4, 5, 8192) * 2 ** 32, device="cuda"), 16, 300),

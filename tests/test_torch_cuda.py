@@ -534,6 +534,10 @@ DISPATCH_CASES = {
     # three passes of up to 1024 experts, the last one ragged
     "e3000": (8192, -3, 3003, 3000, 3),
     "r2_20_e128": (1 << 20, 0, 128, 128, 1 << 13),
+    # the two ranking paths' boundary: 32 experts in lane columns (more
+    # than 48 KB of shared memory), 33 by ballots along rows
+    "e32": (3 * 8192, 0, 32, 32, 500),
+    "e33_ids_outside": (33 * 512, -2, 36, 33, 100),
 }
 
 

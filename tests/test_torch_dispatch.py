@@ -379,6 +379,10 @@ _EMULATED = {f"sweep_{r}_{e}_{c}": (np.random.default_rng(r).integers(
     0, e, r), e, c) for r, e, c in ((512, 16, 40), (1024, 8, 100),
                                      (2048, 16, 16))}
 _EMULATED.update(MOE_EDGES)
+# the two ranking paths' boundary: 32 experts in lane columns, 33 by
+# ballots along rows
+_EMULATED["e32"] = (np.random.default_rng(14).integers(0, 32, 2048), 32, 40)
+_EMULATED["e33"] = (np.random.default_rng(15).integers(-2, 36, 2048), 33, 40)
 # int64 ids beyond int32: the kernel keeps their low 32 bits
 _EMULATED["int64_beyond_int32"] = (
     np.random.default_rng(12).integers(-3, 19, 2048)
