@@ -66,10 +66,11 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                ones too), B = 32, 12 and 6, (8, 12) and (8, 40) lane
                counts and rows off 16-byte alignment; the arbiter at (8, 16),
                (128, 16), (256, 8) and (384, 6), the bank-0 drain, 32-bit
-               words that do not drain, int32 words, and int64 words with
-               high bits set and negative words, in both store designs; an
-               arbiter call on int64 and on int32 words runs one CUDA kernel
-               in all (torch.profiler);
+               words that do not drain, int32 words, int64 words with
+               high bits set and negative words, and rows of more than
+               32 KB of grants (B = 300 and 4100, written in 32 KB chunks);
+               an arbiter call on int64 and on int32 words runs one CUDA
+               kernel in all (torch.profiler);
   8. dispatch — ``moe_dispatch_positions`` against its plain version,
                bit-equal, with each call's launches counted (one a pass of
                up to 1024 experts): the CPU tests' cases (the reference
@@ -77,7 +78,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                and 0, ids outside [0, E), capacity 0 and above R), 2^24
                requests at E = 16 and E = 128 (int32 and int64 ids), and a
                call captured in a CUDA graph, replayed 5 times with other
-               calls in between;
+               calls in between, and two graphs on one stream's workspace
+               replayed second first;
   9. bench   — the kernel micro-bench through its CLI entry point
                (``repro_torch.bench.kernel_bench.main``) on the card: the
                six rows in the reference's order, each with err 0, each
@@ -101,9 +103,9 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      controller_times — the popcount at 4096 and 2^20 ops and the arbiter
                at 1024 and 2^18 ops (B = 16) beside their bounds and plain
                versions (no library call computes either); the arbiter's
-               wrapper on int64 words against its contract bound (8 bytes
-               in, 128 out a word) and the kernel alone on 32-bit words
-               against its own, each in both store designs;
+               wrapper on int64 words against the function's bound (4
+               bytes in, 64 out a word) and its int64 contract's (8 in,
+               128 out), and the kernel alone on 32-bit words;
  11. dispatch_times — the dispatch kernel at the bench's shape (8192
                requests, E = 16) and at 2^24 requests (E = 16 and 128)
                beside its byte bound and plain version (no library call
@@ -1228,11 +1230,9 @@ def phase_controllers() -> dict:
 
     from repro_torch.core.arbiter import pack_requests
     from repro_torch.core.conflicts import bank_onehot
-    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, STORES,
-                                                       arbiter_launch,
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER,
                                                        carry_arbiter,
-                                                       carry_arbiter_plain,
-                                                       kernel_words)
+                                                       carry_arbiter_plain)
     from repro_torch.kernels.conflict_popcount.ops import (
         POPCOUNT, conflict_popcount, conflict_popcount_plain)
     rng = np.random.default_rng(5)
@@ -1278,14 +1278,14 @@ def phase_controllers() -> dict:
                              -2 ** 63, 2 ** 40 - 3, -(2 ** 33) + 0xF0F0,
                              0x1_0000_FFFF] * 2] * 128, np.int64))),
             ("int64 words in [-2^40, 2^40), (256, 12)",
-             cuda(rng.integers(-2 ** 40, 2 ** 40, (256, 12))))]
+             cuda(rng.integers(-2 ** 40, 2 ** 40, (256, 12)))),
+            ("(128, 300): rows of 38,400 bytes in two 32 KB chunks",
+             cuda(rng.integers(-2 ** 40, 2 ** 40, (128, 300)))),
+            ("(2, 4100): chunks ending inside a cycle's banks",
+             cuda(rng.integers(-2 ** 40, 2 ** 40, (2, 4100))))]
     for what, reqs in arb:
         _held("carry_arbiter", ARBITER, what, lambda: carry_arbiter(reqs),
               lambda: carry_arbiter_plain(reqs), err)
-        for store in STORES:
-            _held("carry_arbiter", ARBITER, f"{what}, {store} stores",
-                  lambda: arbiter_launch(kernel_words(reqs), store=store),
-                  lambda: carry_arbiter_plain(reqs), err)
     kernels_per_call = {}
     for dtype in (torch.int64, torch.int32):
         reqs = cuda(rng.integers(-2 ** 40, 2 ** 40, (1024, 16))).to(dtype)
@@ -1386,8 +1386,7 @@ def phase_controller_times() -> dict:
     import torch
 
     from repro_torch.bench.kernel_bench import bound_ms, graph_ms, timed
-    from repro_torch.kernels.carry_arbiter.ops import (ARBITER, STORES,
-                                                       arbiter_launch,
+    from repro_torch.kernels.carry_arbiter.ops import (ARBITER,
                                                        arbiter_words,
                                                        carry_arbiter,
                                                        carry_arbiter_plain)
@@ -1416,27 +1415,15 @@ def phase_controller_times() -> dict:
         _held("carry_arbiter", ARBITER, f"({n}, {b})",
               lambda: carry_arbiter(reqs),
               lambda: carry_arbiter_plain(reqs), err)
-        # the wrapper's contract on the port's int64 words: (n, b) in,
-        # (n, 16, b) out, 8 bytes a word
+        # the function's bytes: (n, b) 32-bit words in, (n, 16, b) out
         r = timed(lambda: carry_arbiter(reqs),
                   lambda: carry_arbiter_plain(reqs), None,
-                  bound_ms(n * b * 8 + n * 16 * b * 8), graph_iters=20,
+                  bound_ms(n * b * 4 + n * 16 * b * 4), graph_iters=20,
                   iters=50)
-        # the kernel alone on 32-bit words (4 bytes in, 64 out a word)
+        # the wrapper's contract on the port's int64 words (8 bytes in and
+        # 16 x 8 out a word), and the kernel alone on 32-bit words
+        r["contract_bound_ms"] = bound_ms(n * b * 8 + n * 16 * b * 8)[0]
         r["kernel_device_ms"] = graph_ms(lambda: arbiter_words(words), 20)
-        r["kernel_bound_ms"] = bound_ms(n * b * 4 + n * 16 * b * 4)[0]
-        # the two store designs in turns (a, b, b, a), on int64 words and
-        # on 32-bit words alone
-        order = [*STORES, *reversed(STORES)]
-        for key, w, dt in (("store_device_ms", reqs, torch.int64),
-                           ("kernel_store_device_ms", words, torch.int32)):
-            runs = {s: [] for s in STORES}
-            for store in order:
-                runs[store].append(graph_ms(
-                    lambda store=store, w=w, dt=dt: arbiter_launch(
-                        w, dt, store), 20))
-            r[key] = {s: min(v) for s, v in runs.items()}
-            r[key + "_runs"] = runs
         out["carry_arbiter"][n] = r
     for name, shapes in out.items():
         for n, r in shapes.items():
@@ -1444,13 +1431,10 @@ def phase_controller_times() -> dict:
                   for k, v in r.items() if k.endswith("ms")}
             alone = ""
             if "kernel_device_ms" in us:
-                alone = (f", the kernel alone on 32-bit words "
-                         f"{us['kernel_device_ms']:.3f} us (bound "
-                         f"{us['kernel_bound_ms']:.3f} us); store designs "
-                         f"(device us, int64 / 32-bit words): " + ", ".join(
-                             f"{s} {r['store_device_ms'][s] * 1e3:.3f} / "
-                             f"{r['kernel_store_device_ms'][s] * 1e3:.3f}"
-                             for s in r["store_device_ms"]))
+                alone = (f"; {100 * r['contract_bound_ms'] / r['device_ms']:.1f}"
+                         f" % of the int64 contract's bound "
+                         f"{us['contract_bound_ms']:.3f} us; the kernel alone "
+                         f"on 32-bit words {us['kernel_device_ms']:.3f} us")
             log(f"[times] {name} at {n} ops: per call from Python: kernel "
                 f"{us['ms']:.2f} us, plain {us['plain_ms']:.2f} us; device "
                 f"time in a CUDA graph: kernel {us['device_ms']:.3f} us, "
@@ -1491,19 +1475,26 @@ def _held_dispatch(what, experts, n_experts, capacity, err, tag) -> None:
 
 
 def _dispatch_replays(err) -> int:
-    """A dispatch captured in a CUDA graph (2^20 requests, E = 128) and
-    replayed 5 times, new ids copied in before each replay and an eager
-    call of another shape after it: each replay and each eager call
-    bit-equal to the plain version."""
+    """A dispatch captured in a CUDA graph (2^20 requests, E = 128) on a
+    side stream, after an eager call there (which makes that stream's
+    workspace), and replayed 5 times, new ids copied in before each replay
+    and an eager call of another shape after it: each replay and each
+    eager call bit-equal to the plain version.  Then two more graphs on
+    that stream's workspace, the second replayed before the first has
+    ever run, then the first, then the second: each bit-equal."""
     import torch
 
     from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
                                                       moe_dispatch_positions)
     gen = torch.Generator(device="cuda").manual_seed(9)
     ids = torch.randint(0, 128, (1 << 20,), device="cuda", generator=gen)
-    moe_dispatch_positions(ids, 128, 5000)                 # warm-up, eager
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_dispatch_positions(ids, 128, 5000)             # warm-up, eager
+    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         pos, kept = moe_dispatch_positions(ids, 128, 5000)
     for step in range(5):
         ids.copy_(torch.randint(0, 128, ids.shape, device="cuda",
@@ -1524,7 +1515,25 @@ def _dispatch_replays(err) -> int:
             f"to plain: {same}")
         if not same:
             raise AssertionError(f"replay {step + 1}: max |diff| {e}")
-    return 5
+    a = torch.randint(0, 16, (1 << 18,), device="cuda", generator=gen)
+    b = torch.randint(-2, 40, (3 * 8192,), device="cuda", generator=gen)
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0], stream=side):
+        outs = [moe_dispatch_positions(a, 16, 9000)]
+    with torch.cuda.graph(graphs[1], stream=side):
+        outs.append(moe_dispatch_positions(b, 37, 300))
+    wants = [moe_dispatch_plain(a, 16, 9000), moe_dispatch_plain(b, 37, 300)]
+    for g in (1, 0, 1):
+        graphs[g].replay()
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, w) for o, w in zip(outs[g], wants[g]))
+        e = (outs[g][0].long() - wants[g][0].long()).abs().max().item()
+        err["moe_dispatch"] = max(err["moe_dispatch"], float(e))
+        log(f"[dispatch] moe_dispatch, graph {g + 1} of two on one "
+            f"workspace replayed (order 2, 1, 2): bit-equal to plain: {same}")
+        if not same:
+            raise AssertionError(f"graph {g + 1}: max |diff| {e}")
+    return 5 + 3
 
 
 def phase_dispatch() -> dict:
@@ -1785,9 +1794,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-            **({"kernel_alone_device_ms": t["kernel_device_ms"],
-                "kernel_alone_bound_ms": t["kernel_bound_ms"],
-                "store_device_ms": t["store_device_ms"]}
+            **({"contract_bound_ms": t["contract_bound_ms"],
+                "kernel_alone_device_ms": t["kernel_device_ms"]}
                if name == "carry_arbiter" else {})})
     # the dispatch: launches of the bench path, times at 2^24 requests
     t = record["dispatch_times"]["shapes"][f"{DISPATCH_BIG}x16"]

@@ -51,14 +51,17 @@ def time_ms(fn, iters: int = 200) -> float:
 
 def graph_ms(fn, iters: int = 100) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
-    replayed, so no host dispatch sits between the launches."""
+    replayed, so no host dispatch sits between the launches.  The warm-up
+    call runs eagerly on the stream the graph is captured on, so state a
+    kernel keeps per stream (the dispatch's workspace) exists before the
+    capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()

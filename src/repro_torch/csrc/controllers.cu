@@ -44,22 +44,19 @@
 // widens).  A wrapper call on int32 or int64 words is one launch, with no
 // conversion in front of or behind it.
 //
-// What bounds it: bytes, and nearly all of them are stores.  The wrapper's
-// contract reads 8 bytes and writes 16 x 8 a request word: at 2^18 ops x 16
-// banks 570 MB, 170.3 us at 3.35 TB/s (the output is ten times the L2); at
-// the bench's 1024 ops 0.67 us, a launch.  On 32-bit words alone (4 in, 64
-// out) 285 MB, 85.1 us.  Two store designs, chosen by the entry's `store`
-// argument:
-//   * kStoreVector: a thread owns V = 16 / sizeof(grant) words of one op
-//     row (2 int64 or 4 32-bit words; V = 1 when the bank count is not a
-//     multiple of V) and writes each cycle's V grants as one 16-byte store
-//     with the streaming hint (st.global.cs: the grants are not read
-//     again here); the threads of a warp cover whole 128-byte lines.
-//   * kStoreBulk: a block computes the grant tile of up to 32 KB (whole
-//     ops, contiguous in device memory) into shared memory and one thread
-//     writes it with one TMA bulk store (cp.async.bulk), so no thread
-//     spends instructions or registers on the stores.  A row of more than
-//     32 KB (B > 256 int64 banks) takes kStoreVector.
+// What bounds it: bytes, and nearly all of them are stores.  The function
+// reads 4 bytes and writes 16 x 4 a request word: at 2^18 ops x 16 banks
+// 285 MB, 85.1 us at 3.35 TB/s (the output is five times the L2).  The
+// wrapper's contract on the port's int64 words moves twice that (8 in,
+// 16 x 8 out), 570 MB, 170.3 us: the int64 grant words double the stores.
+// The stores: a block computes a grant tile of up to kBulkBytes = 32 KB into
+// shared memory, laid out as the grants are in device memory, and one
+// thread writes it with one TMA bulk store (cp.async.bulk), so no thread
+// spends instructions or registers on the stores.  A tile holds whole ops
+// (each op's 16 x B grants are contiguous) when an op's row fits in 32 KB;
+// a longer row (B > 256 int64 banks) is written in 32 KB chunks, one block
+// and one bulk store a chunk.  16-byte streaming stores from registers
+// (st.global.cs) were tried too and were slower (PERF.md).
 
 // Both C entries launch on the caller's stream, allocate nothing and return
 // cudaGetLastError(); the Python wrappers check shapes and types first.
@@ -144,7 +141,6 @@ __global__ void popcount_any(const int* __restrict__ banks,
   cycles[op] = most;
 }
 
-enum StoreKind { kStoreVector = 0, kStoreBulk = 1 };
 constexpr int kBulkBytes = 32 * 1024;  // a block's grant tile, at most
 
 // One request word as its 32-bit pattern (an int64 keeps its low 32 bits).
@@ -162,79 +158,59 @@ __device__ __forceinline__ uint32_t grant_step(uint32_t& v) {
   return g;
 }
 
-// V grants of one cycle to 16-byte-aligned out[0 .. V), streaming.
-template <typename Out, int V>
-__device__ __forceinline__ void store_grants(Out* out, const uint32_t* g) {
-  if constexpr (V == 1) {
-    __stcs(out, static_cast<Out>(g[0]));
-  } else if constexpr (sizeof(Out) == 8) {
-    static_assert(V == 2, "two int64 grants a 16-byte store");
-    __stcs(reinterpret_cast<longlong2*>(out),
-           make_longlong2(static_cast<long long>(g[0]),
-                          static_cast<long long>(g[1])));
-  } else {
-    static_assert(V == 4, "four 32-bit grants a 16-byte store");
-    __stcs(reinterpret_cast<int4*>(out),
-           make_int4(static_cast<int>(g[0]), static_cast<int>(g[1]),
-                     static_cast<int>(g[2]), static_cast<int>(g[3])));
-  }
-}
-
-// kStoreVector: thread t owns words [t V, t V + V) of the (ops, B) matrix,
-// all in one op row since V divides B.
-template <typename In, typename Out, int V>
-__global__ void __launch_bounds__(kThreads)
-arbiter_vector(const In* __restrict__ req, Out* __restrict__ grants,
-               long long n_words, int n_banks) {
-  const long long w0 =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * V;
-  if (w0 >= n_words) return;
-  const long long op = w0 / n_banks;
-  const int bank = static_cast<int>(w0 - op * n_banks);
-  uint32_t v[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) v[j] = word_of(req[w0 + j]);
-  Out* out = grants + op * kMaxCycles * n_banks + bank;
-#pragma unroll
-  for (int c = 0; c < kMaxCycles; ++c) {
-    uint32_t g[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) g[j] = grant_step(v[j]);
-    store_grants<Out, V>(out + static_cast<long long>(c) * n_banks, g);
-  }
-}
-
-// kStoreBulk: block b computes ops [b ops_per_block, ...) into its shared
-// tile, laid out as the grants are in device memory, and writes the tile
-// with one bulk store.
+// Block (x, y) fills its shared tile and writes it with one bulk store.
+// With ops_per_block > 0 the tile is ops [x ops_per_block, ...), whole rows
+// (gridDim.y = 1); with ops_per_block = 0 it is chunk y of op x's row,
+// elements [y chunk, (y + 1) chunk) of its 16 x B grants, each computed
+// from its own word by c + 1 carry-chain steps.
 template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
 arbiter_bulk(const In* __restrict__ req, Out* __restrict__ grants,
              long long n_ops, int n_banks, int ops_per_block) {
   extern __shared__ __align__(128) unsigned char tile_bytes[];
   Out* tile = reinterpret_cast<Out*>(tile_bytes);
-  const long long op0 = static_cast<long long>(blockIdx.x) * ops_per_block;
-  const int n_op = static_cast<int>(
-      min(static_cast<long long>(ops_per_block), n_ops - op0));
-  const int words = n_op * n_banks;
-  const In* in = req + op0 * n_banks;
-  for (int i = threadIdx.x; i < words; i += kThreads) {
-    const int o = i / n_banks;
-    uint32_t v = word_of(in[i]);
-    Out* out = tile + o * kMaxCycles * n_banks + (i - o * n_banks);
+  const int row = kMaxCycles * n_banks;  // grant words an op
+  long long first;                       // the tile's first grant word
+  int n_out;                             // and its count
+  if (ops_per_block > 0) {
+    const long long op0 =
+        static_cast<long long>(blockIdx.x) * ops_per_block;
+    const int n_op = static_cast<int>(
+        min(static_cast<long long>(ops_per_block), n_ops - op0));
+    const int words = n_op * n_banks;
+    const In* in = req + op0 * n_banks;
+    for (int i = threadIdx.x; i < words; i += kThreads) {
+      const int o = i / n_banks;
+      uint32_t v = word_of(in[i]);
+      Out* out = tile + o * row + (i - o * n_banks);
 #pragma unroll
-    for (int c = 0; c < kMaxCycles; ++c)
-      out[c * n_banks] = static_cast<Out>(grant_step(v));
+      for (int c = 0; c < kMaxCycles; ++c)
+        out[c * n_banks] = static_cast<Out>(grant_step(v));
+    }
+    first = op0 * row;
+    n_out = n_op * row;
+  } else {
+    const int chunk = kBulkBytes / static_cast<int>(sizeof(Out));
+    const int e0 = static_cast<int>(blockIdx.y) * chunk;
+    const In* in = req + static_cast<long long>(blockIdx.x) * n_banks;
+    n_out = min(chunk, row - e0);
+    for (int i = threadIdx.x; i < n_out; i += kThreads) {
+      const int c = (e0 + i) / n_banks;
+      uint32_t v = word_of(in[e0 + i - c * n_banks]);
+      uint32_t g = 0;
+      for (int k = 0; k <= c; ++k) g = grant_step(v);
+      tile[i] = static_cast<Out>(g);
+    }
+    first = static_cast<long long>(blockIdx.x) * row + e0;
   }
   // the generic-proxy writes above, before the async proxy reads the tile
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned bytes =
-        static_cast<unsigned>(words) * kMaxCycles * sizeof(Out);
+    const unsigned bytes = static_cast<unsigned>(n_out) * sizeof(Out);
     const unsigned src =
         static_cast<unsigned>(__cvta_generic_to_shared(tile));
-    Out* dst = grants + op0 * kMaxCycles * n_banks;
+    Out* dst = grants + first;
     asm volatile(
         "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
         :: "l"(dst), "r"(src), "r"(bytes) : "memory");
@@ -289,61 +265,39 @@ int conflict_popcount_launch(const int* banks, int* counts, int* cycles,
 }
 
 // requests (n_ops, n_banks) words of in_bytes 4 or 8 -> grants (n_ops, 16,
-// n_banks) words of out_bytes 4 or 8 (zero-extended), by store design
-// `store` (kStoreVector or kStoreBulk).
+// n_banks) words of out_bytes 4 or 8 (zero-extended); grants 16-byte
+// aligned (a bulk store's destination must be).
 int carry_arbiter_launch(const void* requests, int in_bytes, void* grants,
                          int out_bytes, long long n_ops, int n_banks,
-                         int store, void* stream) {
-  if (n_ops <= 0 || n_banks < 1 || (in_bytes != 4 && in_bytes != 8) ||
-      (out_bytes != 4 && out_bytes != 8) ||
-      (store != kStoreVector && store != kStoreBulk))
+                         void* stream) {
+  if (n_ops <= 0 || n_banks < 1 || n_banks > (1 << 23) ||
+      (in_bytes != 4 && in_bytes != 8) || (out_bytes != 4 && out_bytes != 8) ||
+      (reinterpret_cast<uintptr_t>(grants) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long row_bytes =
       static_cast<long long>(kMaxCycles) * n_banks * out_bytes;
-  if (store == kStoreBulk && row_bytes <= kBulkBytes) {
-    const int per_block = static_cast<int>(kBulkBytes / row_bytes);
-    const unsigned grid =
-        static_cast<unsigned>((n_ops + per_block - 1) / per_block);
-    const size_t smem = static_cast<size_t>(per_block) * row_bytes;
+  // whole ops a tile, or (per_block 0) 32 KB chunks of one op's row
+  const int per_block =
+      row_bytes <= kBulkBytes ? static_cast<int>(kBulkBytes / row_bytes) : 0;
+  const dim3 grid =
+      per_block > 0
+          ? dim3(static_cast<unsigned>((n_ops + per_block - 1) / per_block))
+          : dim3(static_cast<unsigned>(n_ops),
+                 static_cast<unsigned>((row_bytes + kBulkBytes - 1) /
+                                       kBulkBytes));
+  const size_t smem = per_block > 0
+                          ? static_cast<size_t>(per_block * row_bytes)
+                          : static_cast<size_t>(kBulkBytes);
 #define ARBITER_BULK(In, Out)                                          \
   arbiter_bulk<In, Out><<<grid, kThreads, smem, s>>>(                  \
       static_cast<const In*>(requests), static_cast<Out*>(grants), n_ops, \
       n_banks, per_block)
-    if (in_bytes == 4 && out_bytes == 4) ARBITER_BULK(uint32_t, uint32_t);
-    else if (in_bytes == 4) ARBITER_BULK(uint32_t, long long);
-    else if (out_bytes == 4) ARBITER_BULK(long long, uint32_t);
-    else ARBITER_BULK(long long, long long);
+  if (in_bytes == 4 && out_bytes == 4) ARBITER_BULK(uint32_t, uint32_t);
+  else if (in_bytes == 4) ARBITER_BULK(uint32_t, long long);
+  else if (out_bytes == 4) ARBITER_BULK(long long, uint32_t);
+  else ARBITER_BULK(long long, long long);
 #undef ARBITER_BULK
-    return static_cast<int>(cudaGetLastError());
-  }
-  const long long n_words = n_ops * n_banks;
-  const int v = 16 / out_bytes;
-  const bool vec = n_banks % v == 0 &&
-                   (reinterpret_cast<uintptr_t>(grants) & 15) == 0;
-  const unsigned grid = blocks_for(vec ? n_words / v : n_words);
-#define ARBITER_VECTOR(In, Out, V)                                     \
-  arbiter_vector<In, Out, V><<<grid, kThreads, 0, s>>>(                \
-      static_cast<const In*>(requests), static_cast<Out*>(grants), n_words, \
-      n_banks)
-  if (out_bytes == 8) {
-    if (in_bytes == 4) {
-      if (vec) ARBITER_VECTOR(uint32_t, long long, 2);
-      else ARBITER_VECTOR(uint32_t, long long, 1);
-    } else {
-      if (vec) ARBITER_VECTOR(long long, long long, 2);
-      else ARBITER_VECTOR(long long, long long, 1);
-    }
-  } else {
-    if (in_bytes == 4) {
-      if (vec) ARBITER_VECTOR(uint32_t, uint32_t, 4);
-      else ARBITER_VECTOR(uint32_t, uint32_t, 1);
-    } else {
-      if (vec) ARBITER_VECTOR(long long, uint32_t, 4);
-      else ARBITER_VECTOR(long long, uint32_t, 1);
-    }
-  }
-#undef ARBITER_VECTOR
   return static_cast<int>(cudaGetLastError());
 }
 

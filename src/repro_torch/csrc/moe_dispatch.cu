@@ -47,9 +47,10 @@
 //     carries all a reader needs, so relaxed order suffices; release and
 //     acquire cost 6-13 % (PERF.md).
 //   * Safe to replay from a CUDA graph.  The workspace (allocated zeroed by
-//     the wrapper, one per device and stream) starts with a header of the
-//     ticket counter, a done counter and the epoch; the call's tag is
-//     epoch + 1, read on the device.  The last block to count itself done
+//     the wrapper, one per device and stream, and never during a capture,
+//     where the zero fill would wait for that graph's replay) starts with
+//     a header of the ticket counter, a done counter and the epoch; the
+//     call's tag is epoch + 1, read on the device.  The last block to count itself done
 //     resets the ticket and done counters and advances the epoch, so the
 //     host passes nothing that a replayed launch could find stale.  Tags
 //     run from 1 to kTagLimit = 2^31 - 1 (a zeroed word, tag 0, is never
@@ -446,7 +447,7 @@ extern "C" {
 // 32 bits count) -> pos (r,) int32 and kept (r,) bool (one byte each) for
 // the ids of the chunk, and, when first_chunk is set, for the ids outside
 // [0, n_experts).  ws is the zeroed workspace of ws_words >= 2 +
-// ceil(r / 4096) * ew u64 words; calls that share it must run in stream
+// ceil(r / 8192) * ew u64 words; calls that share it must run in stream
 // order.  One launch; returns cudaGetLastError(), or cudaErrorInvalidValue
 // for sizes it does not take (and then launches nothing).
 int moe_dispatch_launch(const void* experts, int id_bytes, int* pos,

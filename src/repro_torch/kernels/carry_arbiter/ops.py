@@ -38,13 +38,10 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 #: the C entry and its launch count (``ARBITER.launches``)
 ARBITER = CudaEntry("controllers", "carry_arbiter_launch",
-                    [_P, _I32, _P, _I32, _I64, _I32, _I32])
-#: the kernel's two store designs (``store`` of csrc/controllers.cu): 16-byte
-#: streaming stores from registers, or one TMA bulk store of a block's tile
-#: staged in shared memory
-STORES = {"vector": 0, "bulk": 1}
-#: the design the wrapper launches: the faster on the H100 (PERF.md)
-STORE = "bulk"
+                    [_P, _I32, _P, _I32, _I64, _I32])
+#: the widest request row the kernel takes (its 32 KB chunks of a row stay
+#: within the grid's second dimension)
+MAX_BANKS = 1 << 23
 #: request dtypes the kernel reads as they are: 4- and 8-byte words
 KERNEL_DTYPES = (torch.int32, torch.int64)
 
@@ -85,16 +82,16 @@ def kernel_words(requests: torch.Tensor) -> torch.Tensor:
     return requests.to(torch.int64).contiguous()
 
 
-def arbiter_launch(words: torch.Tensor, out_dtype: torch.dtype = torch.int64,
-                   store: str = STORE) -> torch.Tensor:
+def arbiter_launch(words: torch.Tensor,
+                   out_dtype: torch.dtype = torch.int64) -> torch.Tensor:
     """One launch: (ops, B) contiguous int32 or int64 words on the card ->
     (ops, 16, B) grant words of ``out_dtype`` (int64: zero-extended; int32:
-    the 32-bit patterns as uint32), by store design ``store``."""
+    the 32-bit patterns as uint32)."""
     n_ops, n_banks = words.shape
     grants = torch.empty((n_ops, MAX_CYCLES, n_banks), dtype=out_dtype,
                          device=words.device)
     ARBITER(words.data_ptr(), words.element_size(), grants.data_ptr(),
-            grants.element_size(), n_ops, n_banks, STORES[store])
+            grants.element_size(), n_ops, n_banks)
     return grants
 
 
@@ -109,12 +106,15 @@ def carry_arbiter(requests: torch.Tensor) -> torch.Tensor:
     """(ops, B) request words (any integer type; the low 32 bits count, as
     the reference's ``astype(uint32)``) -> (ops, 16, B) int64 one-hot grant
     words: the CUDA kernel on a CUDA tensor (one launch on contiguous int32
-    or int64 words, ``kernel_words`` says which), the plain version on a
-    CPU one."""
+    or int64 words, ``kernel_words`` says which; at most ``MAX_BANKS``
+    banks), the plain version on a CPU one."""
     check_arbiter(requests)
     if requests.device.type == "cpu":
         return carry_arbiter_plain(requests)
     require_cuda(requests)
+    if requests.shape[1] > MAX_BANKS:
+        raise ValueError(f"{requests.shape[1]} banks: the kernel takes at "
+                         f"most {MAX_BANKS}")
     return arbiter_launch(kernel_words(requests))
 
 

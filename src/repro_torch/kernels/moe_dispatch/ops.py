@@ -82,10 +82,25 @@ def workspace(device: torch.device, stream: int, words: int) -> torch.Tensor:
     Keyed by (device, stream), so calls on two streams never share one:
     calls on one stream run in order, and a captured call replays on the
     workspace of the stream it was captured on (graphs captured on one
-    stream share it, so their replays must not overlap)."""
+    stream share it with each other and with that stream's eager calls,
+    so none of these may overlap).
+
+    Never made or grown while the stream captures a CUDA graph: the zero
+    fill would become a node of that graph and run only when it is
+    replayed, and another graph on the same workspace could run first.
+    Such a call is refused; one eager call on the stream the graph is
+    captured on (``torch.cuda.graph(g, stream=s)``), with at least as many
+    requests and experts, makes the workspace first."""
     key = (device.index, stream)
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < words:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"moe_dispatch: no zeroed workspace of {words} words for "
+                f"this stream, and none is made during a CUDA graph "
+                f"capture; call moe_dispatch_positions once eagerly on the "
+                f"stream the graph is captured on, with at least as many "
+                f"requests and experts")
         if ws is not None:
             _RETIRED.append(ws)
         size = max(words, 2 * ws.numel()) if ws is not None else words
@@ -154,10 +169,10 @@ def moe_dispatch_positions(experts: torch.Tensor, n_experts: int,
     r = ids.shape[0]
     if r > INT32_MAX:
         raise ValueError(f"{r} requests: positions are int32")
+    ws = workspace(ids.device, current_stream(),
+                   workspace_words(r, n_experts))
     out = torch.empty(5 * r, dtype=torch.uint8, device=ids.device)
     pos, kept = out[:4 * r].view(torch.int32), out[4 * r:].view(torch.bool)
-    stream = current_stream()
-    ws = workspace(ids.device, stream, workspace_words(r, n_experts))
     for e_lo in range(0, max(n_experts, 1), EXPERT_CHUNK):
         DISPATCH(ids.data_ptr(), ids.element_size(), pos.data_ptr(),
                  kept.data_ptr(), r, n_experts, e_lo,

@@ -243,17 +243,17 @@ def test_arbiter_kernel_reads_int32_and_int64_words_as_they_are():
         assert torch.equal(got & 0xFFFFFFFF, t.to(torch.int64) & 0xFFFFFFFF)
 
 
-def _emulate_arbiter(words: np.ndarray, out_bytes: int,
-                     store: str) -> np.ndarray:
+def _emulate_arbiter(words: np.ndarray, out_bytes: int) -> np.ndarray:
     """csrc/controllers.cu's ``carry_arbiter_launch`` in numpy: each word's
     low 32 bits (``static_cast<uint32_t>``), 16 carry-chain steps, and the
-    grants written as the chosen design writes them — V words a thread
-    with 16-byte stores (V = 16 / out_bytes when it divides B, else 1), or
-    a block's tile of whole ops (at most 32 KB) in one bulk store.  Every
-    store is checked for 16-byte alignment where the design needs it, and
-    every grant word must be written exactly once."""
-    from repro_torch.kernels.carry_arbiter.ops import MAX_CYCLES, STORES
-    assert store in STORES
+    grants written as the kernel writes them, one bulk store a block's
+    tile: whole ops (at most 32 KB) when an op's row fits in 32 KB, else
+    one 32 KB chunk of one op's row, each grant of a chunk computed from
+    its own word by c + 1 steps.  Every bulk store is checked for 16-byte
+    alignment and size, and every grant word must be written exactly
+    once."""
+    from repro_torch.kernels.carry_arbiter.ops import MAX_CYCLES
+    bulk = 32 * 1024
     n_ops, b = words.shape
     v = (words.reshape(-1).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
     grants = np.empty((v.size, MAX_CYCLES), np.uint32)
@@ -262,34 +262,36 @@ def _emulate_arbiter(words: np.ndarray, out_bytes: int,
         v &= v - np.uint32(1)
     out = np.zeros(n_ops * MAX_CYCLES * b, np.uint64)
     writes = np.zeros(out.size, np.int64)
-    w = np.arange(v.size)
-    op, bank = w // b, w % b
-    row_bytes = MAX_CYCLES * b * out_bytes
-    if store == "bulk" and row_bytes <= 32 * 1024:
-        per_block = 32 * 1024 // row_bytes
+    row = MAX_CYCLES * b                            # grant words an op
+    tiles = []                                      # (first word, tile)
+    if row * out_bytes <= bulk:
+        per_block = bulk // (row * out_bytes)
         for op0 in range(0, n_ops, per_block):
             n_op = min(per_block, n_ops - op0)
-            lo, hi = op0 * b, (op0 + n_op) * b      # the block's words
-            tile = np.zeros(n_op * MAX_CYCLES * b, np.uint64)
-            o, bk = op[lo:hi] - op0, bank[lo:hi]
+            o, bk = np.divmod(np.arange(n_op * b), b)
+            tile = np.zeros(n_op * row, np.uint64)
             for c in range(MAX_CYCLES):
-                tile[o * MAX_CYCLES * b + c * b + bk] = grants[lo:hi, c]
-            dst = op0 * MAX_CYCLES * b
-            assert (dst * out_bytes) % 16 == 0
-            assert (tile.size * out_bytes) % 16 == 0
-            out[dst:dst + tile.size] = tile
-            writes[dst:dst + tile.size] += 1
+                tile[o * row + c * b + bk] = grants[op0 * b + o * b + bk, c]
+            tiles.append((op0 * row, tile))
     else:
-        per = 16 // out_bytes if b % (16 // out_bytes) == 0 else 1
-        first = w[::per]                            # each thread's word
-        for c in range(MAX_CYCLES):
-            at = op[first] * MAX_CYCLES * b + c * b + bank[first]
-            if per > 1:
-                assert ((at * out_bytes) % 16 == 0).all()
-            for j in range(per):                    # one op row a thread
-                assert (op[first + j] == op[first]).all()
-                out[at + j] = grants[first + j, c]
-                writes[at + j] += 1
+        chunk = bulk // out_bytes
+        for op in range(n_ops):
+            for e0 in range(0, row, chunk):
+                c, bk = np.divmod(np.arange(e0, min(e0 + chunk, row)), b)
+                u = (words[op, bk].astype(np.int64) & 0xFFFFFFFF).astype(
+                    np.uint32)
+                g = np.zeros(u.size, np.uint32)
+                for k in range(MAX_CYCLES):         # c + 1 steps each
+                    step = u & (~(u - np.uint32(1)))
+                    g = np.where(k <= c, step, g)
+                    u &= u - np.uint32(1)
+                tiles.append((op * row + e0, g.astype(np.uint64)))
+    for first, tile in tiles:
+        assert (first * out_bytes) % 16 == 0
+        assert (tile.size * out_bytes) % 16 == 0
+        assert tile.size * out_bytes <= bulk
+        out[first:first + tile.size] = tile
+        writes[first:first + tile.size] += 1
     assert (writes == 1).all()
     out = out.reshape(n_ops, MAX_CYCLES, b)
     return out.astype(np.int64) if out_bytes == 8 else \
@@ -306,28 +308,32 @@ ARB_WIDE = {
     "random_b12": np.random.default_rng(16).integers(-2 ** 34, 2 ** 34,
                                                      (256, 12)),
     "odd_b5": np.random.default_rng(17).integers(-2 ** 34, 2 ** 34, (3, 5)),
-    # a row of more than 32 KB of int64 grants: the bulk design takes
-    # the vector one
+    # a row of more than 32 KB of int64 grants (38,400 bytes): two chunks
+    # of one row, the second not full
     "b300": np.random.default_rng(18).integers(0, 2 ** 32, (128, 300)),
+    # one cycle's banks wider than a chunk: chunks end inside a cycle
+    "b4100": np.random.default_rng(19).integers(-2 ** 34, 2 ** 34,
+                                                (2, 4100)),
 }
 
 
-@pytest.mark.parametrize("store", ["vector", "bulk"])
+@pytest.mark.parametrize("out_bytes", [8, 4])
 @pytest.mark.parametrize("case", list(ARB_EDGES) + list(ARB_WIDE))
-def test_arbiter_emulated_kernel_bit_equal_to_plain_and_pallas(case, store):
+def test_arbiter_emulated_kernel_bit_equal_to_plain_and_pallas(case,
+                                                               out_bytes):
     """The kernel's reads and writes, emulated for int32 and int64 words
-    in and int64 (and 32-bit) grants out, equal ``carry_arbiter_plain``
-    and the Pallas kernel on the words' low 32 bits."""
+    in and int64 (or 32-bit) grants out, equal ``carry_arbiter_plain`` and
+    the Pallas kernel on the words' low 32 bits."""
     reqs = ARB_EDGES.get(case, ARB_WIDE.get(case))
     plain = carry_arbiter_plain(torch.from_numpy(reqs)).numpy()
     want = np.asarray(r_arbiter(jnp.asarray(reqs.astype(np.uint32)))
                       ).astype(np.int64)
     np.testing.assert_array_equal(plain, want)
+    if out_bytes == 4:
+        want = want.astype(np.uint32).view(np.int32)
     for words in {reqs.dtype: reqs, np.int32: reqs.astype(np.int32)}.values():
-        np.testing.assert_array_equal(_emulate_arbiter(words, 8, store), want)
-        np.testing.assert_array_equal(
-            _emulate_arbiter(words, 4, store),
-            want.astype(np.uint32).view(np.int32))
+        np.testing.assert_array_equal(_emulate_arbiter(words, out_bytes),
+                                      want)
 
 
 # -------------------------------------------------------------- traces --

@@ -495,25 +495,26 @@ def test_arbiter_call_runs_one_cuda_kernel(cuda, dtype):
     assert torch.equal(carry_arbiter(reqs), carry_arbiter_plain(reqs))
 
 
-@pytest.mark.parametrize("store", ["vector", "bulk"])
-def test_arbiter_store_designs_bit_equal_on_wide_words(cuda, store):
-    """Both store designs, on int64 words with high bits set and negative
-    words (the low 32 bits count), int32 words, odd and wide bank counts,
-    and 32-bit grants out."""
+@pytest.mark.parametrize("out_dtype", [torch.int64, torch.int32])
+def test_arbiter_bulk_stores_bit_equal_on_wide_words(cuda, out_dtype):
+    """The kernel's bulk stores, on int64 words with high bits set and
+    negative words (the low 32 bits count) and int32 words, odd bank
+    counts, rows of more than 32 KB (written in 32 KB chunks, one of them
+    ending inside a cycle's banks), and int64 or 32-bit grants out."""
     from repro_torch.kernels.carry_arbiter.ops import (arbiter_launch,
                                                        carry_arbiter_plain)
     rng = np.random.default_rng(4)
-    for shape in ((256, 16), (128, 12), (3, 5), (128, 300)):
+    for shape in ((256, 16), (128, 12), (3, 5), (128, 300), (2, 4100)):
         reqs = torch.as_tensor(rng.integers(-2 ** 40, 2 ** 40, shape),
                                device=cuda)
         reqs[0, :4] = torch.tensor([-1, -2 ** 31, 2 ** 32 + 5, 2 ** 63 - 1])
         want = carry_arbiter_plain(reqs)
         for words in (reqs, reqs.to(torch.int32)):
-            got = arbiter_launch(words, store=store)
-            assert got.dtype == torch.int64 and torch.equal(got, want)
-            got32 = arbiter_launch(words, torch.int32, store)
-            assert torch.equal(got32.view(torch.uint32).to(torch.int64),
-                               want)
+            got = arbiter_launch(words, out_dtype)
+            assert got.dtype == out_dtype
+            if out_dtype == torch.int32:            # the uint32 patterns
+                got = got.view(torch.uint32).to(torch.int64)
+            assert torch.equal(got, want)
 
 
 # -------------------------------------------------- the dispatch kernel --
@@ -574,16 +575,22 @@ def test_dispatch_call_runs_one_cuda_kernel(cuda):
 
 
 def test_dispatch_replays_in_a_cuda_graph(cuda):
-    """Captured once, replayed 5 times with eager calls of other shapes in
-    between (on the default stream's workspace) and new ids copied in
-    before each replay: bit-equal to the plain version every time."""
+    """Captured once on a side stream (after an eager call there, which
+    makes that stream's workspace), replayed 5 times with eager calls of
+    other shapes in between (on the default stream's workspace) and new
+    ids copied in before each replay: bit-equal to the plain version every
+    time."""
     from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
                                                       moe_dispatch_positions)
     gen = torch.Generator(device=cuda).manual_seed(6)
     ids = torch.randint(0, 128, (1 << 20,), device=cuda, generator=gen)
-    moe_dispatch_positions(ids, 128, 5000)                # warm-up, eager
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_dispatch_positions(ids, 128, 5000)            # warm-up, eager
+    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         pos, kept = moe_dispatch_positions(ids, 128, 5000)
     for step in range(5):
         ids.copy_(torch.randint(0, 128, ids.shape, device=cuda,
@@ -596,6 +603,46 @@ def test_dispatch_replays_in_a_cuda_graph(cuda):
         assert torch.equal(pos, want[0]) and torch.equal(kept, want[1])
         for g, w in zip(got, moe_dispatch_plain(other, 16, 300)):
             assert torch.equal(g, w)
+
+
+def test_dispatch_graphs_replay_in_any_order(cuda):
+    """Two graphs captured on one stream share its workspace, made eagerly
+    before either capture: replaying the second before the first has ever
+    run, then the first, then the second again, each is bit-equal."""
+    from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
+                                                      moe_dispatch_positions)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randint(0, 16, (1 << 18,), device=cuda, generator=gen)
+    b = torch.randint(-2, 40, (3 * 8192,), device=cuda, generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_dispatch_positions(a, 40, 9000)               # warm-up, eager
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0], stream=side):
+        first = moe_dispatch_positions(a, 16, 9000)
+    with torch.cuda.graph(graphs[1], stream=side):
+        second = moe_dispatch_positions(b, 37, 300)
+    want = {0: moe_dispatch_plain(a, 16, 9000),
+            1: moe_dispatch_plain(b, 37, 300)}
+    for g in (1, 0, 1):
+        graphs[g].replay()
+        torch.cuda.synchronize()
+        for got, w in zip((first, second)[g], want[g]):
+            assert torch.equal(got, w)
+
+
+def test_dispatch_refuses_a_first_call_during_a_capture(cuda):
+    """On a stream with no workspace yet, a call inside a capture is
+    refused before it launches or allocates anything."""
+    from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_positions
+    ids = torch.randint(0, 16, (8192,), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="eagerly"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            moe_dispatch_positions(ids, 16, 100)
 
 
 def test_dispatch_across_the_epoch_wrap(cuda):

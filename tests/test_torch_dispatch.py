@@ -504,6 +504,40 @@ def test_status_word_and_workspace_are_pinned():
     assert ops.workspace_words(8193, 1) == 2 + 2
 
 
+def test_workspace_is_never_made_during_a_capture(monkeypatch):
+    """While the stream captures a CUDA graph, a workspace that is missing
+    or too small is refused before anything is allocated (its zero fill
+    would run only at that graph's replay); one already made, large
+    enough, is used as it is.  Outside a capture a missing one is made
+    zeroed and grown to at least twice its size."""
+    from repro_torch.kernels.moe_dispatch import ops
+    monkeypatch.setattr(ops, "_WORKSPACES", {})
+    monkeypatch.setattr(ops, "_RETIRED", [])
+    capturing = [True]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    card = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.workspace(card, 7, 10)
+    assert not ops._WORKSPACES
+    made = torch.zeros(10, dtype=torch.int64)       # made eagerly before
+    ops._WORKSPACES[(0, 7)] = made
+    assert ops.workspace(card, 7, 10) is made
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.workspace(card, 7, 11)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.workspace(card, 8, 1)                   # another stream
+    assert ops._WORKSPACES == {(0, 7): made} and not ops._RETIRED
+    capturing[0] = False
+    host = torch.device("cpu")
+    first = ops.workspace(host, 7, 6)
+    assert first.dtype == torch.int64 and first.numel() == 6
+    assert not first.any()
+    grown = ops.workspace(host, 7, 7)
+    assert grown.numel() == 12 and not grown.any()
+    assert ops._RETIRED == [first]
+
+
 # -------------------------------------------------- traces and pricing --
 
 def _moe_input():
