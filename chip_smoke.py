@@ -53,6 +53,17 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                bit-equal; every pass of the 4096-point input, rtol = atol
                = 1e-5, and the whole transform, bit-equal to the plain
                passes and within 2e-3·max|X| of the numpy oracle);
+     figures — the claimed scatter's workspace and CUDA graphs (two
+               graphs on one workspace replayed second first, bit-equal; a
+               first or growing claimed scatter inside a capture refused);
+               then Table I, Fig 9, the autotuner (all 16 rows), its
+               quickstart and the bank-scaling and beyond-paper sweeps
+               through their CLI entry points on the card, each section's
+               wall time logged with the card's name and power limit: card
+               rows == CPU rows, the Table I / Fig 9 pins, the six paper
+               winners and two serving expectations, hillclimb never
+               pricing more points than exhaustive; the path launches no
+               kernel (its time is the cost engine's pricing);
   6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
                (32, 32) × f32/bf16/int32, bit-equal, the FFT passes
                (4096, 0/3/5), (1024, 2) at the reference tests' tolerance,
@@ -915,6 +926,183 @@ def phase_tables() -> dict:
             "func_err": max(r["func_rel_err"] for r in card["table3"])}
 
 
+def _claimed_scatter_captures() -> float:
+    """The claimed scatter's workspace and CUDA graphs: two graphs (a
+    single scatter of 3000 indices into 4096 rows, 8B-xor, and a paired
+    one of 700 into 512, 16B-offset) captured on the one workspace an eager
+    call made, replayed second first, then first, then second, each
+    bit-equal to the plain version, the workspace zero after each; then,
+    with no workspace on the card, a first claimed scatter inside a
+    capture is refused (RuntimeError) before it allocates anything, as is
+    one that would grow the workspace.  Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels.banked_scatter import ops as S
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=card).manual_seed(9)
+    big = torch.zeros((4096, 64), device=card)
+    small = [torch.zeros((512, 32), device=card) for _ in range(2)]
+    i_big = torch.randint(0, 4096, (3000,), device=card, generator=gen)
+    i_small = torch.randint(0, 512, (700,), device=card, generator=gen)
+    u_big = torch.randn((3000, 64), device=card, generator=gen)
+    u_small = [torch.randn((700, 32), device=card, generator=gen)
+               for _ in range(2)]
+    S.banked_scatter(big, i_big, u_big, 8, "xor")    # the workspace, eager
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0]):
+        S.banked_scatter(big, i_big, u_big, 8, "xor")
+    with torch.cuda.graph(graphs[1]):
+        S.banked_scatter_pair(*small, i_small, *u_small, 16, "offset")
+    want = {0: [S.banked_scatter_plain(torch.zeros_like(big), i_big, u_big,
+                                       8, "xor")],
+            1: [S.banked_scatter_plain(torch.zeros_like(t), i_small, u, 16,
+                                       "offset")
+                for t, u in zip(small, u_small)]}
+    err = 0.0
+    for g in (1, 0, 1):
+        for t in (big, *small):
+            t.zero_()
+        graphs[g].replay()
+        torch.cuda.synchronize()
+        for got, w in zip(([big], small)[g], want[g]):
+            err = max(err, float((got - w).abs().max()))
+            if not torch.equal(got, w):
+                raise AssertionError(f"claimed scatter graph {g} replayed "
+                                     f"!= plain")
+        if S.claim_words(card, 4096).any():
+            raise AssertionError("the claim workspace is not zero after a "
+                                 "replay")
+    made = S._CLAIMS
+    S._CLAIMS = {}
+    try:
+        refused = 0
+        table = torch.zeros((1024, 16), device=card)
+        idx = torch.randint(0, 1024, (300,), device=card, generator=gen)
+        upd = torch.ones((300, 16), device=card)
+        for target in (table, None):
+            if target is None:              # the workspace made, too small
+                S.banked_scatter(table, idx, upd)
+                target = torch.zeros((2048, 16), device=card)
+            try:
+                with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                    S.banked_scatter(target, idx, upd)
+            except RuntimeError as e:
+                if "eagerly" not in str(e):
+                    raise
+                refused += 1
+        sizes = [w.numel() for w in S._CLAIMS.values()]
+    finally:
+        S._CLAIMS = made
+    if refused != 2 or sizes != [1024]:
+        raise AssertionError(f"captures refused {refused} of 2, workspace "
+                             f"sizes {sizes} (want [1024])")
+    log("[figures] claimed scatter: two graphs on one workspace replayed "
+        "second first, bit-equal; a first claimed scatter and a growing "
+        "one inside a capture refused")
+    return err
+
+
+#: the six paper per-workload winners (tests/test_tune.py:45-47) and the
+#: two serving expectations, by autotune case
+AUTOTUNE_WINNERS = {"transpose32": "4R-2W", "transpose64": "4R-2W",
+                    "transpose128": "4R-2W", "fft4096r4": "16B-offset",
+                    "fft4096r8": "16B-offset", "fft4096r16": "4R-1W-VB",
+                    "serve_b4_p16_d8": "4R-2W", "serve_b8_p64_d64": "4R-1W"}
+
+
+def phase_figures(smi: str) -> dict:
+    """Table I, Fig 9, the autotuner (all its cases), its quickstart and
+    the bank-scaling and beyond-paper sweeps, each through its CLI entry
+    point on the card (each timing ended by a device sync), held to the
+    same code on the host and to the reference's pins; the path reaches no
+    kernel.  Runs the claimed scatter's capture checks first."""
+    import torch
+
+    from repro_torch.bench import autotune as AT
+    from repro_torch.bench import bank_scaling as BS
+    from repro_torch.bench import beyond_paper as BP
+    from repro_torch.bench import paper_tables as PT
+    from repro_torch.examples import autotune_quickstart as QS
+
+    err = _claimed_scatter_captures()
+    entries = {**_entries(), **_fft_entries()}
+    for e in entries.values():
+        e.launches = 0
+    sections = {
+        "table1": lambda: PT.main(["table1"])["table1"],
+        "fig9": lambda: PT.main(["fig9"])["fig9"],
+        "autotune": lambda: AT.main([]),
+        "quickstart": lambda: QS.main([]),
+        "bank_scaling": lambda: BS.main([]),
+        "beyond_paper": lambda: BP.main([]),
+    }
+    card, secs = {}, {}
+    for name, run in sections.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[name] = run()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    launches = {name: e.launches for name, e in entries.items()}
+    log(f"[figures] wall seconds on the card ({smi}): {secs}; kernel "
+        f"launches on the path: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the figures path launched {launches}")
+
+    host = {"table1": PT.table1_rows(), "fig9": PT.fig9_rows("cpu"),
+            "autotune": AT.rows(device="cpu"),
+            "quickstart": QS.main(["--device", "cpu"]),
+            "bank_scaling": BS.rows("cpu"), "beyond_paper": BP.rows("cpu")}
+    for name in sections:
+        if card[name] != host[name]:
+            raise AssertionError(f"{name}: card rows != CPU rows")
+    t1 = {r["name"]: r for r in card["table1"]}
+    over = {r["name"] for r in card["fig9"]
+            if r["footprint_alms"] == "over-capacity"}
+    b16 = {r["footprint_alms"] for r in card["fig9"]
+           if r["name"].endswith("_16B")}
+    rows = {r["name"]: r for r in card["autotune"]}
+    strategies = ("exhaustive", "hillclimb")
+    winners = {(case, s): rows[f"autotune_{case}_{s}"]["winner"]
+               for case in AUTOTUNE_WINNERS for s in strategies}
+    evals = {case: (rows[f"autotune_{case}_exhaustive"]["evals"],
+                    rows[f"autotune_{case}_hillclimb"]["evals"])
+             for case in AUTOTUNE_WINNERS}
+    checks = {
+        "table1 16B footprint_max 16640":
+            t1["mem_16B"]["footprint_max"] == 16640,
+        "table1 4R-1W max 112 KB":
+            t1["mem_4R-1W"]["max_capacity_kb"] == 112.0,
+        "fig9 over-capacity {168,224}KB x 4R-1W":
+            over == {"fig9_168KB_4R-1W", "fig9_224KB_4R-1W"},
+        "fig9 16B footprint constant": len(b16) == 1,
+        "autotune 16 rows, all match": len(rows) == 16 and all(
+            r["match"] for r in rows.values()),
+        "autotune winners": winners == {
+            (case, s): w for case, w in AUTOTUNE_WINNERS.items()
+            for s in strategies},
+        "hillclimb never more evals, fewer in all": all(
+            h <= e for e, h in evals.values()) and sum(
+            h for _, h in evals.values()) < sum(
+            e for e, _ in evals.values()),
+        "quickstart extended hillclimb below 43 points":
+            card["quickstart"]["fft4096r4_hillclimb"][1] < 43,
+        "bank_scaling 10 rows": len(card["bank_scaling"]) == 10,
+        "beyond_paper 20 rows": len(card["beyond_paper"]) == 20,
+    }
+    log(f"[figures] card rows == CPU rows in all six sections; autotune "
+        f"evals (exhaustive, hillclimb) {evals}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"figure checks failed: {checks}")
+    return {"seconds": secs, "nvidia_smi": smi, "launches": launches,
+            "max_abs_err": {"banked_scatter": err}, "evals": evals,
+            "table1": card["table1"], "fig9": card["fig9"],
+            "autotune": card["autotune"], "quickstart": card["quickstart"],
+            "bank_scaling": card["bank_scaling"],
+            "beyond_paper": card["beyond_paper"]}
+
+
 def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
     """The kernel pass and the plain pass on the same CUDA planes, rtol =
     atol = 1e-5 (tests/test_kernels.py:140-143); returns the plain output,
@@ -1693,6 +1881,10 @@ def main() -> int:
 
     torch.manual_seed(0)
     t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     record = {"build": phase_build()}
     record["kernels"] = phase_kernels()
     serve = phase_serve()
@@ -1701,6 +1893,7 @@ def main() -> int:
     record["path_kernels"] = phase_path_kernels(engine)
     record["cost"] = phase_cost(engine)
     record["tables"] = phase_tables()
+    record["figures"] = phase_figures(smi)
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
     record["controllers"] = phase_controllers()
@@ -1712,10 +1905,6 @@ def main() -> int:
     record["controller_times"] = phase_controller_times()
     record["dispatch_times"] = phase_dispatch_times()
     record["profile"] = phase_profile(engine)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda
@@ -1745,7 +1934,9 @@ def main() -> int:
             "entries": serve["entries"][name],
             "max_abs_err": max(record["kernels"]["max_abs_err"][name],
                                record["path_kernels"]["max_abs_err"][name],
-                               record["row_times"]["max_abs_err"][name]),
+                               record["row_times"]["max_abs_err"][name],
+                               record["figures"]["max_abs_err"].get(name,
+                                                                    0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

@@ -1,21 +1,28 @@
-"""The paper's Tables II and III on the card: the counterpart of
-``benchmarks/table2_transpose.py``, ``benchmarks/table3_fft.py`` and
+"""The paper's Tables I, II and III and Fig 9 on the card: the counterpart
+of ``benchmarks/table1_area.py``, ``benchmarks/table2_transpose.py``,
+``benchmarks/table3_fft.py``, ``benchmarks/fig9_cost_perf.py`` and
 ``examples/fft_on_banked_memory.py``.
 
-    python -m repro_torch.bench.paper_tables [table2] [table3] [--device cuda|cpu]
+    python -m repro_torch.bench.paper_tables [table1] [table2] [table3] [fig9] [--device cuda|cpu]
 
-For each workload it (1) builds the ISA program and runs it functionally
-on the SIMT VM (host numpy: the VM is the simulated processor), (2) prices
-every (architecture × workload) cell through ``sweep`` on ``device`` and
-(3) runs the workload's data computation through the kernel registry on
+With no section it prints Tables II and III.  For each of their workloads
+it (1) builds the ISA program and runs it functionally on the SIMT VM
+(host numpy: the VM is the simulated processor), (2) prices every
+(architecture × workload) cell through ``sweep`` on ``device`` and (3)
+runs the workload's data computation through the kernel registry on
 ``device`` — ``banked_transpose`` on the N×N input of the memory image,
 ``fft_stage`` (one 6-pass radix-4 transform) on the 4096-point input — and
 reports its relative error against the workload's oracle as
-``kernel_err``.  The device is the card unless ``--device cpu`` is given;
-without a card the command fails instead of running on the host.
+``kernel_err``.  Table I is the area model's host arithmetic
+(``repro_torch.core.cost``); Fig 9 prices ``fft4096r16`` on its six
+memories through ``sweep`` on ``device`` and sets each time beside the
+whole processor's footprint at 64, 112, 168 and 224 KB.  The device is the
+card unless ``--device cpu`` is given; without a card the command fails
+instead of running on the host.
 
-CSV: name,us_per_call,derived (derived = sim cycles | paper cycles | Δ% |
-efficiencies | errors), as the JAX scripts print it.
+CSV: name,us_per_call,derived (for Tables II/III: sim cycles | paper
+cycles | Δ% | efficiencies | errors; for Table I and Fig 9 the reference
+scripts' ``key=value`` fields), as the JAX scripts print it.
 """
 from __future__ import annotations
 
@@ -28,13 +35,23 @@ from repro_torch import kernels
 from repro_torch.bench.paper_data import TABLE2, TABLE3
 from repro_torch.bench.runner import Workload, sweep, verify_workload
 from repro_torch.bench.workloads import fft_workload, transpose_workload
+from repro_torch.core import arch
+from repro_torch.core import cost as C
 from repro_torch.core.arch import (PAPER_ARCHITECTURES,
                                    TRANSPOSE_ARCHITECTURES)
+from repro_torch.core.memsim import banked, multiport
 from repro_torch.isa.programs.fft import oracle_spectrum
 
 SIZES = (32, 64, 128)
 RADICES = (4, 8, 16)
 FFT_N = 4096
+#: Table I's memories (``benchmarks/table1_area.py``)
+TABLE1_MEMS = (banked(16), banked(8), banked(4), multiport(4, 1),
+               multiport(4, 2))
+#: Fig 9's capacities and memories (``benchmarks/fig9_cost_perf.py``)
+FIG9_SIZES_KB = (64, 112, 168, 224)
+FIG9_ARCHS = ("4R-1W", "4R-2W", "16B-offset", "16B", "8B-offset",
+              "4B-offset")
 #: the memory the functional runs use (data movement is architecture-
 #: independent, so one run certifies a whole row, as in the reference)
 VERIFY_ARCH = "16B"
@@ -123,8 +140,67 @@ def table3_rows(device="cuda", verify: bool = True) -> list[dict]:
     return out
 
 
+def table1_rows() -> list[dict]:
+    """Table I / §IV: the SIMT core's resources, then each memory's
+    resources, largest logical capacity, footprints and replication."""
+    core = C.core_resources()
+    out = [{"name": "simt_core_16sp", "us_per_call": 0,
+            "alms": core.alms, "m20k": core.m20k, "dsp": core.dsp}]
+    for spec in TABLE1_MEMS:
+        r = C.memory_resources(spec)
+        cap = C.max_capacity_kb(spec)
+        out.append({
+            "name": f"mem_{spec.name}",
+            "us_per_call": 0,
+            "alms": r.alms, "m20k": r.m20k,
+            "max_capacity_kb": cap,
+            "footprint_64kb": round(C.footprint_alms(spec, 64.0)),
+            "footprint_max": round(C.footprint_alms(spec, cap)),
+            "replication": C.replication_factor(spec),
+        })
+    return out
+
+
+def fig9_rows(device="cuda") -> list[dict]:
+    """Fig 9: the radix-16 4096-point FFT priced on ``device`` on six
+    memories, each time beside the whole processor's footprint at each
+    capacity ("over-capacity" where the replicated data does not fit)."""
+    perf = {rec["arch"]: rec["time_us"]
+            for rec in sweep(FIG9_ARCHS, fft_workload(FFT_N, 16),
+                             device=device)}
+    slowest = max(perf.values())
+    out = []
+    for size in FIG9_SIZES_KB:
+        for name in FIG9_ARCHS:
+            try:
+                area = arch.get(name).processor_footprint_alms(float(size))
+            except ValueError:
+                out.append({"name": f"fig9_{size}KB_{name}",
+                            "us_per_call": perf[name],
+                            "footprint_alms": "over-capacity",
+                            "norm_perf": round(perf[name] / slowest, 3)})
+                continue
+            out.append({"name": f"fig9_{size}KB_{name}",
+                        "us_per_call": perf[name],
+                        "footprint_alms": round(area),
+                        "norm_perf": round(perf[name] / slowest, 3),
+                        "perf_per_area": round(1e6 / (perf[name] * area), 2)})
+    return out
+
+
+def format_fields(r: dict) -> str:
+    """A row as the reference scripts print it: name, us_per_call, then
+    every other field as ``key=value`` joined by ``|``."""
+    extra = "|".join(f"{k}={v}" for k, v in r.items()
+                     if k not in ("name", "us_per_call"))
+    return f"{r['name']},{r['us_per_call']},{extra}"
+
+
 def format_row(table: str, r: dict) -> str:
-    """One CSV line, as the JAX scripts print it, plus ``kernel_err``."""
+    """One CSV line, as the JAX scripts print it, plus ``kernel_err`` for
+    Tables II and III."""
+    if table in ("table1", "fig9"):
+        return format_fields(r)
     if table == "table2":
         derived = (f"total={r['total']}|paper={r['paper_total']}|"
                    f"d={r['delta_pct']}%|Reff={r['r_bank_eff']}|"
@@ -138,16 +214,21 @@ def format_row(table: str, r: dict) -> str:
             f"|kernel_err={r['kernel_err']}")
 
 
-TABLES = {"table2": table2_rows, "table3": table3_rows}
+TABLES = {"table1": lambda device: table1_rows(), "table2": table2_rows,
+          "table3": table3_rows, "fig9": fig9_rows}
+#: the sections printed when none is named
+DEFAULT_TABLES = ("table2", "table3")
 
 
 def main(argv=None) -> dict:
     """Print the requested tables; returns their rows by table name."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.bench.paper_tables",
-        description="The paper's Tables II and III priced on the card.")
+        description="The paper's Tables I, II and III and Fig 9 priced on "
+                    "the card.")
     ap.add_argument("tables", nargs="*",
-                    help="table2 and/or table3 (default: both)")
+                    help="table1, table2, table3 and/or fig9 (default: "
+                         "table2 and table3)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where pricing and kernels run (default: cuda)")
     args = ap.parse_args(argv)
@@ -158,7 +239,7 @@ def main(argv=None) -> dict:
         raise SystemExit("paper_tables: no CUDA device; the tables run on "
                          "the card (pass --device cpu to run on the host)")
     out = {}
-    for table in args.tables or list(TABLES):
+    for table in args.tables or DEFAULT_TABLES:
         out[table] = TABLES[table](args.device)
         for r in out[table]:
             print(format_row(table, r), flush=True)

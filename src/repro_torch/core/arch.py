@@ -1,7 +1,9 @@
 """Memory-architecture API (port of ``repro.core.arch``).
 
   * ``MemoryArchitecture`` — one shared-memory variant: conflict/cycle
-    model, fmax and trace costing (``cost`` over the batched engine).
+    model, fmax and trace costing (``cost`` over the batched engine), and
+    the area model's hooks (``resources``, ``footprint_alms``,
+    ``processor_footprint_alms``: ``repro_torch.core.cost``).
   * ``BankedMemory`` / ``MultiPortMemory`` — the two families of paper
     §I/§III, wrapping a frozen ``MemSpec``; banked memories own the
     ``BankedLayout`` logical↔physical row math the KV pool and the CUDA
@@ -215,6 +217,23 @@ class MemoryArchitecture:
         return _run(program, self.spec, init_memory, execute=execute,
                     device=device)
 
+    def time_us(self, cycles: int) -> float:
+        return cycles / self.fmax_mhz
+
+    # -- area model --------------------------------------------------------
+
+    def resources(self):
+        from repro_torch.core import cost as costmod
+        return costmod.memory_resources(self.spec)
+
+    def footprint_alms(self, capacity_kb: float) -> float:
+        from repro_torch.core import cost as costmod
+        return costmod.footprint_alms(self.spec, capacity_kb)
+
+    def processor_footprint_alms(self, capacity_kb: float) -> float:
+        from repro_torch.core import cost as costmod
+        return costmod.processor_footprint_alms(self.spec, capacity_kb)
+
 
 class BankedMemory(MemoryArchitecture):
     """B-bank arbitrated memory (paper §III): per-op cycles = max per-bank
@@ -240,6 +259,12 @@ class BankedMemory(MemoryArchitecture):
     @property
     def broadcast(self) -> bool:
         return self.spec.broadcast
+
+    @property
+    def total_banks(self) -> int:
+        """Flat bank count the arbiter sees (the bank count: two-level
+        memories, whose inner × outer levels multiply, are not ported)."""
+        return self.n_banks
 
     @property
     def layout(self) -> BankedLayout:

@@ -74,6 +74,11 @@ PAPER_MEMORIES: tuple[MemSpec, ...] = (
     banked(4, "offset"),
 )
 
+#: Table II uses the 8 memories without the VB variant.
+TRANSPOSE_MEMORIES: tuple[MemSpec, ...] = tuple(
+    m for m in PAPER_MEMORIES if m.name != "4R-1W-VB"
+)
+
 
 @dataclass
 class TraceCost:

@@ -53,14 +53,33 @@ CLAIMED_COPY = CudaEntry("banked_rows", "banked_scatter_copy_launch",
 SCATTERS = EntryGroup(SCATTER, SCATTER_PAIR, CLAIM, CLAIMED_COPY)
 
 _CLAIMS: dict[torch.device, torch.Tensor] = {}
+#: workspaces replaced by larger ones, kept alive: a CUDA graph that
+#: captured a claimed scatter still launches on the old one's address
+_RETIRED: list[torch.Tensor] = []
 
 
 def claim_words(device: torch.device, v_rows: int) -> torch.Tensor:
     """The claimed scatter's workspace on ``device``: at least ``v_rows``
     int64 words, zero before and after every call.  Calls on one device
-    share it, so they must not run on two streams at once."""
+    share it, so they must not run on two streams at once.
+
+    Never made or grown while the stream captures a CUDA graph: the zero
+    fill would become a node of that graph and run only when it is
+    replayed, and a grown workspace would drop the one that earlier graphs
+    still address.  Such a call is refused; one eager scatter of more than
+    ``STAGED_MAX`` indices into a table of at least as many rows, on the
+    same device, makes the workspace first."""
     words = _CLAIMS.get(device)
     if words is None or words.numel() < v_rows:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"banked_scatter: no zeroed claim workspace of {v_rows} "
+                f"words on {device}, and none is made during a CUDA graph "
+                f"capture; call banked_scatter (or banked_scatter_pair) "
+                f"once eagerly with more than {STAGED_MAX} indices into a "
+                f"table of at least {v_rows} rows before capturing")
+        if words is not None:
+            _RETIRED.append(words)
         words = _CLAIMS[device] = torch.zeros(v_rows, dtype=torch.int64,
                                               device=device)
     return words

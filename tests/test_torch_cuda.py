@@ -177,6 +177,70 @@ def test_claimed_scatter_replays_in_a_cuda_graph(cuda):
             torch.zeros_like(table), idx, upd, 16, "lsb"))
 
 
+def test_claimed_scatter_graphs_replay_in_any_order(cuda):
+    """Two graphs capture claimed scatters (one single, one paired, into
+    tables of different sizes) on the one workspace made by an eager call
+    before either capture: replaying the second before the first has ever
+    run, then the first, then the second again, each writes what the
+    plain version writes, and the workspace is all zero after each."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.zeros((4096, 64), device=cuda)
+    small_k = torch.zeros((512, 32), device=cuda)
+    small_v = torch.zeros((512, 32), device=cuda)
+    i_big = torch.randint(0, 4096, (3000,), device=cuda, generator=gen)
+    i_small = torch.randint(0, 512, (700,), device=cuda, generator=gen)
+    u_big = torch.randn((3000, 64), device=cuda, generator=gen)
+    u_k = torch.randn((700, 32), device=cuda, generator=gen)
+    u_v = torch.randn((700, 32), device=cuda, generator=gen)
+    banked_scatter(big, i_big, u_big, 8, "xor")       # the workspace, eager
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0]):
+        banked_scatter(big, i_big, u_big, 8, "xor")
+    with torch.cuda.graph(graphs[1]):
+        banked_scatter_pair(small_k, small_v, i_small, u_k, u_v, 16,
+                            "offset")
+    want = {0: [banked_scatter_plain(torch.zeros_like(big), i_big, u_big,
+                                     8, "xor")],
+            1: [banked_scatter_plain(torch.zeros_like(small_k), i_small,
+                                     u_k, 16, "offset"),
+                banked_scatter_plain(torch.zeros_like(small_v), i_small,
+                                     u_v, 16, "offset")]}
+    for g in (1, 0, 1):
+        for t in (big, small_k, small_v):
+            t.zero_()
+        graphs[g].replay()
+        torch.cuda.synchronize()
+        for got, w in zip(([big], [small_k, small_v])[g], want[g]):
+            assert torch.equal(got, w)
+        assert not claim_words(big.device, 4096).any()
+
+
+def test_claimed_scatter_refuses_a_first_call_during_a_capture(
+        cuda, monkeypatch):
+    """With no claim workspace on the card yet, or one too small, a
+    claimed scatter inside a capture is refused before it launches or
+    allocates anything; a staged one (at most 256 indices) needs none."""
+    from repro_torch.kernels.banked_scatter import ops
+    monkeypatch.setattr(ops, "_CLAIMS", {})
+    table = torch.zeros((1024, 16), device=cuda)
+    idx = torch.randint(0, 1024, (300,), device=cuda)
+    upd = torch.ones((300, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            banked_scatter(table, idx, upd)
+    assert not ops._CLAIMS
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        banked_scatter(table, idx[:256], upd[:256])
+    assert not ops._CLAIMS
+    banked_scatter(table, idx, upd)                     # eager: makes it
+    grown = torch.zeros((2048, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            banked_scatter(grown, idx, upd)
+    assert ops._CLAIMS[table.device].numel() == 1024
+
+
 @pytest.mark.parametrize("arch", ["16B", "12B", "6B-offset"])
 def test_row_kernels_on_the_64_bit_index_path(cuda, arch):
     """A table of more than 2^31 - 1 rows (one byte each) takes the 64-bit

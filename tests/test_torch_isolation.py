@@ -1,13 +1,15 @@
 """repro_torch stands alone: no module of the port (nor chip_smoke.py)
 imports JAX, the reference package ``repro`` or the reference's
 ``benchmarks``, and a CPU smoke generation (through the serving CLI), the
-Table II CLI and the kernel micro-bench CLI run with all three blocked
-from import."""
+Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI and
+the autotune CLI run with all three blocked from import."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -62,6 +64,47 @@ def test_table2_cli_runs_with_the_reference_blocked():
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("transp")]
     assert len(lines) == 24
     assert "transpose128_16B,33.835,total=26087|" in out.stdout
+
+
+@pytest.mark.parametrize("section,count,first", [
+    ("table1", 6, "simt_core_16sp,0,alms=7113|m20k=34|dsp=32"),
+    ("fig9", 24, "fig9_64KB_4R-1W,64.24124513618678,footprint_alms=18286|"
+                 "norm_perf=0.911|perf_per_area=0.85")])
+def test_table1_and_fig9_clis_run_with_the_reference_blocked(section, count,
+                                                             first):
+    """``python -m repro_torch.bench.paper_tables --device cpu table1`` (and
+    ``fig9``), run as ``-m`` runs it, with JAX, ``repro`` and
+    ``benchmarks`` blocked."""
+    out = _run_blocked(
+        "import runpy\n"
+        f"sys.argv = ['paper_tables', '--device', 'cpu', '{section}']\n"
+        "runpy.run_module('repro_torch.bench.paper_tables',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    lines = [ln for ln in out.stdout.splitlines() if "," in ln]
+    assert len(lines) == count
+    assert lines[0] == first
+
+
+def test_autotune_cli_runs_with_the_reference_blocked():
+    """``python -m repro_torch.bench.autotune --smoke --device cpu``, run as
+    ``-m`` runs it, with JAX, ``repro`` and ``benchmarks`` blocked: the
+    transpose and serving cases, each strategy finding its expected
+    winner."""
+    out = _run_blocked(
+        "import runpy\n"
+        "sys.argv = ['autotune', '--smoke', '--device', 'cpu']\n"
+        "runpy.run_module('repro_torch.bench.autotune',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    lines = [ln for ln in out.stdout.splitlines() if "," in ln]
+    assert [ln.split(",")[0] for ln in lines] == [
+        "autotune_transpose32_exhaustive", "autotune_transpose32_hillclimb",
+        "autotune_serve_b4_p16_d8_exhaustive",
+        "autotune_serve_b4_p16_d8_hillclimb"]
+    assert all("|match=True|" in ln for ln in lines)
 
 
 def test_kernel_bench_cli_runs_with_the_reference_blocked():

@@ -308,3 +308,40 @@ def test_scatter_rules_pick_the_plain_versions_last_writers(arch):
                                     n_banks, mapping, shift)
         table[phys[keep]] = upd[keep]
         assert torch.equal(table, want)
+
+
+def test_claim_workspace_is_never_made_during_a_capture(monkeypatch):
+    """While the stream captures a CUDA graph, a claim workspace that is
+    missing or too small is refused before anything is allocated (its zero
+    fill would run only at that graph's replay, and a grown one would drop
+    the workspace earlier graphs address); one already made, large enough,
+    is used as it is.  Outside a capture a missing one is made zeroed, and
+    a grown one keeps the one it replaces alive."""
+    from repro_torch.kernels.banked_scatter import ops
+    monkeypatch.setattr(ops, "_CLAIMS", {})
+    monkeypatch.setattr(ops, "_RETIRED", [])
+    capturing = [True]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    card = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.claim_words(card, 300)
+    assert not ops._CLAIMS
+    made = torch.zeros(300, dtype=torch.int64)      # made eagerly before
+    ops._CLAIMS[card] = made
+    assert ops.claim_words(card, 300) is made
+    assert ops.claim_words(card, 17) is made
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.claim_words(card, 301)
+    with pytest.raises(RuntimeError, match="eagerly"):
+        ops.claim_words(torch.device("cuda", 1), 1)     # another card
+    assert ops._CLAIMS == {card: made} and not ops._RETIRED
+    capturing[0] = False
+    host = torch.device("cpu")
+    first = ops.claim_words(host, 6)
+    assert first.dtype == torch.int64 and first.numel() == 6
+    assert not first.any()
+    assert ops.claim_words(host, 5) is first
+    grown = ops.claim_words(host, 7)
+    assert grown.numel() == 7 and not grown.any()
+    assert ops._RETIRED == [first]
