@@ -64,6 +64,15 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                winners and two serving expectations, hillclimb never
                pricing more points than exhaustive; the path launches no
                kernel (its time is the cost engine's pricing);
+     cost_bench — the cost-engine benchmark
+               (``repro_torch.bench.cost_bench``) on the card: its CLI
+               with ``--smoke --check``, then the full priced cases, the
+               full million-op stream and the 4096² construction, each
+               held to the reference's gates and 16B pins
+               (``BENCH_cost.json``: 1613 ... 34701703); the full
+               registry of 14 memories (two-level points included) priced
+               on the card equals the CPU pricing on every case's trace
+               and a random masked trace; the path launches no kernel;
   6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
                (32, 32) × f32/bf16/int32, bit-equal, the FFT passes
                (4096, 0/3/5), (1024, 2) at the reference tests' tolerance,
@@ -1103,6 +1112,120 @@ def phase_figures(smi: str) -> dict:
             "beyond_paper": card["beyond_paper"]}
 
 
+#: the reference's 16B cycles of every cost-bench row (``BENCH_cost.json``,
+#: the full run): the pins the card's rows are held to
+COST_PINS = {"transpose32": 1613, "serve_b4_p16_d8": 2596,
+             "transpose64": 5791, "transpose128": 26087,
+             "fft4096r4": 64216, "serve_b8_p64_d64": 22168,
+             "stream_synthetic_serving": 17245144,
+             "pipelined_thunk_stream": 5580, "warm_cache_window": 71327,
+             "construct_transpose256": 135943,
+             "construct_transpose1024": 2169223,
+             "construct_transpose4096": 34701703}
+
+
+def phase_cost_bench(smi: str) -> dict:
+    """The cost-engine benchmark on the card: its CLI with ``--smoke
+    --check`` (the reference's gates on the small points), then the full
+    priced cases and the full million-op stream, held to the gates and to
+    the reference's 16B pins, and the 4096² construction priced once, for
+    its pin and its host peak (its rate is the full CLI's ``--check``);
+    the full registry (two-level points included) priced on the card
+    equals the CPU pricing; the path launches none of the seven kernels."""
+    import torch
+
+    from repro_torch.bench import cost_bench as CB
+    from repro_torch.core import arch as A
+    from repro_torch.core.cost_engine import cost_many
+    from repro_torch.core.trace import AddressTrace
+
+    def construct_once(n):
+        costs = []
+        peak = CB._peak_bytes(lambda: costs.append(cost_many(
+            [A.resolve("16B")], CB.construction_stream(n),
+            block_ops=CB.STREAM_BLOCK_OPS, device="cuda")[0]))
+        n_ops = 2 * n * n // 16
+        return {"workload": f"construct_transpose{n}", "n_ops": n_ops,
+                "block_ops": CB.STREAM_BLOCK_OPS,
+                "dense_matrix_bytes": n_ops * 16 * 4,
+                "stream_peak_bytes": int(peak), "peak_gated": True,
+                "peak_floor_bytes": CB.PEAK_FLOOR_BYTES,
+                "total_cycles_16B": costs[0].total_cycles}
+
+    entries = {**_entries(), **_fft_entries()}
+    for e in entries.values():
+        e.launches = 0
+    archs = [A.get(n) for n in CB.ARCH_NAMES]
+    out_dir = ROOT / "chiprun_out"
+    secs, rows = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return got
+
+    for r in timed("smoke_cli", lambda: CB.main(
+            ["--smoke", "--check", "--out",
+             str(out_dir / "cost_bench_smoke.json")])):
+        rows[f"smoke:{r['workload']}"] = r
+    cases = [(n, t) for n, t in CB._cases(False) if f"smoke:{n}" not in rows]
+    for name, trace in cases:
+        rows[name] = timed(name, lambda: CB.bench_case(name, trace, archs))
+    rows["stream_synthetic_serving"] = timed(
+        "stream_synthetic_serving",
+        lambda: CB.bench_million_op_stream(archs, smoke=False))
+    rows["construct_transpose4096"] = timed(
+        "construct_transpose4096", lambda: construct_once(4096))
+    launches = {name: e.launches for name, e in entries.items()}
+
+    # the full registry on the card against the CPU, on every case's trace
+    # and on a random masked trace with far addresses
+    registry = sorted(A.names())
+    rng = np.random.default_rng(26)
+    n = 3000
+    masked = AddressTrace(rng.integers(0, 1 << 24, (n, 16)),
+                          rng.integers(0, 3, n),
+                          np.sort(rng.integers(0, n // 3, n)),
+                          rng.random((n, 16)) > 0.3)
+    traces = dict(CB._cases(False))
+    traces["random_masked"] = masked
+
+    def registry_pricing(device):
+        return {name: cost_many(registry, t, device=device)
+                for name, t in traces.items()}
+
+    card = timed("registry_card", lambda: registry_pricing("cuda"))
+    host = registry_pricing("cpu")
+    launches_after = {name: e.launches for name, e in entries.items()}
+
+    full = [r for k, r in rows.items() if not k.startswith("smoke:")]
+    failures = CB.check(full)
+    got16 = {r["workload"]: r["total_cycles_16B"] for r in rows.values()}
+    checks = {
+        "full rows pass the reference's gates": not failures,
+        "every 16B pin": got16 == COST_PINS,
+        "registry of 14 on the card == CPU": len(registry) == 14
+        and card == host,
+        "two-level points priced": all(
+            n in registry for n in ("4x4B-g64", "2x8B-g32", "4x3B")),
+        "no kernel launched": not any(launches_after.values()),
+    }
+    log(f"[cost_bench] wall seconds on the card ({smi}): {secs}; kernel "
+        f"launches on the path: {launches}")
+    for r in rows.values():
+        log(f"[cost_bench] {r}")
+    log(f"[cost_bench] 16B cycles {got16}; failures {failures}; "
+        f"checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"cost bench checks failed: {checks}, "
+                             f"{failures}")
+    return {"seconds": secs, "nvidia_smi": smi, "launches": launches_after,
+            "rows": rows, "registry": registry}
+
+
 def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
     """The kernel pass and the plain pass on the same CUDA planes, rtol =
     atol = 1e-5 (tests/test_kernels.py:140-143); returns the plain output,
@@ -1379,34 +1502,45 @@ def _held(name, entry, what, kern, plain, err) -> None:
                              f"{e}, launches {ran}")
 
 
-def _profiled_kernels(fn, tries: int = 3) -> list:
+def _profiled_kernels(fn, tries: int = 6) -> list:
     """The CUDA kernels (profiler events, in start order) that ``fn`` runs,
     by torch.profiler after a warm-up call: the session brackets ``fn``
-    between two ``fill_`` marker kernels and keeps what lies between.  A
-    short session now and then records no CUDA event at all; one that
-    lacks its markers is taken again, up to ``tries`` times."""
+    between ``fill_`` marker kernels on a float64 scalar and keeps what
+    lies between.  A session can drop its first kernel, so it opens with
+    two markers and needs one of them; a session that lacks its markers
+    is taken again, up to ``tries`` times, and what each such session
+    recorded goes into the error."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    mark = torch.zeros(1, device="cuda")
+    mark = torch.zeros(1, device="cuda", dtype=torch.float64)
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            mark.fill_(1)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            mark.fill_(2)
-            torch.cuda.synchronize()
+            for value in (1, 2, None, 3):
+                if value is None:
+                    fn()
+                else:
+                    mark.fill_(value)
+                torch.cuda.synchronize()
         kernels = sorted((e for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA),
                          key=lambda e: e.time_range.start)
-        # the two markers are the first and the last kernel
-        if len(kernels) >= 2 and kernels[0].name == kernels[-1].name:
-            return kernels[1:-1]
+        # the closing marker is the last kernel; one or two open the run
+        lead = 0
+        while (lead < 2 and lead < len(kernels) - 1
+               and kernels[lead].name == kernels[-1].name):
+            lead += 1
+        if lead:
+            return kernels[lead:-1]
+        seen.append((len(kernels), [e.name[:40] for e in kernels[:1]
+                                    + kernels[-1:]]))
+        time.sleep(0.5)
     raise AssertionError(f"torch.profiler recorded no marker kernels in "
-                         f"{tries} sessions")
+                         f"{tries} sessions (CUDA events, first and last "
+                         f"kernel of each: {seen})")
 
 
 def phase_controllers() -> dict:
@@ -1894,6 +2028,7 @@ def main() -> int:
     record["cost"] = phase_cost(engine)
     record["tables"] = phase_tables()
     record["figures"] = phase_figures(smi)
+    record["cost_bench"] = phase_cost_bench(smi)
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
     record["controllers"] = phase_controllers()

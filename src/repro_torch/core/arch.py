@@ -7,15 +7,17 @@
   * ``BankedMemory`` / ``MultiPortMemory`` — the two families of paper
     §I/§III, wrapping a frozen ``MemSpec``; banked memories own the
     ``BankedLayout`` logical↔physical row math the KV pool and the CUDA
-    gather/scatter kernels share.
+    gather/scatter kernels share.  ``TwoLevelBankedMemory`` is the
+    hierarchical O-macro × I-bank shape (no flat layout).
   * ``run_program`` — an ISA program on the SIMT VM, priced on the card;
   * a string-keyed registry: ``get("16B-offset")`` resolves the nine paper
     architectures and parses constructible names (``"32B-xor"``,
-    ``"12B"``, ``"8R-1W"``, ``"16B-offset-s2"``, ``"16B-bcast"``).
+    ``"12B"``, ``"8R-1W"``, ``"16B-offset-s2"``, ``"16B-bcast"``,
+    ``"4x4B-g64"``).
 
-Two-level (``{O}x{I}B``) and degraded (``...!d{b}``) names parse to
-``NotImplementedError``: those variants come with a later slice, and a name
-that would be mispriced is refused instead.
+Degraded (``...!d{b}``) names parse to ``NotImplementedError``: that
+variant is not ported yet, and a name that would be mispriced is refused
+instead.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.core.bankmap import BANK_MAPS, bank_of
 from repro_torch.core.conflicts import max_conflicts, max_conflicts_broadcast
 from repro_torch.core.memsim import (LANES, PAPER_MEMORIES, MemSpec,
                                      TraceCost, banked as _banked_spec,
-                                     multiport as _multiport_spec)
+                                     multiport as _multiport_spec,
+                                     two_level as _two_level_spec)
 
 
 # --------------------------------------------------------------------------
@@ -201,6 +204,31 @@ class MemoryArchitecture:
         return cost_many([self], addr_trace, block_ops=block_ops,
                          device=device)[0]
 
+    def _cost_loop(self, addr_trace, device="cuda") -> TraceCost:
+        """The per-architecture costing path: one ``op_cycles`` batch and
+        one host sync per op kind.  The independent check the engine is
+        held to, and the loop baseline ``bench.cost_bench`` times
+        ``cost_many`` against."""
+        from repro_torch.core import trace as tr
+        cost = TraceCost(compute_cycles=int(addr_trace.compute_cycles))
+        for kind, is_write, cyc_attr, n_attr in (
+                (tr.KIND_LOAD, False, "load_cycles", "n_load_ops"),
+                (tr.KIND_TW, False, "tw_load_cycles", "n_tw_ops"),
+                (tr.KIND_STORE, True, "store_cycles", "n_store_ops")):
+            sub = addr_trace.of_kind(kind)
+            if not sub.n_ops:
+                continue
+            mask = (None if sub.mask is None
+                    else torch.from_numpy(sub.mask).to(device))
+            cyc = int(self.op_cycles(torch.from_numpy(sub.addrs).to(device),
+                                     mask, is_write).sum())
+            cyc += sub.n_instructions * self._instruction_overhead(is_write)
+            setattr(cost, cyc_attr, cyc)
+            setattr(cost, n_attr, sub.n_ops)
+        for k in ("fp", "int", "imm", "other"):
+            setattr(cost, f"{k}_ops", int(addr_trace.op_counts.get(k, 0)))
+        return cost
+
     def run_program(self, program, init_memory=None, execute: bool = True,
                     device="cuda"):
         """Run (and/or cost) an ISA program on this memory (see isa.vm):
@@ -262,9 +290,8 @@ class BankedMemory(MemoryArchitecture):
 
     @property
     def total_banks(self) -> int:
-        """Flat bank count the arbiter sees (the bank count: two-level
-        memories, whose inner × outer levels multiply, are not ported)."""
-        return self.n_banks
+        """Flat bank count the arbiter sees (inner × outer for two-level)."""
+        return self.spec.total_banks
 
     @property
     def layout(self) -> BankedLayout:
@@ -278,12 +305,56 @@ class BankedMemory(MemoryArchitecture):
     def op_cycles(self, addrs, mask=None, is_write=False):
         banks = self.banks_of(addrs)
         if self.broadcast and not is_write:
-            return max_conflicts_broadcast(addrs, banks, self.n_banks, mask)
-        return max_conflicts(banks, self.n_banks, mask)
+            return max_conflicts_broadcast(addrs, banks, self.total_banks,
+                                           mask)
+        return max_conflicts(banks, self.total_banks, mask)
 
     def _instruction_overhead(self, is_write: bool) -> int:
-        return (ctl.write_overhead(self.n_banks) if is_write
-                else ctl.read_overhead(self.n_banks))
+        return (ctl.write_overhead(self.total_banks) if is_write
+                else ctl.read_overhead(self.total_banks))
+
+
+class TwoLevelBankedMemory(BankedMemory):
+    """Hierarchical two-level banked memory: ``outer_banks`` memory macros
+    × ``n_banks`` inner banks each.
+
+    The outer macro is selected by address granule,
+    ``outer = (addr // outer_granule) % outer_banks``, and the inner bank
+    by the spec's bank map, so the flat bank id the carry-chain arbiter
+    sees is ``inner + n_banks · outer``.  With the default granule
+    (``= n_banks``, power of two, lsb map) the composite is a flat
+    ``total_banks`` lsb memory.  Named ``{O}x{I}B[-{mapping}][-g{G}]``.
+
+    The flat bank-major ``BankedLayout`` does not apply to a macro
+    hierarchy, so ``layout`` is ``None``, as for the multi-port memories.
+    """
+
+    def __init__(self, outer: int = 2, inner: int = 8,
+                 granule: int | None = None, mapping: str = "lsb",
+                 spec: MemSpec | None = None):
+        if spec is None:
+            spec = _two_level_spec(outer, inner, granule, mapping)
+        if not spec.is_two_level:
+            raise ValueError(f"{spec.name} is not a two-level spec")
+        super().__init__(spec=spec)
+
+    @property
+    def outer_banks(self) -> int:
+        return self.spec.outer_banks
+
+    @property
+    def outer_granule(self) -> int:
+        return self.spec.outer_granule
+
+    @property
+    def layout(self) -> None:
+        return None
+
+    def banks_of(self, addrs: torch.Tensor) -> torch.Tensor:
+        addrs = addrs.to(torch.int32)
+        inner = super().banks_of(addrs)
+        outer = (addrs // self.outer_granule) % self.outer_banks
+        return (inner + self.n_banks * outer).to(torch.int32)
 
 
 class MultiPortMemory(MemoryArchitecture):
@@ -331,6 +402,8 @@ class MultiPortMemory(MemoryArchitecture):
 def from_spec(spec: MemSpec) -> MemoryArchitecture:
     """Wrap a frozen MemSpec in its architecture class."""
     if spec.is_banked:
+        if spec.is_two_level:
+            return TwoLevelBankedMemory(spec=spec)
         return BankedMemory(spec=spec)
     return MultiPortMemory(spec=spec)
 
@@ -373,10 +446,6 @@ def _parse(name: str) -> MemoryArchitecture | None:
         raise NotImplementedError(
             f"{name!r} is a degraded (bank-offline) variant; the port "
             f"brings degraded memories with the fault-tolerance slice")
-    if _TWO_LEVEL_NAME.match(name):
-        raise NotImplementedError(
-            f"{name!r} is a two-level banked memory; the port brings "
-            f"two-level memories with the trace-cost slice")
     m = _BANKED_NAME.match(name)
     if m:
         banks = int(m.group("banks"))
@@ -391,6 +460,20 @@ def _parse(name: str) -> MemoryArchitecture | None:
             return None                 # only the offset map has a shift
         return BankedMemory(banks, mapping, shift=int(m.group("shift") or 1),
                             broadcast=bcast)
+    m = _TWO_LEVEL_NAME.match(name)
+    if m:
+        outer, inner = int(m.group("outer")), int(m.group("inner"))
+        mapping = m.group("mapping") or "lsb"
+        if outer < 2 or mapping not in BANK_MAPS:
+            return None
+        if not _map_takes_banks(mapping, inner):
+            return None
+        gran = int(m.group("gran")) if m.group("gran") else None
+        if gran is not None and (gran < 1 or gran == inner):
+            # "-g{inner}" is the default granule: the canonical name drops
+            # the suffix, so the explicit form must not mint an alias
+            return None
+        return TwoLevelBankedMemory(outer, inner, gran, mapping)
     m = _MULTIPORT_NAME.match(name)
     if m:
         if not int(m.group("r")) or not int(m.group("w")):
@@ -435,8 +518,13 @@ PAPER_ARCHITECTURES: tuple[MemoryArchitecture, ...] = tuple(
 TRANSPOSE_ARCHITECTURES: tuple[MemoryArchitecture, ...] = tuple(
     a for a in PAPER_ARCHITECTURES if a.name != "4R-1W-VB")
 
-#: Beyond-paper non-power-of-two lattice points (the two-level points of
-#: the reference lattice come with the two-level slice).
+#: Beyond-paper lattice points exercising the generalized bank formula:
+#: non-power-of-two modulo maps ("12B", "6B-offset") and two-level
+#: macro × bank shapes ("4x4B-g64", "2x8B-g32", "4x3B", the last with a
+#: non-power-of-two inner level).
 EXTENDED_LATTICE_ARCHITECTURES: tuple[MemoryArchitecture, ...] = tuple(
     register(from_spec(s)) for s in (_banked_spec(12, "lsb"),
-                                     _banked_spec(6, "offset")))
+                                     _banked_spec(6, "offset"),
+                                     _two_level_spec(4, 4, granule=64),
+                                     _two_level_spec(2, 8, granule=32),
+                                     _two_level_spec(4, 3)))

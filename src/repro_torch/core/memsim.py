@@ -1,12 +1,13 @@
 """Memory descriptors and trace accounting (port of ``repro.core.memsim``).
 
 Two families (paper §I, §III): ``banked`` memories (B banks under a bank
-map; per-op cycles = max per-bank popcount) and replicated ``multiport``
+map; per-op cycles = max per-bank popcount), with hierarchical two-level
+shapes (``two_level``: O macros × I banks), and replicated ``multiport``
 memories (nR-mW; the 4R-1W-VB variant arbitrates writes over 4
 pseudo-banks).  fmax: 771 MHz for every memory except 4R-2W (600 MHz).
 
-The functional ``Memory`` and the hierarchical two-level and degraded
-variants are not ported yet (the ISA and fault slices bring them).
+The functional ``Memory`` and the degraded (bank-offline) variants are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,10 +35,29 @@ class MemSpec:
     write_ports: int = 1
     vb_write_banks: int = 0   # 4R-1W-VB: writes arbitrated over N pseudo-banks
     fmax_mhz: float = FMAX_DEFAULT_MHZ
+    #: hierarchical two-level banking: ``outer_banks`` memory macros, each
+    #: holding ``n_banks`` inner banks.  The outer level is selected by
+    #: address granule, ``outer = (addr // outer_granule) % outer_banks``;
+    #: the inner level applies ``mapping``.  The flat bank id the arbiter
+    #: sees is ``inner + n_banks * outer``.  ``0`` on both fields means a
+    #: single-level memory (the default everywhere).
+    outer_banks: int = 0
+    outer_granule: int = 0
 
     @property
     def is_banked(self) -> bool:
         return self.kind == "banked"
+
+    @property
+    def is_two_level(self) -> bool:
+        return self.kind == "banked" and self.outer_banks > 1
+
+    @property
+    def total_banks(self) -> int:
+        """Flat bank count the arbiter sees: inner × outer levels."""
+        if self.kind != "banked":
+            return 0
+        return self.n_banks * max(1, self.outer_banks)
 
 
 def banked(n_banks: int, mapping: str = "lsb", shift: int = 1,
@@ -51,6 +71,28 @@ def banked(n_banks: int, mapping: str = "lsb", shift: int = 1,
         suffix += "-bcast"
     return MemSpec(kind="banked", name=f"{n_banks}B{suffix}", n_banks=n_banks,
                    mapping=mapping, map_shift=shift, broadcast=broadcast)
+
+
+def two_level(outer: int, inner: int, granule: int | None = None,
+              mapping: str = "lsb") -> MemSpec:
+    """Hierarchical two-level banked memory: ``outer`` macros × ``inner``
+    banks each.  ``granule`` is the address run (in words) that stays in
+    one macro before the outer map rotates; the default ``inner`` makes a
+    power-of-two lsb composite identical to a flat ``outer*inner``-bank
+    lsb memory.  Names: ``{O}x{I}B[-{mapping}][-g{G}]`` (the granule
+    suffix only off the default)."""
+    if granule is None:
+        granule = inner
+    if outer < 2:
+        raise ValueError("two_level needs outer >= 2 (use banked() otherwise)")
+    if granule < 1:
+        raise ValueError("outer_granule must be >= 1")
+    suffix = "" if mapping == "lsb" else f"-{mapping}"
+    if granule != inner:
+        suffix += f"-g{granule}"
+    return MemSpec(kind="banked", name=f"{outer}x{inner}B{suffix}",
+                   n_banks=inner, mapping=mapping,
+                   outer_banks=outer, outer_granule=granule)
 
 
 def multiport(read_ports: int, write_ports: int, vb: bool = False) -> MemSpec:

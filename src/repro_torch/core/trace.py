@@ -94,9 +94,9 @@ class TraceContractError(ValueError):
 def _check_instr_monotonic(t: "AddressTrace", where: str) -> None:
     """The cheap streaming contract check: a block's instruction ids must be
     non-decreasing, or every distinct-instruction count downstream (the cost
-    engine's per-kind overhead accounting, ``_with_instr_base``'s dense
+    engine's per-kind overhead accounting, ``_renumbered``'s dense
     renumbering) silently goes wrong."""
-    if t.n_ops > 1 and bool(np.any(np.diff(t.instr) < 0)):
+    if _decreases(t.instr):
         raise TraceContractError(
             f"{where}: instruction ids must be non-decreasing within a "
             f"block (got a decrease; ids start {t.instr[:8].tolist()}...) — "
@@ -104,6 +104,39 @@ def _check_instr_monotonic(t: "AddressTrace", where: str) -> None:
 
 _KIND_NAMES = {"load": KIND_LOAD, "store": KIND_STORE, "tw": KIND_TW,
                "D": KIND_LOAD, "S": KIND_STORE, "TW": KIND_TW}
+
+
+def _decreases(ids: np.ndarray) -> bool:
+    """True when an id array breaks the schema's non-decreasing order.  Ids
+    in order are counted and renumbered by runs, without ``np.unique``'s
+    sort; ids out of order go through ``np.unique``."""
+    return ids.size > 1 and bool((ids[1:] < ids[:-1]).any())
+
+
+def _id_runs(ids: np.ndarray) -> tuple:
+    """(count of distinct ids, first id, last id) of a non-empty id array,
+    first and last in sorted order."""
+    if _decreases(ids):
+        ids = np.unique(ids)
+        return ids.size, int(ids[0]), int(ids[-1])
+    return (1 + int(np.count_nonzero(ids[1:] != ids[:-1])),
+            int(ids[0]), int(ids[-1]))
+
+
+def _dense_ids(instr: np.ndarray) -> tuple:
+    """Order-preserving dense renumbering of instruction ids onto 0, 1, ...
+    and the count of distinct ids (see ``_decreases``)."""
+    if not instr.size:
+        return instr.astype(np.int32), 0
+    if _decreases(instr):
+        _, dense = np.unique(instr, return_inverse=True)
+        dense = dense.astype(np.int32).reshape(-1)
+        return dense, int(dense.max()) + 1
+    change = np.empty(instr.size, np.int32)
+    change[0] = 0
+    np.not_equal(instr[1:], instr[:-1], out=change[1:])
+    dense = np.cumsum(change, dtype=np.int32)
+    return dense, int(dense[-1]) + 1
 
 
 def _kind_code(kind) -> int:
@@ -263,9 +296,9 @@ class AddressTrace:
         any_mask = any(t.mask is not None for t in nonempty)
         masks = []
         for t in nonempty:
-            _, dense = np.unique(t.instr, return_inverse=True)
-            instrs.append(dense.astype(np.int32) + off)
-            off += t.n_instructions
+            dense, n = _dense_ids(t.instr)
+            instrs.append(dense + off)
+            off += n
             if any_mask:
                 masks.append(np.ones_like(t.addrs, bool) if t.mask is None
                              else t.mask)
@@ -287,7 +320,7 @@ class AddressTrace:
 
     @property
     def n_instructions(self) -> int:
-        return len(np.unique(self.instr)) if self.n_ops else 0
+        return _dense_ids(self.instr)[1]
 
     @property
     def n_words(self) -> int:
@@ -355,17 +388,16 @@ class AddressTrace:
             prev_last = int(blk.instr[-1])
             yield blk
 
-    def _with_instr_base(self, base: int) -> "AddressTrace":
-        """This trace with instruction ids densely renumbered onto a global
-        id axis starting at ``base`` (order-preserving: ids are
-        non-decreasing per the schema)."""
+    def _renumbered(self, base: int) -> tuple:
+        """(this trace with instruction ids densely renumbered onto a
+        global id axis starting at ``base``, the count of distinct ids);
+        order-preserving: ids are non-decreasing per the schema."""
         if not self.n_ops:
-            return self
-        _, dense = np.unique(self.instr, return_inverse=True)
-        return AddressTrace(self.addrs, self.kinds,
-                            dense.astype(np.int32) + base, self.mask,
+            return self, 0
+        dense, n = _dense_ids(self.instr)
+        return AddressTrace(self.addrs, self.kinds, dense + base, self.mask,
                             self.compute_cycles, dict(self.op_counts),
-                            dict(self.meta))
+                            dict(self.meta)), n
 
     def with_compute(self, compute_cycles: int,
                      op_counts: dict | None = None) -> "AddressTrace":
@@ -477,8 +509,45 @@ class TraceStream:
                 f"TraceStream needs an iterable of AddressTrace blocks "
                 f"or a zero-arg callable returning one, got {blocks!r}")
         self._blocks = blocks
+        self._thunks: tuple | None = None
         self._consumed = False
         self.meta = dict(meta or {})
+
+    @classmethod
+    def from_thunks(cls, thunks, meta: dict | None = None) -> "TraceStream":
+        """A stream whose source blocks are built by independent zero-arg
+        callables, one block (or an iterable of blocks) per thunk, consumed
+        in thunk order.
+
+        Separate thunks, not one generator, are what let
+        ``cost_many(..., prefetch=N)`` build blocks on a worker pool while
+        the device prices earlier ones.  Thunks must be independent: each
+        may run on any thread, in any order relative to the others.
+        Iterating the stream serially calls them in order on the caller's
+        thread, so the serial and prefetched passes see the same blocks."""
+        thunks = tuple(thunks)
+        for t in thunks:
+            if not callable(t):
+                raise TypeError(f"from_thunks needs zero-arg callables, "
+                                f"got {t!r}")
+
+        def gen():
+            for t in thunks:
+                out = t()
+                if isinstance(out, AddressTrace):
+                    yield out
+                else:
+                    yield from out
+
+        stream = cls(gen, meta=meta)
+        stream._thunks = thunks
+        return stream
+
+    @property
+    def thunks(self) -> tuple | None:
+        """The construction thunks of a ``from_thunks`` stream (the
+        prefetch pipeline's handle on its parallelism), else None."""
+        return self._thunks
 
     def __iter__(self):
         """Iterate the raw SOURCE blocks (local instruction ids); use
@@ -526,8 +595,8 @@ class TraceStream:
             _check_instr_monotonic(src, "TraceStream.blocks")
             carry = seen_ids and bool(src.meta.get("instr_carry"))
             base = off - 1 if carry else off
-            renum = src._with_instr_base(base)
-            off = base + src.n_instructions
+            renum, n_instr = src._renumbered(base)
+            off = base + n_instr
             seen_ids = True
             yield from renum.blocks(block_ops)
 

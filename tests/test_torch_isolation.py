@@ -1,8 +1,8 @@
 """repro_torch stands alone: no module of the port (nor chip_smoke.py)
 imports JAX, the reference package ``repro`` or the reference's
 ``benchmarks``, and a CPU smoke generation (through the serving CLI), the
-Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI and
-the autotune CLI run with all three blocked from import."""
+Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
+autotune CLI and the cost bench run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -132,6 +132,34 @@ def test_kernel_bench_cli_runs_with_the_reference_blocked():
     assert "moe_dispatch_8192req_e16" in reference and len(reference) == 6
     assert [r[0] for r in rows] == reference
     assert all("|err=0.0|" in r[2] for r in rows)
+
+
+def test_cost_bench_runs_with_the_reference_blocked(tmp_path):
+    """``repro_torch.bench.cost_bench``'s rows (the transpose32 case, the
+    pipelined stream, the warm cache over the two-level registry and the
+    256² construction) and its CLI's check, with JAX, ``repro`` and
+    ``benchmarks`` blocked; the rows stay bit-equal and on the reference's
+    16B pins."""
+    out = _run_blocked(
+        "from repro_torch.bench import cost_bench as CB\n"
+        "from repro_torch.core import arch as A\n"
+        "archs = [A.get(n) for n in CB.ARCH_NAMES]\n"
+        "name, trace = next(iter(CB._cases(True, 'cpu')))\n"
+        "rows = [CB.bench_case(name, trace, archs, 'cpu'),\n"
+        "        CB.bench_pipelined(device='cpu'),\n"
+        "        CB.bench_warm_cache([A.get(n) for n in sorted(A.names())],\n"
+        "                            device='cpu'),\n"
+        "        CB.bench_construction(256, True, 'cpu')]\n"
+        "print([r['total_cycles_16B'] for r in rows])\n"
+        "assert all(r.get(k, True) is True for r in rows for k in (\n"
+        "    'cycles_equal', 'pipelined_bit_equal', 'warm_bit_equal',\n"
+        "    'construction_bit_equal'))\n"
+        "CB.main.__globals__['rows'] = lambda smoke, device: rows\n"
+        f"CB.main(['--device', 'cpu', '--out', r'{tmp_path / 'c.json'}'])\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert "[1613, 5580, 71327, 135943]" in out.stdout
+    assert (tmp_path / "c.json").exists()
 
 
 def test_cpu_serving_runs_with_jax_and_repro_blocked():
