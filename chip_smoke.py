@@ -40,6 +40,22 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                pricing on the 9 paper memories, and the 16B serving pins
                22168 (b8 p64 d64, page_len 8) and 2596 (b4 p16 d8,
                page_len 4) hold;
+     schedule — continuous batching (``ServeEngine.run_scheduler``) of the
+               same model: the reference CLI's day (8 requests at 1.5 a
+               tick, mixed contexts, max_seq 512) on 4 lanes; the paired
+               row launches are what the day's events imply (16 gathers a
+               decode tick, 16 scatters a decode tick and an admission),
+               no plain version runs; the same day with the paired entries
+               forced to their plain versions gives equal tokens and
+               pools, the scratch page included (tolerance 0); the live
+               traffic equals the simulation at 16 KV layers and prices on
+               the card as on the CPU, checked and unchecked; the day with
+               chunked prefill (2 pages a chunk) likewise, with the
+               unchunked day's tokens; the reference's pins (80 ops, 2800
+               cycles on 16B, 128 on 4R-2W, 8 ticks) priced on the card,
+               and 4R-1W first on the 48-request long day by
+               ``us_per_token``; tokens/s, time per decode tick and the
+               phase's wall time, beside the card's name and power limit;
   5. tables  — the paper tables' path through its CLI entry point
                (``repro_torch.bench.paper_tables.main``): Tables II and III
                priced on the card equal the CPU pricing, the 16B pins
@@ -294,13 +310,61 @@ def phase_kernels() -> dict:
     return {"max_abs_err": err, "cases": cases, "entries": entries}
 
 
+def _counted_path(tag: str, run, want) -> tuple:
+    """Drive a main path once (``run()``) with the row kernels' launch
+    counts set to 0 and every call of a plain row version counted, and
+    time it on the host to the end of its device work.  ``want(result)``
+    gives the launches the run's events imply: each must have been made
+    through the paired entry, and no plain version may have run.  Returns
+    (result, seconds, launches, launches by entry)."""
+    import torch
+
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+
+    # on CUDA tensors the wrappers must launch their kernels, never these
+    plain_calls = {"banked_gather_plain": 0, "banked_scatter_plain": 0}
+    originals = {}
+    for mod, name in ((G, "banked_gather_plain"), (S, "banked_scatter_plain")):
+        fn = originals[mod, name] = getattr(mod, name)
+
+        def call(*args, _fn=fn, _name=name, **kw):
+            plain_calls[_name] += 1
+            return _fn(*args, **kw)
+        setattr(mod, name, call)
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    launches = {"banked_gather": G.GATHERS.launches,
+                "banked_scatter": S.SCATTERS.launches}
+    entries = {"banked_gather": G.GATHERS.by_entry(),
+               "banked_scatter": S.SCATTERS.by_entry()}
+    want = want(result)
+    log(f"[{tag}] launches on the path: {launches} (expected {want}); by "
+        f"entry: {entries}; plain versions called: {plain_calls}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
+    if (entries["banked_gather"]["banked_gather_pair_launch"]
+            != want["banked_gather"]
+            or entries["banked_scatter"]["banked_scatter_pair_launch"]
+            != want["banked_scatter"] or any(plain_calls.values())):
+        raise AssertionError(f"[{tag}] the path left the paired kernels: "
+                             f"{entries}, plain calls {plain_calls}")
+    return result, secs, launches, entries
+
+
 def phase_serve() -> dict:
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.kernels.banked_gather import ops as G
-    from repro_torch.kernels.banked_scatter import ops as S
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeEngine
@@ -316,55 +380,17 @@ def phase_serve() -> dict:
                                                 (BATCH, PROMPT))
     engine.generate(prompts, max_new_tokens=2)       # warm-up (cuBLAS etc.)
 
-    # every call of a plain version during the run is counted: on CUDA
-    # tensors the wrappers must launch their kernels, never these
-    plain_calls = {"banked_gather_plain": 0, "banked_scatter_plain": 0}
-
-    def counted(mod, name):
-        fn = getattr(mod, name)
-
-        def call(*args, **kw):
-            plain_calls[name] += 1
-            return fn(*args, **kw)
-        return fn, call
-
-    originals = {}
-    for mod, name in ((G, "banked_gather_plain"), (S, "banked_scatter_plain")):
-        originals[mod, name], patched = counted(mod, name)
-        setattr(mod, name, patched)
-    G.GATHERS.launches = S.SCATTERS.launches = 0
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = engine.generate(prompts, max_new_tokens=NEW)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
-    launches = {"banked_gather": G.GATHERS.launches,
-                "banked_scatter": S.SCATTERS.launches}
-    entries = {"banked_gather": G.GATHERS.by_entry(),
-               "banked_scatter": S.SCATTERS.by_entry()}
     n_kv, steps = engine.n_kv_layers, NEW - 1
     # one launch per KV layer for its K and V pools: a gather and an
     # append per decode step, one ingest per layer after the prefill
-    want = {"banked_gather": n_kv * steps,
-            "banked_scatter": n_kv * steps + n_kv}
+    res, secs, launches, entries = _counted_path(
+        "serve", lambda: engine.generate(prompts, max_new_tokens=NEW),
+        lambda _: {"banked_gather": n_kv * steps,
+                   "banked_scatter": n_kv * steps + n_kv})
     log(f"[serve] llama3.2-1b full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}): {BATCH} requests x {PROMPT} prompt + {NEW} new "
         f"tokens in {secs:.3f} s = {BATCH * NEW / secs:.1f} tokens/s "
         f"(prefill included)")
-    log(f"[serve] launches on the path: {launches} (expected {want}); by "
-        f"entry: {entries}; plain versions called: {plain_calls}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if (entries["banked_gather"]["banked_gather_pair_launch"]
-            != want["banked_gather"]
-            or entries["banked_scatter"]["banked_scatter_pair_launch"]
-            != want["banked_scatter"] or any(plain_calls.values())):
-        raise AssertionError(f"the path left the paired kernels: {entries}, "
-                             f"plain calls {plain_calls}")
     tokens = res.tokens
     if tokens.shape != (BATCH, NEW) or tokens.min() < 0 or (
             tokens.max() >= cfg.vocab_size):
@@ -459,6 +485,209 @@ def phase_cost(engine) -> dict:
             raise AssertionError(f"{key}: {got} != {want}")
         pins[key] = got
     return {"live_total_cycles": totals, "pins": pins}
+
+
+#: the continuous-batching day: the reference CLI's documented example
+#: (8 requests at 1.5 a tick, mixed contexts) on 4 lanes, with a context
+#: budget of 512 tokens, so the long jobs' prompts are 256-383 tokens and
+#: a ragged read is 4 x 64 page lines a layer
+SCHED_REQUESTS, SCHED_RATE, SCHED_MAX_SEQ, SCHED_CHUNK = 8, 1.5, 512, 2
+#: the reference tests' pinned small traffic (tests/test_scheduler.py:32),
+#: (arrival, prompt_len, max_new)
+SCHED_PIN_TRAFFIC = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0),
+                     (2, 9, 5), (3, 12, 3))
+
+
+def _plain_pairs(G, S):
+    """The paired row entries as their plain versions (each table once)."""
+    def gather_pair(k, v, idx, *args):
+        return (G.banked_gather_plain(k, idx, *args),
+                G.banked_gather_plain(v, idx, *args))
+
+    def scatter_pair(k, v, idx, ku, vu, *args):
+        return (S.banked_scatter_plain(k, idx, ku, *args),
+                S.banked_scatter_plain(v, idx, vu, *args))
+    return gather_pair, scatter_pair
+
+
+def phase_schedule(engine, smi: str) -> dict:
+    """Continuous batching (``ServeEngine.run_scheduler``) of full-width
+    llama3.2-1b on the card: a seeded 8-request day through the paired row
+    kernels (launches as the day's events imply, no plain call), the same
+    day with the row entries forced to their plain versions (tokens and
+    every pool equal, tolerance 0), the live traffic against the
+    simulation and priced on the card against the CPU (checked and
+    unchecked), the day with chunked prefill, and the reference's pins."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.bench import scheduler_workload
+    from repro_torch.core.arch import PAPER_ARCHITECTURES
+    from repro_torch.core.cost_engine import cost_many
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import (Request, Scheduler,
+                                               scheduler_pool_config,
+                                               simulate_scheduler_stream,
+                                               synthesize_requests)
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+                      max_seq=SCHED_MAX_SEQ, mem_arch="16B",
+                      page_len=PAGE_LEN, device=engine.device)
+    reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
+                               context_dist="mixed", max_seq=SCHED_MAX_SEQ,
+                               seed=0, vocab_size=cfg.vocab_size)
+    n_kv = eng.n_kv_layers
+    sim_kw = dict(n_lanes=BATCH, max_seq=SCHED_MAX_SEQ, page_len=PAGE_LEN,
+                  n_kv_layers=n_kv)
+
+    # the counted run, each decode step also timed on the host to the end
+    # of its device work
+    step_s: list = []
+    step = eng._scheduler_step
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    eng._scheduler_step = timed_step
+    try:
+        # one paired launch a KV layer: a gather and an append per decode
+        # tick, one ingest scatter per admission
+        res, secs, launches, entries = _counted_path(
+            "schedule", lambda: eng.run_scheduler(reqs),
+            lambda r: {"banked_gather": n_kv * r.stats["decode_ticks"],
+                       "banked_scatter": n_kv * (r.stats["decode_ticks"]
+                                                 + len(reqs))})
+    finally:
+        del eng._scheduler_step
+    ticks, decode_ticks = res.ticks, res.stats["decode_ticks"]
+    n_tokens = sum(len(v) for v in res.outputs.values())
+    log(f"[schedule] {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}), {len(reqs)} requests "
+        f"(arrival rate {SCHED_RATE}, mixed contexts, max_seq "
+        f"{SCHED_MAX_SEQ}; prompts {sorted(r.prompt_len for r in reqs)}) "
+        f"on {BATCH} lanes: {ticks} ticks, {decode_ticks} decode ticks, "
+        f"{n_tokens} tokens in {secs:.3f} s = {n_tokens / secs:.1f} "
+        f"tokens/s, {secs / decode_ticks * 1e3:.2f} ms per decode tick "
+        f"(prefills included); a decode step alone: median "
+        f"{np.median(step_s) * 1e3:.2f} ms, max {max(step_s) * 1e3:.2f} ms "
+        f"({smi})")
+    for r in reqs:
+        out = res.outputs[r.rid]
+        if out.shape != (r.max_new_tokens,) or (out.size and (
+                out.min() < 0 or out.max() >= cfg.vocab_size)):
+            raise AssertionError(f"request {r.rid}: bad tokens {out}")
+    pools = eng.last_pools
+    live = eng.scheduler_stream()
+
+    # the same day with the paired entries forced to their plain versions
+    kernels = KV.banked_gather_pair, KV.banked_scatter_pair
+    KV.banked_gather_pair, KV.banked_scatter_pair = _plain_pairs(G, S)
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    try:
+        plain = eng.run_scheduler(reqs)
+    finally:
+        KV.banked_gather_pair, KV.banked_scatter_pair = kernels
+    plain_launches = G.GATHERS.launches + S.SCATTERS.launches
+    torch.cuda.synchronize()
+    same_tokens = all(np.array_equal(res.outputs[k], plain.outputs[k])
+                      for k in res.outputs) and (
+        sorted(res.outputs) == sorted(plain.outputs))
+    pool_err = max((a[h].float() - b[h].float()).abs().max().item()
+                   for a, b in zip(pools.values(),
+                                   eng.last_pools.values())
+                   for h in ("k", "v"))
+    same_pools = all(torch.equal(a[h], b[h])
+                     for a, b in zip(pools.values(), eng.last_pools.values())
+                     for h in ("k", "v"))
+    log(f"[schedule] the day with the row entries forced to their plain "
+        f"versions ({plain_launches} kernel launches): tokens equal "
+        f"{same_tokens}, all {2 * len(pools)} pools (the scratch page "
+        f"included) equal {same_pools}, max |diff| {pool_err} (tolerance "
+        f"0)")
+    if plain_launches or not same_tokens or not same_pools:
+        raise AssertionError("the kernels' day differs from the plain day")
+
+    # the live traffic == the simulation; priced on the card == CPU
+    live_t = live.materialize()
+    sim = simulate_scheduler_stream(eng.mem_arch, reqs, **sim_kw)
+    sim_t = sim.materialize()
+    live_eq = all(np.array_equal(getattr(live_t, f), getattr(sim_t, f))
+                  for f in ("addrs", "kinds", "instr", "mask"))
+    archs = list(PAPER_ARCHITECTURES)
+    on_card = cost_many(archs, live, device="cuda", checked=True)
+    if not (on_card == cost_many(archs, live, device="cuda", checked=False)
+            == cost_many(archs, sim, device="cpu", checked=True)
+            == cost_many(archs, live, device="cpu", checked=False)):
+        raise AssertionError("the day's pricing differs: card / CPU, "
+                             "checked / unchecked")
+    totals = {a.name: c.total_cycles for a, c in zip(archs, on_card)}
+    log(f"[schedule] live traffic: {live_t.n_ops} ops, equal to "
+        f"simulate_scheduler_stream at {n_kv} KV layers: {live_eq}; priced "
+        f"on the card == CPU, checked == unchecked: {totals}")
+    if not live_eq:
+        raise AssertionError("live scheduler trace != simulated trace")
+
+    # chunked prefill: live == sim, tokens equal to the unchunked day's
+    chunked = eng.run_scheduler(reqs, prefill_chunk_pages=SCHED_CHUNK)
+    ch_live = eng.scheduler_stream().materialize()
+    ch_sim = simulate_scheduler_stream(
+        eng.mem_arch, reqs, prefill_chunk_pages=SCHED_CHUNK,
+        **sim_kw).materialize()
+    ch_eq = all(np.array_equal(getattr(ch_live, f), getattr(ch_sim, f))
+                for f in ("addrs", "kinds", "instr", "mask"))
+    ch_tokens = all(np.array_equal(chunked.outputs[k], res.outputs[k])
+                    for k in res.outputs)
+    log(f"[schedule] chunked prefill ({SCHED_CHUNK} pages a chunk): "
+        f"{chunked.ticks} ticks, {chunked.stats['prefill_chunks']} chunks; "
+        f"live == sim {ch_eq}; tokens equal to the unchunked day's "
+        f"{ch_tokens}")
+    if not (ch_eq and ch_tokens):
+        raise AssertionError("chunked prefill differs")
+
+    # the reference's pins, priced on the card
+    pin_reqs = [Request(rid=i, arrival=a, prompt_len=p, max_new_tokens=m)
+                for i, (a, p, m) in enumerate(SCHED_PIN_TRAFFIC)]
+    pin_kw = dict(n_lanes=4, max_seq=32, page_len=8, n_kv_layers=2)
+    pin = simulate_scheduler_stream("16B", pin_reqs, **pin_kw)
+    c16, c4r = cost_many(["16B", "4R-2W"], pin, device="cuda", checked=True)
+    pin_sched = Scheduler(scheduler_pool_config("16B", 4, 32, 8),
+                          n_lanes=4, max_seq=32, n_kv_layers=2)
+    for _ in pin_sched.run(pin_reqs):
+        pass
+    n_ops = sum(b.n_ops for b in pin.blocks())
+    pins = {"ops": n_ops, "16B": c16.total_cycles,
+            "4R-2W": c4r.total_cycles, "ticks": pin_sched.now}
+    day = tune.search(workload=scheduler_workload(
+        n_requests=48, arrival_rate=0.5, context_dist="long", n_lanes=8,
+        max_seq=128, n_kv_layers=2, seed=0), objective="us_per_token",
+        device="cuda")
+    log(f"[schedule] reference pins on the card: {pins} (want ops 80, 16B "
+        f"2800, 4R-2W 128, ticks 8); us_per_token winner of the 48-request "
+        f"long day: {day[0].arch} ({day[0].objective:.4g} us a token; "
+        f"runner-up {day[1].arch} {day[1].objective:.4g})")
+    if pins != {"ops": 80, "16B": 2800, "4R-2W": 128, "ticks": 8} or (
+            day[0].arch != "4R-1W"):
+        raise AssertionError(f"reference pins missed: {pins}, "
+                             f"{day[0].arch}")
+    wall = time.perf_counter() - t_phase
+    log(f"[schedule] phase wall time {wall:.2f} s ({smi})")
+    return {"launches": launches, "entries": entries,
+            "requests": [(r.arrival, r.prompt_len, r.max_new_tokens)
+                         for r in reqs],
+            "ticks": ticks, "decode_ticks": decode_ticks,
+            "tokens": n_tokens, "run_s": secs, "tokens_per_s": n_tokens / secs,
+            "s_per_decode_tick": secs / decode_ticks,
+            "step_s": step_s, "max_abs_err": pool_err,
+            "total_cycles": totals, "chunked_ticks": chunked.ticks,
+            "pins": pins, "us_per_token_winner": day[0].arch,
+            "wall_s": wall, "nvidia_smi": smi}
 
 
 def _serving_inputs(engine) -> dict:
@@ -2026,6 +2255,7 @@ def main() -> int:
     record["serve"] = serve
     record["path_kernels"] = phase_path_kernels(engine)
     record["cost"] = phase_cost(engine)
+    record["schedule"] = phase_schedule(engine, smi)
     record["tables"] = phase_tables()
     record["figures"] = phase_figures(smi)
     record["cost_bench"] = phase_cost_bench(smi)
@@ -2065,10 +2295,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/banked_rows.cu",
             "replaces": replaces[name],
-            "launches": serve["launches"][name],
-            "entries": serve["entries"][name],
+            "launches": (serve["launches"][name]
+                         + record["schedule"]["launches"][name]),
+            "launches_by_path": {
+                "serve": serve["launches"][name],
+                "schedule": record["schedule"]["launches"][name]},
+            "entries": {"serve": serve["entries"][name],
+                        "schedule": record["schedule"]["entries"][name]},
             "max_abs_err": max(record["kernels"]["max_abs_err"][name],
                                record["path_kernels"]["max_abs_err"][name],
+                               record["schedule"]["max_abs_err"],
                                record["row_times"]["max_abs_err"][name],
                                record["figures"]["max_abs_err"].get(name,
                                                                     0.0)),

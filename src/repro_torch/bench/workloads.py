@@ -6,7 +6,8 @@ Table II: N×N matrix transpose (N ∈ {32, 64, 128}); Table III: 4096-point
 Cooley-Tukey FFT (radix ∈ {4, 8, 16}), functionally verified against numpy.
 ``serving_workload`` is a ``TraceWorkload``: paged-KV prefill + decode
 traffic lowered per-architecture (the page allocator follows the arch's
-bank map).  The whole-model and scheduler workloads come with later slices.
+bank map); ``scheduler_workload`` is a continuous-batching serving day.
+The whole-model workload comes with a later slice.
 """
 from __future__ import annotations
 
@@ -51,6 +52,15 @@ def fft_workload(n: int = 4096, radix: int = 4, seed: int = 0) -> Workload:
                     meta={"n": n, "radix": radix})
 
 
+def _layout_key(arch):
+    """The lowering key of the serving traces: they depend only on the
+    architecture's banked layout (every layout-free memory prices the
+    canonical 16-bank LSB pool's stream)."""
+    lay = arch.layout
+    return ("dense-canonical" if lay is None
+            else (lay.n_banks, lay.mapping, lay.shift))
+
+
 def serving_workload(batch: int = 4, prompt_len: int = 32,
                      decode_steps: int = 32, page_len: int = 8,
                      n_kv_layers: int = 2, name: str | None = None,
@@ -77,18 +87,13 @@ def serving_workload(batch: int = 4, prompt_len: int = 32,
     def stream_fn(arch):
         return simulate_serving_stream(arch, **kw)
 
-    def lowering_key(arch):
-        lay = arch.layout
-        return ("dense-canonical" if lay is None
-                else (lay.n_banks, lay.mapping, lay.shift))
-
     return TraceWorkload(
         name=name or f"serve_b{batch}_p{prompt_len}_d{decode_steps}",
         trace_fn=trace_fn,
         meta={"batch": batch, "prompt_len": prompt_len,
               "decode_steps": decode_steps, "page_len": page_len,
               "n_kv_layers": n_kv_layers},
-        lowering_key=lowering_key,
+        lowering_key=_layout_key,
         stream_fn=stream_fn)
 
 
@@ -100,10 +105,47 @@ def model_workload(*args, **kwargs) -> TraceWorkload:
         "slice (models/trace.py is not ported yet)")
 
 
-def scheduler_workload(*args, **kwargs) -> TraceWorkload:
-    """Continuous-batching serving traffic
-    (``repro.bench.scheduler_workload``): comes with the port's scheduler
-    slice."""
-    raise NotImplementedError(
-        "scheduler_workload comes with the port's scheduler slice "
-        "(serving/scheduler.py is not ported yet)")
+def scheduler_workload(n_requests: int = 64, arrival_rate: float = 1.0,
+                       context_dist: str = "mixed", n_lanes: int = 16,
+                       max_seq: int = 256, page_len: int = 8,
+                       n_kv_layers: int = 2, policy: str = "seq-skew",
+                       seed: int = 0, name: str | None = None
+                       ) -> TraceWorkload:
+    """Continuous-batching serving traffic (one seeded serving day:
+    ``n_requests`` jobs at ``arrival_rate`` with ``context_dist`` context
+    lengths, scheduled lane-ragged by ``repro_torch.serving.scheduler``) as
+    a sweep/tune workload.
+
+    Like ``serving_workload`` the lowering is per banked layout (the
+    scheduler's page pool places pages under the arch's bank map, skewed by
+    ``policy``), cached per ``lowering_key`` and priced in O(block) memory
+    through the streaming ``Trace`` protocol.  ``meta["n_tokens"]`` (the
+    day's generated tokens) feeds the ``us_per_token`` tune objective.
+    """
+    from repro_torch.serving.scheduler import (simulate_scheduler_stream,
+                                               synthesize_requests,
+                                               total_new_tokens)
+    reqs = synthesize_requests(n_requests, arrival_rate=arrival_rate,
+                               context_dist=context_dist, max_seq=max_seq,
+                               seed=seed)
+    kw = dict(n_lanes=n_lanes, max_seq=max_seq, page_len=page_len,
+              n_kv_layers=n_kv_layers, policy=policy)
+
+    def stream_fn(arch):
+        return simulate_scheduler_stream(arch, reqs, **kw)
+
+    def trace_fn(arch):
+        # per-cell introspection only; sweeps price the stream
+        return stream_fn(arch).materialize()    # lint: allow-materialize
+
+    return TraceWorkload(
+        name=name or (f"sched_n{n_requests}_r{arrival_rate:g}"
+                      f"_{context_dist}_{policy}"),
+        trace_fn=trace_fn,
+        meta={"n_requests": n_requests, "arrival_rate": arrival_rate,
+              "context_dist": context_dist, "n_lanes": n_lanes,
+              "max_seq": max_seq, "page_len": page_len,
+              "n_kv_layers": n_kv_layers, "policy": policy, "seed": seed,
+              "n_tokens": total_new_tokens(reqs)},
+        lowering_key=_layout_key,
+        stream_fn=stream_fn)

@@ -190,11 +190,14 @@ class MemoryArchitecture:
         return cyc + self._instruction_overhead(is_write)
 
     def cost(self, addr_trace, block_ops: int | None = None,
-             device="cuda") -> TraceCost:
+             device="cuda", checked: bool | None = None) -> TraceCost:
         """Cost any trace (``AddressTrace``, ``TraceStream`` or raw block
         iterable) under this architecture: a single-arch call of
         ``cost_engine.cost_many`` (traces above ``STREAM_THRESHOLD`` ops
-        stream at ``DEFAULT_BLOCK_OPS``, bit-equal either way)."""
+        stream at ``DEFAULT_BLOCK_OPS``, bit-equal either way).
+        ``checked=True`` validates the Trace protocol contracts while
+        costing; the default defers to the process-wide ``checking()``
+        switch of ``repro_torch.analysis.contracts``."""
         from repro_torch.core.cost_engine import (DEFAULT_BLOCK_OPS,
                                                   STREAM_THRESHOLD, cost_many)
         if block_ops is None:
@@ -202,7 +205,7 @@ class MemoryArchitecture:
             if n is not None and n > STREAM_THRESHOLD:
                 block_ops = DEFAULT_BLOCK_OPS
         return cost_many([self], addr_trace, block_ops=block_ops,
-                         device=device)[0]
+                         device=device, checked=checked)[0]
 
     def _cost_loop(self, addr_trace, device="cuda") -> TraceCost:
         """The per-architecture costing path: one ``op_cycles`` batch and

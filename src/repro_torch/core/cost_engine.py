@@ -36,7 +36,9 @@ Two optional paths, each bit-equal to the plain serial pass:
     digest): a re-priced window that shares blocks with an earlier one
     sends only the new blocks to the device.
 
-The reference's ``checked=`` contract validation is not ported yet.
+``cost_many(..., checked=True)`` validates the Trace protocol on every
+block as it is priced (``repro_torch.analysis.contracts``); the default
+defers to the process-wide ``checking()`` switch.
 """
 from __future__ import annotations
 
@@ -485,7 +487,8 @@ def _upload(addrs: np.ndarray, mask: np.ndarray, kinds: np.ndarray,
 
 def cost_many(archs, trace, block_ops: int | None = None,
               device="cuda", prefetch: int | None = None,
-              cache: BlockCostCache | None = None) -> list[TraceCost]:
+              cache: BlockCostCache | None = None,
+              checked: bool | None = None) -> list[TraceCost]:
     """Price every architecture of ``archs`` against one trace, with the
     per-op conflict arithmetic on ``device`` and one device sync in all.
 
@@ -506,6 +509,14 @@ def cost_many(archs, trace, block_ops: int | None = None,
     their memoized partial on the host.  With a cache the engine prices
     block at a time instead of coalescing; missed partials stay on the
     device until they are folded every ``_FOLD_EVERY`` misses.
+
+    ``checked=True`` validates the Trace protocol contracts (globally
+    non-decreasing instruction ids, legal ``instr_carry`` chains, shapes,
+    non-negative addresses) on every block as it is priced, in the
+    stream's one pass, and raises ``TraceContractError`` on a violation;
+    ``False`` skips it, and ``None`` defers to the process-wide switch
+    ``repro_torch.analysis.contracts.checking()``.  A checked call prices
+    bit-equal to an unchecked one.
 
     Returns one ``TraceCost`` per architecture, in input order."""
     from repro_torch.core import arch as _arch
@@ -549,6 +560,16 @@ def cost_many(archs, trace, block_ops: int | None = None,
         if isinstance(src, TraceStream):     # dense traces: nothing to
             src = _prefetched(src, prefetch)  # build ahead of time
     blocks = src.blocks(block_ops)
+    if checked is None or checked:
+        # analysis imports core, never the reverse at module level: this
+        # lazy import is the one upward hook
+        from repro_torch.analysis import contracts as _contracts
+        if checked or _contracts.is_checking():
+            n_words = (src.meta.get("n_words")
+                       if isinstance(getattr(src, "meta", None), dict)
+                       else None)
+            blocks = _contracts.checked_blocks(blocks, n_words=n_words,
+                                               where="cost_many(checked)")
 
     if cache is not None:
         # block at a time: a hit adds its stored int64 partial on the host;

@@ -1,5 +1,5 @@
-"""Serving launcher: batched generation of ``--arch`` on the CUDA card (port
-of ``repro.launch.serve``'s batch path).
+"""Serving launcher: generation of ``--arch`` on the CUDA card (port of
+``repro.launch.serve``).
 
 The KV cache runs on the banked paged pool by default (``--kv-mode
 paged``); ``--mem-arch`` picks the memory architecture the pool banks on,
@@ -8,9 +8,18 @@ memories with the cost engine.  Weights are random, drawn from ``--seed``.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --cost
 
+``--schedule`` switches to continuous batching: a seeded multi-tenant day
+(``--n-requests`` jobs, ``--arrival-rate`` per tick, ``--context-dist``
+lengths) is driven lane-ragged through ``ServeEngine.run_scheduler`` with
+the ``--policy`` preferred-bank allocation; ``--cost`` prices the recorded
+scheduler trace the same way.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b --schedule \
+      --n-requests 8 --arrival-rate 1.5 --context-dist mixed --cost
+
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the host
-(the tests do).  (``--schedule`` and ``--fault-bank`` of the reference
-come with the scheduler and fault slices.)
+(the tests do).  The reference's ``--fault-bank`` / ``--fault-tick`` come
+with the port's fault slice.
 """
 from __future__ import annotations
 
@@ -51,6 +60,40 @@ def run_batch(args, engine, cfg):
                   f"{f.time_us(a.fmax_mhz):>9.2f}")
 
 
+def _cost_table(trace, extra_line: str, device):
+    """The trace priced on the ``COST_MEMORIES`` in one ``cost_many`` pass
+    on ``device``, printed as the reference CLI prints it."""
+    print(extra_line)
+    print(f"{'memory':<12}{'total_cyc':>10}{'total_us':>9}")
+    archs = [_arch.get(n) for n in COST_MEMORIES]
+    for a, c in zip(archs, cost_many(archs, trace, device=device)):
+        print(f"{a.name:<12}{c.total_cycles:>10}"
+              f"{c.time_us(a.fmax_mhz):>9.2f}")
+
+
+def run_schedule(args, engine, cfg):
+    from repro_torch.serving.scheduler import synthesize_requests
+    reqs = synthesize_requests(
+        args.n_requests, arrival_rate=args.arrival_rate,
+        context_dist=args.context_dist, max_seq=engine.max_seq,
+        seed=args.seed, vocab_size=cfg.vocab_size)
+    res = engine.run_scheduler(reqs, policy=args.policy)
+    for r in reqs:
+        out = res.outputs[r.rid]
+        print(f"req{r.rid} (t={r.arrival} prompt={r.prompt_len} "
+              f"new={r.max_new_tokens}): {out.tolist()}")
+    s = res.stats
+    print(f"\n{res.ticks} ticks, {int(s['decode_ticks'])} decode steps, "
+          f"lane occupancy {s['lane_occupancy']:.2f}, bank occupancy skew "
+          f"mad={s['bank_mad']:.2f} max/min={s['bank_max_min_ratio']:.2f} "
+          f"(policy={args.policy})")
+    if args.cost:
+        trace = (engine.scheduler_stream()
+                 .materialize())  # lint: allow-materialize — tiny CLI day
+        _cost_table(trace, f"\nscheduler KV traffic ({engine.n_kv_layers} "
+                           f"KV layers): {trace.n_ops} ops", engine.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="llama3.2-1b")
@@ -68,6 +111,19 @@ def main(argv=None):
     ap.add_argument("--cost", action="store_true",
                     help="price the recorded serving trace on the paper "
                          "memories (paged mode only)")
+    ap.add_argument("--schedule", action="store_true",
+                    help="continuous batching: schedule a synthesized "
+                         "multi-tenant day instead of one fixed batch")
+    ap.add_argument("--arrival-rate", type=float, default=1.0,
+                    help="mean request arrivals per scheduler tick")
+    ap.add_argument("--context-dist", default="mixed",
+                    help="context-length distribution "
+                         "(repro_torch.serving.scheduler.CONTEXT_DISTS)")
+    ap.add_argument("--n-requests", type=int, default=8,
+                    help="requests in the synthesized day (--schedule)")
+    ap.add_argument("--policy", default="seq-skew",
+                    help="preferred-bank allocation policy "
+                         "(kvcache.ALLOC_POLICIES: paper | seq-skew)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the CUDA card)")
@@ -75,6 +131,9 @@ def main(argv=None):
     if args.cost and args.kv_mode != "paged":
         ap.error("--cost needs --kv-mode paged (dense mode records no "
                  "serving traces)")
+    if args.schedule and args.kv_mode != "paged":
+        ap.error("--schedule needs --kv-mode paged (continuous batching "
+                 "lives on the banked page pool)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rc = RunConfig(remat="none", attn_impl="dense")
@@ -84,7 +143,10 @@ def main(argv=None):
                          max_seq=args.prompt_len + args.new_tokens + 4,
                          mem_arch=args.mem_arch, kv_mode=args.kv_mode,
                          page_len=args.page_len, device=args.device)
-    run_batch(args, engine, cfg)
+    if args.schedule:
+        run_schedule(args, engine, cfg)
+    else:
+        run_batch(args, engine, cfg)
 
 
 if __name__ == "__main__":

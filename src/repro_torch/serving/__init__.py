@@ -1,7 +1,37 @@
-"""Banked paged-KV serving on torch (port of ``repro.serving``)."""
-from repro_torch.serving.engine import GenerationResult, ServeEngine
-from repro_torch.serving.kvcache import (PagedKVConfig, simulate_serving_stream,
-                                         simulate_serving_trace)
+"""Banked paged-KV serving on torch (port of ``repro.serving``).
 
-__all__ = ["GenerationResult", "ServeEngine", "PagedKVConfig",
-           "simulate_serving_stream", "simulate_serving_trace"]
+``ServeEngine`` runs batched prefill + decode with its KV cache in banked
+page pools (``kvcache``), every decode step's KV traffic through the
+paired row kernels, and records each step's ``AddressTrace`` for
+``cost_many``.  ``serving.scheduler`` adds the continuous-batching control
+plane (request queues, a free-bitmap ``PagePool`` with a preferred-bank
+policy, whole serving days lowered to the streaming ``Trace`` protocol);
+``ServeEngine.run_scheduler`` drives the same schedule lane-ragged against
+the model.
+"""
+from repro_torch.serving.engine import (GenerationResult, SchedulerRunResult,
+                                        ServeEngine)
+from repro_torch.serving.kvcache import (ALLOC_POLICIES, PagedKVConfig,
+                                         PageTableState, allocate_pages,
+                                         bank_load_stats, decode_step_trace,
+                                         gather_pages, init_pages, pool_pages,
+                                         prefill_trace, preferred_banks,
+                                         resolve_policy, scatter_pages,
+                                         simulate_serving_stream,
+                                         simulate_serving_trace)
+from repro_torch.serving.scheduler import (PagePool, Request, Scheduler,
+                                           scheduler_step_trace,
+                                           simulate_scheduler_stream,
+                                           synthesize_requests)
+
+__all__ = [
+    "ServeEngine", "GenerationResult", "SchedulerRunResult",
+    "PagedKVConfig", "PageTableState",
+    "pool_pages", "init_pages", "allocate_pages", "bank_load_stats",
+    "gather_pages", "scatter_pages",
+    "decode_step_trace", "prefill_trace", "simulate_serving_trace",
+    "simulate_serving_stream",
+    "ALLOC_POLICIES", "preferred_banks", "resolve_policy",
+    "Request", "Scheduler", "PagePool", "scheduler_step_trace",
+    "simulate_scheduler_stream", "synthesize_requests",
+]

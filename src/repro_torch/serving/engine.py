@@ -15,14 +15,21 @@ through the CUDA kernels on those pools, one launch per layer for K and V:
 Every decode step also records its exact ``AddressTrace`` (``step_trace``
 / ``serving_trace``), so ``cost_many`` prices the serving traffic on the
 paper's memories.  ``kv_mode="dense"`` keeps the seq-contiguous reference
-cache the paged path is held against.  (The reference's continuous-batching
-``run_scheduler`` and its fault paths come with a later slice.)
+cache the paged path is held against.
+
+``run_scheduler`` is the continuous-batching half: a
+``scheduler.Scheduler`` admits, decodes and retires requests lane by lane,
+and each tick's lane-ragged decode step runs through the same paired row
+kernels, with per-lane positions (``_paged_attention_decode_ragged``).
+Its fault paths (fault plans, recovery, checkpoints) come with the port's
+fault slice (4b) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +46,36 @@ class GenerationResult:
     tokens: np.ndarray          # (B, new) generated ids
     prompt_len: int
     steps: int
+
+
+@dataclass
+class SchedulerRunResult:
+    """One continuous-batching run: per-request generated ids (rid-keyed;
+    a request's array has exactly ``max_new_tokens`` entries), the
+    scheduler's run statistics (makespan, lane occupancy, bank-occupancy
+    skew, the zero fault counters) and the tick count.  ``preempted`` and
+    ``checkpoint`` keep the reference's shape: preemption is the fault
+    slice's, so they stay False and None."""
+    outputs: dict[int, np.ndarray]
+    stats: dict
+    ticks: int
+    preempted: bool = False
+    checkpoint: str | None = None
+
+
+class _RaggedStep(NamedTuple):
+    """One ragged decode step's index and mask tensors on the device, the
+    same for every layer: the lanes' page lists (``ids``, (B·P,)), each
+    lane's current page (``cur``, (B,); idle lanes name the scratch page)
+    and its slots in the gathered view (``line``, (B, page_len)), per-lane
+    positions (``pos``), the slot each active lane writes (``hot``) and the
+    slots it may attend to (``valid``, both (B, P·page_len))."""
+    ids: torch.Tensor
+    cur: torch.Tensor
+    line: torch.Tensor
+    pos: torch.Tensor
+    hot: torch.Tensor
+    valid: torch.Tensor
 
 
 class ServeEngine:
@@ -64,8 +101,12 @@ class ServeEngine:
                        if kv_mode == "paged" else None)
         self._step_traces: list = []
         self._prefill_trace = None
+        self._sched_traces: list = []
+        self._sched_meta: dict = {}
         #: final PageTableState of the last paged generate
         self.last_pages: KV.PageTableState | None = None
+        #: the KV pools of the last ``run_scheduler`` (key -> {"k", "v"})
+        self.last_pools: dict | None = None
 
     # -- configuration -----------------------------------------------------
 
@@ -188,6 +229,294 @@ class ServeEngine:
                 pools[f"b{j}s{sb}"] = {"k": k_pool, "v": v_pool}
         return pools, pages
 
+    # -- continuous-batching (lane-ragged) decode path -----------------------
+
+    def _upload(self, *arrays) -> list:
+        """Host integer / bool arrays as int64 tensors on the engine's
+        device, in one copy: on the card from a pinned buffer, asynchronous
+        (a copy from pageable memory would wait for the device to
+        drain)."""
+        flat = [np.asarray(a).reshape(-1) for a in arrays]
+        sizes = [f.size for f in flat]
+        pinned = self.device.type == "cuda"
+        buf = torch.empty(sum(sizes), dtype=torch.int64, pin_memory=pinned)
+        np.concatenate(flat, out=buf.numpy(), casting="unsafe")
+        if pinned:
+            buf = buf.to(self.device, non_blocking=True)
+        return [t.reshape(np.shape(a)) for t, a in zip(buf.split(sizes),
+                                                         arrays)]
+
+    def _ragged_step(self, page_table, pos, active, scratch: int,
+                     tok) -> tuple:
+        """The device tensors of one ragged step from the scheduler's host
+        snapshots: each lane's current page and page line are picked on the
+        host (``min(pos // page_len, P - 1)``), so the step needs no device
+        sync.  Returns (``_RaggedStep``, the (B, 1) token tensor)."""
+        plen = self.kv_cfg.page_len
+        pt = np.asarray(page_table, np.int64)
+        pos = np.asarray(pos, np.int64)
+        active = np.asarray(active, bool)
+        b, n_pt = pt.shape
+        pg = np.minimum(pos // plen, n_pt - 1)
+        cur = np.where(active, np.maximum(pt[np.arange(b), pg], 0), scratch)
+        line = (pg * plen)[:, None] + np.arange(plen)[None, :]
+        ids, cur, line, pos_d, act, mapped, tok = self._upload(
+            np.maximum(pt, 0), cur, line, pos, active, pt >= 0,
+            np.asarray(tok, np.int64).reshape(b, 1))
+        idx = torch.arange(n_pt * plen, device=self.device)
+        act = act.bool()[:, None]
+        hot = (idx[None, :] == pos_d[:, None]) & act
+        valid = ((idx[None, :] <= pos_d[:, None]) & act
+                 & torch.repeat_interleave(mapped.bool(), plen, dim=1))
+        return _RaggedStep(ids.reshape(-1), cur, line, pos_d, hot,
+                           valid), tok
+
+    def _paged_attention_decode_ragged(self, cfg, p, x, cache, pos, *,
+                                       window: int = 0, step=None):
+        """``_paged_attention_decode`` with per-lane positions: each lane
+        attends up to its own position (``pos`` is (B,)) and writes back
+        its own current page.  Lanes with no sequence to decode insert
+        nothing and write to the reserved scratch page (the row kernels
+        have no lane predication, so idle lanes need a sink; the trace
+        predicates them off, see ``scheduler.scheduler_step_trace``).
+        ``step`` holds the step's index and mask tensors."""
+        kv = self.kv_cfg
+        b = x.shape[0]
+        s_all = step.hot.shape[1]
+        kvh, hd = cfg.n_kv_heads, cfg.hd
+        q, k_new, v_new = L._qkv(cfg, p, x, pos[:, None])
+        ck, cv = KV.gather_pages_pair(kv, cache["k"], cache["v"], step.ids)
+        ck = ck.reshape(b, s_all, kvh, hd)
+        cv = cv.reshape(b, s_all, kvh, hd)
+        hot = step.hot[:, :, None, None]
+        ck = torch.where(hot, k_new.to(ck.dtype), ck)
+        cv = torch.where(hot, v_new.to(cv.dtype), cv)
+        valid = step.valid
+        if window:
+            idx = torch.arange(s_all, device=x.device)
+            valid = valid & ((pos[:, None] - idx[None, :]) < window)
+        s = torch.einsum("bqkgh,btkh->bkgqt", q,
+                         ck.to(q.dtype)) / math.sqrt(hd)
+        s = L.softcap(s, cfg.attn_softcap)
+        s = torch.where(valid[:, None, None, None, :], s, L.NEG_INF)
+        pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bkgqt,btkh->bqkgh", pr, cv.to(q.dtype))
+        o = o.reshape(b, 1, cfg.n_heads, hd)
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+        # per-lane read-modify-write append of each lane's current page
+        line = step.line[:, :, None, None]
+        k_line = torch.take_along_dim(ck, line, dim=1).reshape(b, -1)
+        v_line = torch.take_along_dim(cv, line, dim=1).reshape(b, -1)
+        kp, vp = KV.scatter_pages_pair(kv, cache["k"], cache["v"], step.cur,
+                                       k_line, v_line)
+        return out, {"k": kp, "v": vp}
+
+    def _scheduler_step(self, params, tok, pools, page_table, pos, active,
+                        scratch: int):
+        """One lane-ragged full-model decode step over the page pools
+        (updated in place).  ``tok`` (B,) or (B, 1), ``page_table`` (B, P),
+        ``pos`` (B,) and ``active`` (B,) are host arrays: the scheduler's
+        snapshots, which own allocation (no in-step ``allocate_pages``).
+        Returns (logits, pools)."""
+        cfg, rc = self.cfg, self.rc
+        dtype = getattr(torch, rc.compute_dtype)
+        step, tok = self._ragged_step(page_table, pos, active, scratch, tok)
+        x = T._embed(cfg, params, tok, dtype)
+        attn_fn = functools.partial(self._paged_attention_decode_ragged,
+                                    step=step)
+        for sb in range(cfg.n_superblocks):
+            for j, (kind, is_moe) in enumerate(cfg.block_pattern()):
+                key = f"b{j}s{sb}"
+                x, pools[key] = T.apply_block_decode(
+                    cfg, rc, T.superblock_params(params, j, sb), x,
+                    pools[key], step.pos, kind, is_moe, j, attn_fn=attn_fn)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return T._unembed(cfg, params, x), pools
+
+    def _prefill_rows(self, prompt: np.ndarray):
+        """Prefill one request and lower its K/V to page rows: returns the
+        request's first generated token id and a per-pool dict of
+        ``(n_pref, row_width)`` row tensors, page ``k``'s row at index
+        ``k``, ready to scatter whenever the scheduler lands that page.
+        The rows are tensors of their own (never views of the prefill
+        cache), so held rows survive any in-place pool update.  K/V slots
+        past the prompt in its last page stay zero; every decode mask is
+        ``idx <= pos``, so a stale slot is never read before the decode
+        step that writes it."""
+        kv = self.kv_cfg
+        plen = int(prompt.shape[0])
+        n_pref = -(-plen // kv.page_len)
+        tokens = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int64,
+                                 device=self.device)
+        logits, cache = T.prefill(self.cfg, self.rc, self.params, tokens)
+        first = int(logits[0, -1, :self.cfg.vocab_size].argmax())
+
+        def rows_of(kc):
+            # kc: (1, t, KV, HD) with t ≤ plen (a sliding-window prefill
+            # keeps only the window)
+            t = kc.shape[1]
+            buf = kc.new_zeros((1, n_pref * kv.page_len) + kc.shape[2:])
+            buf[:, plen - t:plen] = kc
+            return buf.reshape(n_pref, kv.row_width)
+
+        rows = {}
+        for j, _ in enumerate(self.cfg.block_pattern()):
+            bc = cache["blocks"][f"b{j}"]
+            for sb in range(self.cfg.n_superblocks):
+                rows[f"b{j}s{sb}"] = {"k": rows_of(bc["k"][sb]),
+                                      "v": rows_of(bc["v"][sb])}
+        return first, rows
+
+    def _scatter_rows(self, pools, rows, page_ids, page_start: int = 0):
+        """Scatter one contiguous slice of held prefill rows into every
+        layer's pools at the scheduler-allocated ids (one
+        ``scatter_pages_pair`` call a layer): the live half of a prefill
+        chunk, or with ``page_start=0`` and all ids of a whole-prompt
+        admission."""
+        (ids,) = self._upload(np.asarray(page_ids, np.int64))
+        n = int(ids.shape[0])
+        for key, pair in rows.items():
+            k_pool, v_pool = KV.scatter_pages_pair(
+                self.kv_cfg, pools[key]["k"], pools[key]["v"], ids,
+                pair["k"][page_start:page_start + n],
+                pair["v"][page_start:page_start + n])
+            pools[key] = {"k": k_pool, "v": v_pool}
+        return pools
+
+    def _ingest_request(self, pools, prompt: np.ndarray, page_ids):
+        """Whole-prompt admission: prefill and scatter every prompt page
+        at once.  Returns the updated pools and the first token id."""
+        first, rows = self._prefill_rows(prompt)
+        return self._scatter_rows(pools, rows, page_ids), first
+
+    def run_scheduler(self, requests, policy="seq-skew", scheduler=None,
+                      fault_plan=None, guard=None, checkpoint_dir=None,
+                      resume_from=None,
+                      prefill_chunk_pages=None) -> SchedulerRunResult:
+        """Continuous-batching generation: drive lane-ragged decode steps
+        from ``scheduler.Scheduler`` (greedy sampling).
+
+        The scheduler that picks lanes and allocates pages also emits the
+        run's ``AddressTrace`` blocks, and this loop feeds the
+        scheduler's own page-table / position / active snapshots to the
+        step, so the recorded live trace (``scheduler_stream()``) is
+        bit-equal to ``scheduler.simulate_scheduler_stream`` on the same
+        traffic by construction.
+
+        ``prefill_chunk_pages=N`` enables chunked prefill: the prompt's
+        K/V rows are computed once at admission, held, and scattered chunk
+        by chunk as the scheduler's ``ev.prefill_chunks`` records land the
+        pages, while other lanes keep decoding.
+
+        Requests need prompt ``tokens``.  The live path needs an
+        attention-only model.  ``fault_plan``, ``guard``,
+        ``checkpoint_dir`` and ``resume_from`` come with the port's fault
+        slice (4b) and raise ``NotImplementedError``.  Each tick costs one
+        host-to-device copy (the step's indices, pinned) and one read of
+        the sampled tokens."""
+        from repro_torch.serving.scheduler import Scheduler, _fault_path
+        for name, value in (("fault_plan", fault_plan), ("guard", guard),
+                            ("checkpoint_dir", checkpoint_dir),
+                            ("resume_from", resume_from)):
+            if value is not None:
+                raise _fault_path(f"run_scheduler({name}=...)")
+        if self.kv_mode != "paged":
+            raise ValueError("run_scheduler requires kv_mode='paged'")
+        if any(kind != "attn" for kind, _ in self.cfg.block_pattern()):
+            raise NotImplementedError(
+                "run_scheduler supports attention-only models (per-lane "
+                "SSM state eviction/re-admission is not implemented); "
+                "hybrid traffic can still be simulated and costed via "
+                "scheduler.simulate_scheduler_stream")
+        sched = scheduler or Scheduler(
+            self.kv_cfg, n_lanes=self.max_batch, max_seq=self.max_seq,
+            policy=policy, n_kv_layers=self.n_kv_layers,
+            prefill_chunk_pages=prefill_chunk_pages)
+        kv = self.kv_cfg
+        dtype = getattr(torch, self.rc.compute_dtype)
+        scratch = sched.scratch_page or 0
+        lane_tok = np.zeros(self.max_batch, np.int64)
+        lane_rid = np.full(self.max_batch, -1, np.int64)
+        toks: dict[int, list] = {}
+        outputs: dict[int, np.ndarray] = {}
+        #: held prefill rows of lanes mid-chunked-prefill (lane -> rows)
+        pending: dict[int, dict] = {}
+        self._sched_traces = []
+        with torch.inference_mode():
+            pools = {
+                f"b{j}s{sb}": {h: torch.zeros((kv.n_pages, kv.row_width),
+                                              dtype=dtype, device=self.device)
+                               for h in ("k", "v")}
+                for j, _ in enumerate(self.cfg.block_pattern())
+                for sb in range(self.cfg.n_superblocks)}
+            for ev in sched.run(requests):
+                for c in ev.completed:
+                    outputs[c.request.rid] = np.asarray(
+                        toks.pop(c.request.rid, []), np.int32)
+                    lane_rid[c.lane] = -1
+                    pending.pop(c.lane, None)    # cancelled mid-prefill
+                for adm in ev.admitted:
+                    r = adm.request
+                    if r.tokens is None:
+                        raise ValueError(
+                            f"request {r.rid} has no prompt tokens; "
+                            f"synthesize with vocab_size= or attach tokens "
+                            f"for live runs")
+                    prompt = np.asarray(r.tokens, np.int32)
+                    if sched.prefill_chunk_pages is None:
+                        pools, first = self._ingest_request(pools, prompt,
+                                                            adm.page_ids)
+                    else:
+                        # chunked admission: prefill now, hold the page
+                        # rows; the chunk records (chunk 0 included)
+                        # scatter them as the scheduler lands the pages
+                        first, pending[adm.lane] = self._prefill_rows(prompt)
+                    lane_rid[adm.lane] = r.rid
+                    toks[r.rid] = [first] if r.max_new_tokens >= 1 else []
+                    lane_tok[adm.lane] = first
+                for chunk in ev.prefill_chunks:
+                    pools = self._scatter_rows(pools, pending[chunk["lane"]],
+                                               chunk["page_ids"],
+                                               chunk["page_start"])
+                    if chunk["done"]:
+                        del pending[chunk["lane"]]
+                if ev.decoded:
+                    logits, pools = self._scheduler_step(
+                        self.params, lane_tok, pools, ev.page_table, ev.pos,
+                        ev.active, scratch)
+                    nxt = logits[:, -1, :self.cfg.vocab_size].argmax(-1)
+                    nxt = nxt.cpu().numpy()     # the step's one device sync
+                    lane_tok = np.where(ev.active, nxt, lane_tok)
+                    for lane in np.flatnonzero(ev.active):
+                        toks[int(lane_rid[lane])].append(int(nxt[lane]))
+                self._sched_traces.extend(ev.traces)
+        self.last_pools = pools
+        self._sched_meta = {"what": "scheduler-live",
+                            "arch": self.mem_arch.name,
+                            "policy": sched.policy_name,
+                            "n_requests": len(outputs), "ticks": sched.now}
+        return SchedulerRunResult(outputs=outputs, stats=sched.stats(),
+                                  ticks=sched.now)
+
+    def scheduler_stream(self):
+        """The last ``run_scheduler``'s KV traffic as a re-iterable
+        ``TraceStream`` of the recorded per-tick blocks (bit-equal to the
+        simulated lowering of the same traffic)."""
+        from repro_torch.core.trace import TraceStream
+        if not self._sched_traces:
+            raise RuntimeError("no scheduler traces; run run_scheduler()")
+        return TraceStream(list(self._sched_traces),
+                           meta=dict(self._sched_meta))
+
+    def scheduler_cost(self, archs=None, block_ops: int | None = None,
+                       device=None):
+        """Price the last ``run_scheduler`` traffic with ``cost_many`` (on
+        the engine's device unless ``device`` says otherwise); ``archs``
+        defaults to this engine's ``mem_arch`` (one ``TraceCost``), a list
+        returns one ``TraceCost`` per entry."""
+        return self._price(self.scheduler_stream(), archs, block_ops,
+                           device)
+
     # -- dense reference path ----------------------------------------------
 
     def _pad_cache(self, cache, prompt_len: int):
@@ -292,14 +621,18 @@ class ServeEngine:
         (on the engine's device unless ``device`` says otherwise).
         ``archs`` defaults to this engine's ``mem_arch`` (one
         ``TraceCost``); a list returns one ``TraceCost`` per entry."""
+        return self._price(self.serving_stream(include_prefill), archs,
+                           block_ops, device)
+
+    def _price(self, stream, archs, block_ops, device):
+        """``cost_many`` of a recorded stream on ``device`` (default the
+        engine's): one ``TraceCost`` for ``mem_arch`` when ``archs`` is
+        None, else one per entry."""
         from repro_torch.core.cost_engine import cost_many
-        stream = self.serving_stream(include_prefill)
         device = self.device if device is None else device
-        if archs is None:
-            return cost_many([self.mem_arch], stream, block_ops=block_ops,
-                             device=device)[0]
-        return cost_many(list(archs), stream, block_ops=block_ops,
-                         device=device)
+        costs = cost_many([self.mem_arch] if archs is None else list(archs),
+                          stream, block_ops=block_ops, device=device)
+        return costs[0] if archs is None else costs
 
     def _trace_chunks(self, include_prefill: bool) -> list:
         chunks = list(self._step_traces)

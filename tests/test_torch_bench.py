@@ -142,10 +142,12 @@ def test_serving_workload_cells_equal_the_reference():
 
 
 def test_later_slices_workloads_raise():
+    """The whole-model workload is a later slice's and raises; the
+    scheduler workload, ported with the scheduler, is the reference's."""
     with pytest.raises(NotImplementedError):
         PB.model_workload("llama3_2_1b")
-    with pytest.raises(NotImplementedError):
-        PB.scheduler_workload(8)
+    got, want = PB.scheduler_workload(8), RB.scheduler_workload(8)
+    assert (got.name, got.meta) == (want.name, want.meta)
 
 
 def test_trace_costs_are_the_engines():

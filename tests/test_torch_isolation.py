@@ -2,7 +2,8 @@
 imports JAX, the reference package ``repro`` or the reference's
 ``benchmarks``, and a CPU smoke generation (through the serving CLI), the
 Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
-autotune CLI and the cost bench run with all three blocked from import."""
+autotune CLI, the cost bench and a scheduled serving day (``serve
+--schedule``) run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -170,6 +171,25 @@ def test_cpu_serving_runs_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
     assert "16B" in out.stdout and "4R-2W" in out.stdout
+
+
+def test_cpu_scheduled_serving_runs_with_jax_and_repro_blocked():
+    """``serve --schedule --smoke --device cpu --cost``: the reference's
+    documented continuous-batching day (8 requests at 1.5 a tick, mixed
+    contexts) with JAX, ``repro`` and ``benchmarks`` blocked; its traffic
+    (which the weights do not change) on the reference's cycles."""
+    out = _run_blocked(
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--smoke', '--device', 'cpu', '--schedule',"
+        " '--n-requests', '8', '--arrival-rate', '1.5', '--context-dist',"
+        " 'mixed', '--cost'])\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    lines = out.stdout.splitlines()
+    assert sum(ln.startswith("req") for ln in lines) == 8
+    assert "10 ticks, 8 decode steps" in out.stdout
+    assert "scheduler KV traffic (2 KV layers): 128 ops" in out.stdout
+    assert "16B               3356     4.35" in out.stdout
 
 
 def test_default_device_is_the_card():
