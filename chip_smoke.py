@@ -56,6 +56,20 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                and 4R-1W first on the 48-request long day by
                ``us_per_token``; tokens/s, time per decode tick and the
                phase's wall time, beside the card's name and power limit;
+     faults  — the same day under a fault plan with one of each
+               recoverable kind (bank 7 lost at tick 10, rid 6's page
+               corrupted at tick 14 and rebuilt by a re-prefill and 6
+               replayed decode steps, a decode step failing twice at tick
+               20): tokens equal to the fault-free day's; each migration
+               one paired gather and one paired scatter a layer, every
+               launch the day's events imply and none of a plain
+               version; the same faulted day with the row entries forced
+               to their plain versions equal in tokens and all 32 pools
+               (tolerance 0); live == sim; the day priced on the card as
+               on the CPU on ``16B`` and ``16B!d7``; then ``serve
+               --schedule --fault-bank 1 --fault-tick 4 --cost`` through
+               its ``main``; the phase's wall time beside the card's name
+               and power limit;
   5. tables  — the paper tables' path through its CLI entry point
                (``repro_torch.bench.paper_tables.main``): Tables II and III
                priced on the card equal the CPU pricing, the 16B pins
@@ -678,7 +692,7 @@ def phase_schedule(engine, smi: str) -> dict:
                              f"{day[0].arch}")
     wall = time.perf_counter() - t_phase
     log(f"[schedule] phase wall time {wall:.2f} s ({smi})")
-    return {"launches": launches, "entries": entries,
+    return {"outputs": res.outputs, "launches": launches, "entries": entries,
             "requests": [(r.arrival, r.prompt_len, r.max_new_tokens)
                          for r in reqs],
             "ticks": ticks, "decode_ticks": decode_ticks,
@@ -687,6 +701,190 @@ def phase_schedule(engine, smi: str) -> dict:
             "step_s": step_s, "max_abs_err": pool_err,
             "total_cycles": totals, "chunked_ticks": chunked.ticks,
             "pins": pins, "us_per_token_winner": day[0].arch,
+            "wall_s": wall, "nvidia_smi": smi}
+
+
+#: the faulted day: one of each recoverable fault kind on the schedule
+#: phase's day.  At tick 10 bank 7 holds 5 live pages of 3 lanes (the
+#: scratch page lives on bank 15); at tick 14 request 6 is resident on
+#: lane 1, past its prefill, 6 decode steps in; tick 20 is a decode tick
+#: (the fault-free schedule, which the scheduler reproduces on the host)
+FAULT_BANK = 7
+FAULT_EVENTS = ((10, "bank_offline", {"bank": FAULT_BANK}),
+                (14, "page_corrupt", {"rid": 6, "page_idx": 2}),
+                (20, "decode_transient", {"failures": 2}))
+
+
+def _row_launches(stream, n_kv: int) -> dict:
+    """The paired row launches a recorded scheduler day implies: per KV
+    layer, a gather and a scatter for each decode step (replays included)
+    and each migration, a scatter for each prefill ingest (re-prefills
+    included)."""
+    gathers = scatters = 0
+    for blk in stream:
+        what = blk.meta["what"]
+        gathers += what.startswith("sched_decode") or what == "fault_migrate"
+        scatters += 1
+    return {"banked_gather": n_kv * gathers,
+            "banked_scatter": n_kv * scatters}
+
+
+def phase_faults(engine, healthy: dict, smi: str) -> dict:
+    """Serving under recoverable faults on the card: the schedule phase's
+    day under a plan with a bank loss, an ECC page corruption and a
+    transient decode fault.  Tokens equal to the fault-free day's; the
+    migration burst and the recovery through the paired row kernels
+    (counted per call, no plain call); the same day through the plain
+    versions equal at tolerance 0, pools included; live == sim; the
+    faulted day priced on the card as on the CPU on the healthy and the
+    degraded memory; the serve CLI with ``--fault-bank``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core.cost_engine import cost_many
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.launch import serve
+    from repro_torch.runtime import FaultEvent, FaultPlan
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import (simulate_scheduler_stream,
+                                               synthesize_requests)
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+                      max_seq=SCHED_MAX_SEQ, mem_arch="16B",
+                      page_len=PAGE_LEN, device=engine.device)
+    reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
+                               context_dist="mixed", max_seq=SCHED_MAX_SEQ,
+                               seed=0, vocab_size=cfg.vocab_size)
+    plan = FaultPlan(tuple(FaultEvent(tick=t, kind=k, **kw)
+                           for t, k, kw in FAULT_EVENTS))
+    n_kv = eng.n_kv_layers
+
+    # each migration and each recovery timed and its launches counted
+    bursts: list = []
+
+    def counted(kind, fn, size):
+        def call(*args):
+            g0, s0 = G.GATHERS.launches, S.SCATTERS.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            bursts.append({"kind": kind, "n": size(*args),
+                           "s": time.perf_counter() - t0,
+                           "gathers": G.GATHERS.launches - g0,
+                           "scatters": S.SCATTERS.launches - s0})
+            return out
+        return call
+    eng._migrate_pages = counted("migrate", eng._migrate_pages,
+                                 lambda pools, old, new: len(old))
+    eng._recover_page = counted("recover", eng._recover_page,
+                                lambda pools, rec, *_: int(rec["steps"]))
+    try:
+        res, secs, launches, entries = _counted_path(
+            "faults", lambda: eng.run_scheduler(reqs, fault_plan=plan),
+            lambda _: _row_launches(eng.scheduler_stream(), n_kv))
+    finally:
+        del eng._migrate_pages, eng._recover_page
+    f = res.stats["faults"]
+    same_tokens = sorted(res.outputs) == sorted(healthy) and all(
+        np.array_equal(res.outputs[k], healthy[k]) for k in healthy)
+    mig = [b for b in bursts if b["kind"] == "migrate"]
+    rec = [b for b in bursts if b["kind"] == "recover"]
+    log(f"[faults] {cfg.name} on the schedule phase's day under "
+        f"{len(plan)} faults: {res.ticks} ticks, "
+        f"{res.stats['decode_ticks']} decode ticks in {secs:.3f} s; faults "
+        f"{f}; tokens equal to the fault-free day's: {same_tokens}")
+    log(f"[faults] migrations {mig} (want {n_kv} paired gathers and {n_kv} "
+        f"paired scatters each); recoveries {rec} (want {n_kv} scatters "
+        f"for the re-prefill, {n_kv} gathers and scatters a replayed step)")
+    if f != {"migrated_pages": f["migrated_pages"], "recoveries": 1,
+             "transients": 2, "preempts": 0, "dead_banks": [FAULT_BANK],
+             "degraded": True} or f["migrated_pages"] < 1 or (
+            not same_tokens):
+        raise AssertionError(f"faulted day: {f}, tokens equal "
+                             f"{same_tokens}")
+    if [(b["n"], b["gathers"], b["scatters"]) for b in mig] != [
+            (f["migrated_pages"], n_kv, n_kv)]:
+        raise AssertionError(f"the migration left the paired kernels: {mig}")
+    if len(rec) != 1 or rec[0]["n"] < 1 or (
+            (rec[0]["gathers"], rec[0]["scatters"])
+            != (n_kv * rec[0]["n"], n_kv * (rec[0]["n"] + 1))):
+        raise AssertionError(f"the recovery's launches: {rec}")
+    pools = eng.last_pools
+    live = eng.scheduler_stream()
+
+    # the same faulted day with the paired entries forced to their plain
+    # versions
+    kernels = KV.banked_gather_pair, KV.banked_scatter_pair
+    KV.banked_gather_pair, KV.banked_scatter_pair = _plain_pairs(G, S)
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    try:
+        plain = eng.run_scheduler(reqs, fault_plan=plan)
+    finally:
+        KV.banked_gather_pair, KV.banked_scatter_pair = kernels
+    plain_launches = G.GATHERS.launches + S.SCATTERS.launches
+    torch.cuda.synchronize()
+    same_plain = sorted(plain.outputs) == sorted(res.outputs) and all(
+        np.array_equal(res.outputs[k], plain.outputs[k])
+        for k in res.outputs)
+    pool_err = max((a[h].float() - b[h].float()).abs().max().item()
+                   for a, b in zip(pools.values(), eng.last_pools.values())
+                   for h in ("k", "v"))
+    same_pools = all(torch.equal(a[h], b[h])
+                     for a, b in zip(pools.values(), eng.last_pools.values())
+                     for h in ("k", "v"))
+    log(f"[faults] the faulted day with the row entries forced to their "
+        f"plain versions ({plain_launches} kernel launches): tokens equal "
+        f"{same_plain}, all {2 * len(pools)} pools equal {same_pools}, max "
+        f"|diff| {pool_err} (tolerance 0)")
+    if plain_launches or not same_plain or not same_pools:
+        raise AssertionError("the kernels' faulted day differs from the "
+                             "plain day")
+
+    # live == sim; priced on the card == CPU, healthy and degraded
+    sim = simulate_scheduler_stream(eng.mem_arch, reqs, n_lanes=BATCH,
+                                    max_seq=SCHED_MAX_SEQ, page_len=PAGE_LEN,
+                                    n_kv_layers=n_kv, fault_plan=plan)
+    live_t, sim_t = live.materialize(), sim.materialize()
+    live_eq = all(np.array_equal(getattr(live_t, k), getattr(sim_t, k))
+                  for k in ("addrs", "kinds", "instr", "mask"))
+    archs = [eng.mem_arch, eng.mem_arch.degrade(f["dead_banks"])]
+    on_card = cost_many(archs, live, device="cuda")
+    on_cpu = cost_many(archs, sim, device="cpu")
+    totals = {a.name: c.total_cycles for a, c in zip(archs, on_card)}
+    log(f"[faults] live traffic {live_t.n_ops} ops, equal to "
+        f"simulate_scheduler_stream with the plan: {live_eq}; priced on the "
+        f"card: {totals}, equal to the CPU: {on_card == on_cpu}")
+    if not live_eq or on_card != on_cpu or (
+            on_card[1].total_cycles < on_card[0].total_cycles):
+        raise AssertionError("faulted live != sim, or card pricing != CPU")
+
+    # the serve CLI with a bank loss, on the card
+    out = io.StringIO()
+    t_cli = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "llama3.2-1b",
+                    "--schedule", "--n-requests", "8",
+                    "--fault-bank", "1", "--fault-tick", "4", "--cost"])
+    cli_s = time.perf_counter() - t_cli
+    lines = out.getvalue().splitlines()
+    summary = [ln for ln in lines if ln.startswith("faults:")]
+    log(f"[faults] serve --schedule --fault-bank 1 --fault-tick 4 --cost: "
+        f"{cli_s:.2f} s; {summary}; last row: {lines[-1]!r}")
+    if (sum(ln.startswith("req") for ln in lines) != 8 or len(summary) != 1
+            or not lines[-1].endswith("(degraded survivors)")):
+        raise AssertionError(f"serve --fault-bank printed {lines}")
+    wall = time.perf_counter() - t_phase
+    log(f"[faults] phase wall time {wall:.2f} s ({smi})")
+    return {"launches": launches, "entries": entries, "faults": f,
+            "ticks": res.ticks, "decode_ticks": res.stats["decode_ticks"],
+            "run_s": secs, "bursts": bursts, "max_abs_err": pool_err,
+            "total_cycles": totals, "cli_s": cli_s, "cli_lines": lines,
             "wall_s": wall, "nvidia_smi": smi}
 
 
@@ -2256,6 +2454,8 @@ def main() -> int:
     record["path_kernels"] = phase_path_kernels(engine)
     record["cost"] = phase_cost(engine)
     record["schedule"] = phase_schedule(engine, smi)
+    healthy = record["schedule"].pop("outputs")
+    record["faults"] = phase_faults(engine, healthy, smi)
     record["tables"] = phase_tables()
     record["figures"] = phase_figures(smi)
     record["cost_bench"] = phase_cost_bench(smi)
@@ -2295,16 +2495,19 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/banked_rows.cu",
             "replaces": replaces[name],
-            "launches": (serve["launches"][name]
-                         + record["schedule"]["launches"][name]),
+            "launches": serve["launches"][name] + sum(
+                record[p]["launches"][name] for p in ("schedule", "faults")),
             "launches_by_path": {
                 "serve": serve["launches"][name],
-                "schedule": record["schedule"]["launches"][name]},
+                **{p: record[p]["launches"][name]
+                   for p in ("schedule", "faults")}},
             "entries": {"serve": serve["entries"][name],
-                        "schedule": record["schedule"]["entries"][name]},
+                        **{p: record[p]["entries"][name]
+                           for p in ("schedule", "faults")}},
             "max_abs_err": max(record["kernels"]["max_abs_err"][name],
                                record["path_kernels"]["max_abs_err"][name],
                                record["schedule"]["max_abs_err"],
+                               record["faults"]["max_abs_err"],
                                record["row_times"]["max_abs_err"][name],
                                record["figures"]["max_abs_err"].get(name,
                                                                     0.0)),

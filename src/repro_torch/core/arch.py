@@ -13,16 +13,13 @@
   * a string-keyed registry: ``get("16B-offset")`` resolves the nine paper
     architectures and parses constructible names (``"32B-xor"``,
     ``"12B"``, ``"8R-1W"``, ``"16B-offset-s2"``, ``"16B-bcast"``,
-    ``"4x4B-g64"``).
-
-Degraded (``...!d{b}``) names parse to ``NotImplementedError``: that
-variant is not ported yet, and a name that would be mispriced is refused
-instead.
+    ``"4x4B-g64"``) and degraded variants (``"16B-xor!d1+3"``: banks 1
+    and 3 offline), which resolve but are never registered.
 """
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -316,6 +313,11 @@ class BankedMemory(MemoryArchitecture):
         return (ctl.write_overhead(self.total_banks) if is_write
                 else ctl.read_overhead(self.total_banks))
 
+    def degrade(self, dead_banks) -> "DegradedBankedMemory":
+        """This memory with ``dead_banks`` offline: the variant that prices
+        the layout a ``bank_offline`` fault leaves behind."""
+        return DegradedBankedMemory(self.spec, dead_banks)
+
 
 class TwoLevelBankedMemory(BankedMemory):
     """Hierarchical two-level banked memory: ``outer_banks`` memory macros
@@ -358,6 +360,97 @@ class TwoLevelBankedMemory(BankedMemory):
         inner = super().banks_of(addrs)
         outer = (addrs // self.outer_granule) % self.outer_banks
         return (inner + self.n_banks * outer).to(torch.int32)
+
+
+def surviving_bank_remap(n_banks: int, dead_banks) -> tuple:
+    """The degraded-mode bank remap: each dead bank's requests are served
+    by its next surviving neighbor (wrap-around scan); surviving banks map
+    to themselves.  Returns a length-``n_banks`` tuple."""
+    dead = set(int(d) for d in dead_banks)
+    if not all(0 <= d < n_banks for d in dead):
+        raise ValueError(f"dead banks {sorted(dead)} out of range for "
+                         f"{n_banks} banks")
+    if len(dead) >= n_banks:
+        raise ValueError(f"cannot offline all {n_banks} banks")
+    out = []
+    for b in range(n_banks):
+        t = b
+        while t in dead:
+            t = (t + 1) % n_banks
+        out.append(t)
+    return tuple(out)
+
+
+class DegradedBankedMemory(BankedMemory):
+    """A ``BankedMemory`` with one or more banks offline.
+
+    The logical↔physical row mapping (``layout``) is the healthy base's,
+    so page ids and the row kernels' index maps are unchanged, but the
+    conflict model remaps every request on a dead bank to its surviving
+    neighbor (``surviving_bank_remap``): traffic that spread over B banks
+    arbitrates over the survivors.  Named ``{base}!d{b0}+{b1}...`` (e.g.
+    ``16B-xor!d3``); ``get`` / ``resolve`` parse the name, but a degraded
+    variant is run state, never registered.  Two-level bases degrade over
+    their flat bank ids.
+    """
+
+    def __init__(self, base_spec: MemSpec, dead_banks=None, *,
+                 spec: MemSpec | None = None):
+        if spec is None:
+            if not base_spec.is_banked:
+                raise ValueError(
+                    f"{base_spec.name} is not banked; only banked memories "
+                    f"degrade (multi-port replicas have no banks to lose)")
+            if base_spec.dead_banks:
+                dead = tuple(base_spec.dead_banks) + tuple(dead_banks or ())
+                base_spec = _base_of(base_spec)
+            else:
+                dead = tuple(dead_banks or ())
+            dead = tuple(sorted(set(int(d) for d in dead)))
+            surviving_bank_remap(base_spec.total_banks, dead)  # validates
+            if not dead:
+                raise ValueError("degraded memory needs >= 1 dead bank")
+            spec = replace(
+                base_spec, dead_banks=dead,
+                name=f"{base_spec.name}!d" + "+".join(str(d) for d in dead))
+        if not spec.dead_banks:
+            raise ValueError(f"{spec.name} has no dead banks")
+        super().__init__(spec=spec)
+
+    @property
+    def dead_banks(self) -> tuple:
+        return self.spec.dead_banks
+
+    @property
+    def base(self) -> BankedMemory:
+        """The healthy memory this variant degrades."""
+        return from_spec(_base_of(self.spec))
+
+    @property
+    def layout(self) -> BankedLayout | None:
+        # page ids and kernel index maps are the healthy base's (None for a
+        # two-level base, which has no flat bank-major layout)
+        return self.base.layout
+
+    def bank_remap(self) -> tuple:
+        return surviving_bank_remap(self.total_banks, self.dead_banks)
+
+    def banks_of(self, addrs: torch.Tensor) -> torch.Tensor:
+        # the healthy base's map (a two-level base composes inner + outer
+        # here), then the surviving-neighbor remap over the flat bank ids
+        banks = self.base.banks_of(addrs)
+        remap = torch.tensor(self.bank_remap(), dtype=banks.dtype,
+                             device=banks.device)
+        return remap[banks.long()]
+
+
+def _base_of(spec: MemSpec) -> MemSpec:
+    """A degraded spec's healthy base (identity for healthy specs): the
+    dead banks and the ``!d`` name suffix stripped, every other field kept
+    (flat, non-pow2 and two-level bases alike)."""
+    if not spec.dead_banks:
+        return spec
+    return replace(spec, dead_banks=(), name=spec.name.split("!d")[0])
 
 
 class MultiPortMemory(MemoryArchitecture):
@@ -405,6 +498,8 @@ class MultiPortMemory(MemoryArchitecture):
 def from_spec(spec: MemSpec) -> MemoryArchitecture:
     """Wrap a frozen MemSpec in its architecture class."""
     if spec.is_banked:
+        if spec.dead_banks:
+            return DegradedBankedMemory(spec, spec=spec)
         if spec.is_two_level:
             return TwoLevelBankedMemory(spec=spec)
         return BankedMemory(spec=spec)
@@ -445,10 +540,19 @@ def register(arch: MemoryArchitecture,
 
 
 def _parse(name: str) -> MemoryArchitecture | None:
-    if _DEGRADED_NAME.match(name):
-        raise NotImplementedError(
-            f"{name!r} is a degraded (bank-offline) variant; the port "
-            f"brings degraded memories with the fault-tolerance slice")
+    m = _DEGRADED_NAME.match(name)
+    if m:
+        base = _parse(m.group("base"))
+        if not isinstance(base, BankedMemory) or isinstance(
+                base, DegradedBankedMemory):
+            return None
+        dead = tuple(int(d) for d in m.group("dead").split("+"))
+        if any(d >= base.total_banks for d in dead) or len(set(dead)) >= (
+                base.total_banks):
+            return None
+        if list(dead) != sorted(set(dead)):
+            return None                 # canonical order so names round-trip
+        return DegradedBankedMemory(base.spec, dead)
     m = _BANKED_NAME.match(name)
     if m:
         banks = int(m.group("banks"))

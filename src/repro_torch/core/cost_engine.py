@@ -130,8 +130,15 @@ class ArchTable:
     banked row has a non-pow2 bank count (``% B`` instead of the mask);
     ``need_two_level``: some row has an outer level (the macro term).
 
-    ``digest`` content-addresses the lowered table (params, overheads,
-    flags): the arch half of every ``BlockCostCache`` key."""
+    ``remaps`` (n_archs, 2, W) int32 is the degraded-mode bank remap
+    (``arch.surviving_bank_remap``) applied to the formula's flat bank id
+    (inner + n_banks·outer for two-level), identity-padded to the
+    lattice's widest flat bank count; ``need_remap`` is False for an
+    all-healthy lattice, which then prices without the lookup.
+
+    ``digest`` content-addresses the lowered table (params, remaps,
+    overheads, flags): the arch half of every ``BlockCostCache`` key, so a
+    degraded variant keys apart from its base."""
 
     def __init__(self, specs: tuple):
         rows, ovhs = [], []
@@ -148,16 +155,38 @@ class ArchTable:
         nb = self.params[:, :, _F_NBANKS]
         self.need_mod = bool((banked & (nb & (nb - 1) != 0)).any())
         self.need_two_level = bool((self.params[:, :, _F_OUTB] > 1).any())
+        width = max(1, int((nb * self.params[:, :, _F_OUTB]).max()))
+        self.remaps = np.tile(np.arange(width, dtype=np.int32),
+                              (len(specs), 2, 1))
+        self.need_remap = False
+        for i, s in enumerate(specs):
+            if not s.dead_banks:
+                continue
+            from repro_torch.core.arch import surviving_bank_remap
+            # both paths share the data banks (the -VB pseudo-bank write
+            # path is multi-port only, and multi-port specs never degrade)
+            self.remaps[i, :, :s.total_banks] = surviving_bank_remap(
+                s.total_banks, s.dead_banks)
+            self.need_remap = True
         self._digest: bytes | None = None
-        self._params_on: dict = {}
+        self._on: dict = {}
+
+    def _uploaded(self, name: str, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+        t = self._on.get((name, device))
+        if t is None:
+            t = self._on[name, device] = torch.from_numpy(
+                getattr(self, name)).to(device=device, dtype=dtype)
+        return t
 
     def params_on(self, device: torch.device) -> torch.Tensor:
         """``params`` on ``device``, uploaded once per table and device."""
-        t = self._params_on.get(device)
-        if t is None:
-            t = self._params_on[device] = torch.from_numpy(
-                self.params).to(device)
-        return t
+        return self._uploaded("params", device, torch.int32)
+
+    def remaps_on(self, device: torch.device) -> torch.Tensor:
+        """``remaps`` on ``device`` as int64 gather indices, uploaded once
+        per table and device."""
+        return self._uploaded("remaps", device, torch.int64)
 
     @property
     def digest(self) -> bytes:
@@ -165,9 +194,10 @@ class ArchTable:
         if self._digest is None:
             h = hashlib.blake2b(digest_size=16)
             h.update(self.params.tobytes())
+            h.update(self.remaps.tobytes())
             h.update(self.overheads.tobytes())
-            h.update(bytes([self.need_uniq, self.need_mod,
-                            self.need_two_level]))
+            h.update(bytes([self.need_uniq, self.need_remap,
+                            self.need_mod, self.need_two_level]))
             self._digest = h.digest()
         return self._digest
 
@@ -187,20 +217,23 @@ def lower_archs(archs) -> ArchTable:
     return _lowered(tuple(_arch.resolve(a).spec for a in archs))
 
 
-def _block_kind_cycles(params: torch.Tensor, addrs: torch.Tensor,
-                       mask: torch.Tensor, kinds: torch.Tensor, *,
-                       need_uniq: bool, need_mod: bool,
+def _block_kind_cycles(params: torch.Tensor, remaps: torch.Tensor,
+                       addrs: torch.Tensor, mask: torch.Tensor,
+                       kinds: torch.Tensor, *, need_uniq: bool,
+                       need_remap: bool, need_mod: bool,
                        need_two_level: bool) -> torch.Tensor:
     """One block, every architecture: (n_archs, 3) int64 per-kind cycle sums.
 
-    params (A, 2, 9) int32, addrs (n_ops, LANES) int32, mask (n_ops, LANES)
-    bool, kinds (n_ops,) integer, all on one device.
+    params (A, 2, 9) int32, remaps (A, 2, W) int64, addrs (n_ops, LANES)
+    int32, mask (n_ops, LANES) bool, kinds (n_ops,) integer, all on one
+    device.
 
     The banked max-conflict comes from the lane-pair equality matrix: an
     active lane's count of same-bank active lanes is its bank's popcount,
     so the max over active lanes is the max over banks, with LANES² cells
     per op whatever the bank count.  ``need_two_level`` adds the outer
-    macro term; single-level lattices run without it."""
+    macro term and ``need_remap`` the degraded-bank lookup on the flat
+    bank id after it; lattices without them run without them."""
     is_write = (kinds == KIND_STORE)[None, :, None]               # (1, n, 1)
     active = mask.sum(dim=-1, dtype=torch.int32)                  # (n,)
     pr = torch.where(is_write, params[:, None, 1], params[:, None, 0])
@@ -221,6 +254,11 @@ def _block_kind_cycles(params: torch.Tensor, addrs: torch.Tensor,
     if need_two_level:
         bank = bank + nb * ((a // field(_F_OUTG)[..., None])
                             % field(_F_OUTB)[..., None])
+    if need_remap:          # dead banks' requests go to their survivors
+        n_archs, _, width = remaps.shape
+        row = (torch.arange(n_archs, device=addrs.device)[:, None, None] * 2
+               + is_write)                                        # (A, n, 1)
+        bank = remaps.reshape(-1)[row * width + bank]             # (A, n, L)
     if need_uniq:           # broadcast rows count distinct addresses only
         uniq = first_occurrence(addrs, mask).bool()
         eff = mask[None] & torch.where(field(_F_UNIQ)[..., None].bool(),
@@ -525,14 +563,14 @@ def cost_many(archs, trace, block_ops: int | None = None,
         return []
     device = torch.device(device)
     table = _lowered(tuple(a.spec for a in arch_objs))
-    params = table.params_on(device)
+    params, remaps = table.params_on(device), table.remaps_on(device)
     n_archs = len(arch_objs)
 
     def _dispatch(addrs, mask, kinds) -> torch.Tensor:
         return _block_kind_cycles(
-            params, *_upload(addrs, mask, kinds, device),
-            need_uniq=table.need_uniq, need_mod=table.need_mod,
-            need_two_level=table.need_two_level)
+            params, remaps, *_upload(addrs, mask, kinds, device),
+            need_uniq=table.need_uniq, need_remap=table.need_remap,
+            need_mod=table.need_mod, need_two_level=table.need_two_level)
 
     counter = _InstrCounter()
     compute_cycles = 0

@@ -6,8 +6,9 @@ shapes (``two_level``: O macros × I banks), and replicated ``multiport``
 memories (nR-mW; the 4R-1W-VB variant arbitrates writes over 4
 pseudo-banks).  fmax: 771 MHz for every memory except 4R-2W (600 MHz).
 
-The functional ``Memory`` and the degraded (bank-offline) variants are not
-ported yet.
+Degraded (bank-offline) memories carry their dead banks in
+``MemSpec.dead_banks``; ``repro_torch.core.arch`` prices them.  The
+functional ``Memory`` is not ported.
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ class MemSpec:
     write_ports: int = 1
     vb_write_banks: int = 0   # 4R-1W-VB: writes arbitrated over N pseudo-banks
     fmax_mhz: float = FMAX_DEFAULT_MHZ
+    #: offline banks of a degraded banked memory (``repro_torch.core.arch``'s
+    #: ``!d`` variants): a request whose bank map lands on a dead bank is
+    #: served by its next surviving neighbor (wrap-around remap).  Always
+    #: ``()`` for healthy memories; the cost engine's lowering takes the
+    #: remap path only when a spec carries dead banks.
+    dead_banks: tuple = ()
     #: hierarchical two-level banking: ``outer_banks`` memory macros, each
     #: holding ``n_banks`` inner banks.  The outer level is selected by
     #: address granule, ``outer = (addr // outer_granule) % outer_banks``;

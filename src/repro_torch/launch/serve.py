@@ -17,9 +17,18 @@ scheduler trace the same way.
   python -m repro_torch.launch.serve --arch llama3.2-1b --schedule \
       --n-requests 8 --arrival-rate 1.5 --context-dist mixed --cost
 
+``--fault-bank`` injects a bank-loss fault into the scheduled day: the
+bank goes offline at ``--fault-tick``, its live pages move to surviving
+banks through the paired row kernels, and the day finishes degraded; the
+summary reports the fault counters and, with ``--cost``, prices the
+recorded trace on the degraded ``!d`` variant of the memory next to the
+healthy one.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b --schedule \
+      --n-requests 8 --fault-bank 1 --fault-tick 4 --cost
+
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the host
-(the tests do).  The reference's ``--fault-bank`` / ``--fault-tick`` come
-with the port's fault slice.
+(the tests do).
 """
 from __future__ import annotations
 
@@ -77,7 +86,13 @@ def run_schedule(args, engine, cfg):
         args.n_requests, arrival_rate=args.arrival_rate,
         context_dist=args.context_dist, max_seq=engine.max_seq,
         seed=args.seed, vocab_size=cfg.vocab_size)
-    res = engine.run_scheduler(reqs, policy=args.policy)
+    plan = None
+    if args.fault_bank is not None:
+        from repro_torch.runtime import FaultEvent, FaultPlan
+        plan = FaultPlan((FaultEvent(tick=args.fault_tick,
+                                     kind="bank_offline",
+                                     bank=args.fault_bank),))
+    res = engine.run_scheduler(reqs, policy=args.policy, fault_plan=plan)
     for r in reqs:
         out = res.outputs[r.rid]
         print(f"req{r.rid} (t={r.arrival} prompt={r.prompt_len} "
@@ -87,11 +102,21 @@ def run_schedule(args, engine, cfg):
           f"lane occupancy {s['lane_occupancy']:.2f}, bank occupancy skew "
           f"mad={s['bank_mad']:.2f} max/min={s['bank_max_min_ratio']:.2f} "
           f"(policy={args.policy})")
+    f = s["faults"]
+    if f["degraded"]:
+        print(f"faults: bank(s) {f['dead_banks']} lost at tick "
+              f"{args.fault_tick}, {f['migrated_pages']} live pages "
+              f"migrated; day finished degraded (every request completed)")
     if args.cost:
         trace = (engine.scheduler_stream()
                  .materialize())  # lint: allow-materialize — tiny CLI day
         _cost_table(trace, f"\nscheduler KV traffic ({engine.n_kv_layers} "
                            f"KV layers): {trace.n_ops} ops", engine.device)
+        if f["degraded"]:
+            deg = engine.mem_arch.degrade(tuple(f["dead_banks"]))
+            c = cost_many([deg], trace, device=engine.device)[0]
+            print(f"{deg.name:<12}{c.total_cycles:>10}"
+                  f"{c.time_us(deg.fmax_mhz):>9.2f}  (degraded survivors)")
 
 
 def main(argv=None):
@@ -124,10 +149,19 @@ def main(argv=None):
     ap.add_argument("--policy", default="seq-skew",
                     help="preferred-bank allocation policy "
                          "(kvcache.ALLOC_POLICIES: paper | seq-skew)")
+    ap.add_argument("--fault-bank", type=int, default=None,
+                    help="inject a bank-offline fault into the scheduled "
+                         "day: this pool bank dies at --fault-tick "
+                         "(--schedule only)")
+    ap.add_argument("--fault-tick", type=int, default=4,
+                    help="scheduler tick the --fault-bank loss fires at")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the CUDA card)")
     args = ap.parse_args(argv)
+    if args.fault_bank is not None and not args.schedule:
+        ap.error("--fault-bank needs --schedule (fault plans run on the "
+                 "continuous-batching scheduler)")
     if args.cost and args.kv_mode != "paged":
         ap.error("--cost needs --kv-mode paged (dense mode records no "
                  "serving traces)")

@@ -21,8 +21,10 @@ cache the paged path is held against.
 ``scheduler.Scheduler`` admits, decodes and retires requests lane by lane,
 and each tick's lane-ragged decode step runs through the same paired row
 kernels, with per-lane positions (``_paged_attention_decode_ragged``).
-Its fault paths (fault plans, recovery, checkpoints) come with the port's
-fault slice (4b) and raise ``NotImplementedError``.
+Under a ``runtime.FaultPlan`` a bank loss moves the dead bank's live pages
+through the paired row kernels, a corrupted page is rebuilt by a
+re-prefill and a replay of its request's decode steps, and a transient
+decode fault is retried; preemption checkpoints come with slice 4c.
 """
 from __future__ import annotations
 
@@ -53,9 +55,9 @@ class SchedulerRunResult:
     """One continuous-batching run: per-request generated ids (rid-keyed;
     a request's array has exactly ``max_new_tokens`` entries), the
     scheduler's run statistics (makespan, lane occupancy, bank-occupancy
-    skew, the zero fault counters) and the tick count.  ``preempted`` and
-    ``checkpoint`` keep the reference's shape: preemption is the fault
-    slice's, so they stay False and None."""
+    skew, fault counters) and the tick count.  ``preempted`` and
+    ``checkpoint`` keep the reference's shape: preemption checkpoints come
+    with slice 4c, so they stay False and None."""
     outputs: dict[int, np.ndarray]
     stats: dict
     ticks: int
@@ -389,6 +391,68 @@ class ServeEngine:
         first, rows = self._prefill_rows(prompt)
         return self._scatter_rows(pools, rows, page_ids), first
 
+    def _migrate_pages(self, pools, old_ids, new_ids):
+        """Evacuate a dying bank's live pages: in every layer, one paired
+        gather reads the K and V rows of the old ids in full, then one
+        paired scatter writes them to the new ids on surviving banks (old
+        and new ids are distinct, so no row is read after it is written).
+        The data is kept, and the live traffic is the ``fault_migrate``
+        trace block the scheduler emitted."""
+        kv = self.kv_cfg
+        old, new = self._upload(np.asarray(old_ids, np.int64),
+                                np.asarray(new_ids, np.int64))
+        for key, pair in pools.items():
+            k_rows, v_rows = KV.gather_pages_pair(kv, pair["k"], pair["v"],
+                                                  old)
+            k_pool, v_pool = KV.scatter_pages_pair(kv, pair["k"], pair["v"],
+                                                   new, k_rows, v_rows)
+            pools[key] = {"k": k_pool, "v": v_pool}
+        return pools
+
+    def _lose_page(self, pools, pid: int) -> None:
+        """Zero logical page ``pid``'s line (its bank-major physical row) in
+        every K and V pool, in place: the data an ECC fault destroys."""
+        row = int(self.kv_cfg.layout.physical_row(pid, self.kv_cfg.n_pages))
+        for pair in pools.values():
+            for pool in pair.values():
+                pool[row] = 0
+
+    def _recover_page(self, pools, rec, toks, lane_tok, scratch: int):
+        """Rebuild a corrupted page: zero its line in every pool (the data
+        is lost; this is the ECC path, not a migration), re-prefill the
+        victim's prompt pages, then replay its completed decode steps with
+        the recorded tokens, each at the full lane batch with only the
+        victim's lane active, so every step runs at the original step's
+        shapes.  Every replayed token is held to the original: a recovery
+        that diverges raises ``RuntimeError``."""
+        r = rec["request"]
+        rid, lane = rec["rid"], rec["lane"]
+        self._lose_page(pools, int(rec["pid"]))
+        pools, first = self._ingest_request(
+            pools, np.asarray(r.tokens, np.int32), rec["prompt_ids"])
+        seq = toks[rid]
+        if seq and first != seq[0]:
+            raise RuntimeError(
+                f"recovery diverged for request {rid}: re-prefill produced "
+                f"token {first}, original was {seq[0]}")
+        plen = int(rec["plen"])
+        act = np.zeros(self.max_batch, bool)
+        act[lane] = True
+        for j in range(int(rec["steps"])):
+            pos = np.asarray(rec["pos"]).copy()
+            pos[lane] = plen + j
+            lt = lane_tok.copy()
+            lt[lane] = seq[j]
+            logits, pools = self._scheduler_step(
+                self.params, lt, pools, rec["page_table"], pos, act,
+                scratch)
+            got = int(logits[lane, -1, :self.cfg.vocab_size].argmax())
+            if got != int(seq[j + 1]):
+                raise RuntimeError(
+                    f"recovery diverged for request {rid} at replay step "
+                    f"{j}: decoded {got}, original was {int(seq[j + 1])}")
+        return pools
+
     def run_scheduler(self, requests, policy="seq-skew", scheduler=None,
                       fault_plan=None, guard=None, checkpoint_dir=None,
                       resume_from=None,
@@ -408,18 +472,29 @@ class ServeEngine:
         by chunk as the scheduler's ``ev.prefill_chunks`` records land the
         pages, while other lanes keep decoding.
 
+        ``fault_plan`` injects a seeded ``runtime.FaultPlan``: before a
+        tick's admissions, bank losses migrate live pages through the
+        paired row kernels (``_migrate_pages``) and corrupted pages are
+        re-prefilled and replayed with every token held to the original
+        (``_recover_page``); a transient decode fault raises before any
+        device work and the step is retried through
+        ``runtime.retry_step``.  A preemption event without
+        ``checkpoint_dir`` raises ``ValueError``; ``guard``,
+        ``checkpoint_dir`` and ``resume_from`` (preemption checkpoints)
+        come with slice 4c and raise ``NotImplementedError``.
+
         Requests need prompt ``tokens``.  The live path needs an
-        attention-only model.  ``fault_plan``, ``guard``,
-        ``checkpoint_dir`` and ``resume_from`` come with the port's fault
-        slice (4b) and raise ``NotImplementedError``.  Each tick costs one
-        host-to-device copy (the step's indices, pinned) and one read of
-        the sampled tokens."""
-        from repro_torch.serving.scheduler import Scheduler, _fault_path
-        for name, value in (("fault_plan", fault_plan), ("guard", guard),
+        attention-only model.  Each tick costs one host-to-device copy (the
+        step's indices, pinned) and one read of the sampled tokens."""
+        from repro_torch.runtime import TransientFault, retry_step
+        from repro_torch.serving.scheduler import Scheduler
+        for name, value in (("guard", guard),
                             ("checkpoint_dir", checkpoint_dir),
                             ("resume_from", resume_from)):
             if value is not None:
-                raise _fault_path(f"run_scheduler({name}=...)")
+                raise NotImplementedError(
+                    f"run_scheduler({name}=...): preemption checkpoints "
+                    f"come with the port's slice 4c")
         if self.kv_mode != "paged":
             raise ValueError("run_scheduler requires kv_mode='paged'")
         if any(kind != "attn" for kind, _ in self.cfg.block_pattern()):
@@ -431,7 +506,7 @@ class ServeEngine:
         sched = scheduler or Scheduler(
             self.kv_cfg, n_lanes=self.max_batch, max_seq=self.max_seq,
             policy=policy, n_kv_layers=self.n_kv_layers,
-            prefill_chunk_pages=prefill_chunk_pages)
+            fault_plan=fault_plan, prefill_chunk_pages=prefill_chunk_pages)
         kv = self.kv_cfg
         dtype = getattr(torch, self.rc.compute_dtype)
         scratch = sched.scratch_page or 0
@@ -450,6 +525,14 @@ class ServeEngine:
                 for j, _ in enumerate(self.cfg.block_pattern())
                 for sb in range(self.cfg.n_superblocks)}
             for ev in sched.run(requests):
+                for mig in ev.migrations:
+                    if mig["old_ids"]:
+                        pools = self._migrate_pages(pools, mig["old_ids"],
+                                                    mig["new_ids"])
+                for rec in ev.recoveries:
+                    if not rec["skipped"]:
+                        pools = self._recover_page(pools, rec, toks,
+                                                   lane_tok, scratch)
                 for c in ev.completed:
                     outputs[c.request.rid] = np.asarray(
                         toks.pop(c.request.rid, []), np.int32)
@@ -481,15 +564,38 @@ class ServeEngine:
                     if chunk["done"]:
                         del pending[chunk["lane"]]
                 if ev.decoded:
-                    logits, pools = self._scheduler_step(
-                        self.params, lane_tok, pools, ev.page_table, ev.pos,
-                        ev.active, scratch)
+                    args = (self.params, lane_tok, pools, ev.page_table,
+                            ev.pos, ev.active, scratch)
+                    if ev.transients:
+                        # injected transient faults: the step fails
+                        # ``transients`` times, before any device work, so
+                        # the in-place pools are never half-written, and
+                        # the retry path absorbs every failure
+                        budget = [ev.transients]
+
+                        def flaky(tick=ev.tick):
+                            if budget[0] > 0:
+                                budget[0] -= 1
+                                raise TransientFault(
+                                    f"injected decode fault at tick {tick}")
+                            return self._scheduler_step(*args)
+
+                        logits, pools = retry_step(
+                            flaky, retries=ev.transients, backoff=1e-6,
+                            retry_on=(TransientFault,),
+                            _sleep=lambda s: None)
+                    else:
+                        logits, pools = self._scheduler_step(*args)
                     nxt = logits[:, -1, :self.cfg.vocab_size].argmax(-1)
                     nxt = nxt.cpu().numpy()     # the step's one device sync
                     lane_tok = np.where(ev.active, nxt, lane_tok)
                     for lane in np.flatnonzero(ev.active):
                         toks[int(lane_rid[lane])].append(int(nxt[lane]))
                 self._sched_traces.extend(ev.traces)
+                if ev.preempt:
+                    raise ValueError(
+                        "preemption fired but run_scheduler has no "
+                        "checkpoint_dir to drain into")
         self.last_pools = pools
         self._sched_meta = {"what": "scheduler-live",
                             "arch": self.mem_arch.name,

@@ -1,5 +1,5 @@
 """Continuous-batching, multi-tenant serving on the banked page pools (port
-of ``repro.serving.scheduler``, without its fault paths).
+of ``repro.serving.scheduler``).
 
 The fixed-batch ``ServeEngine.generate`` decodes one padded batch in
 lockstep.  Continuous batching keeps many resident contexts and admits,
@@ -31,18 +31,23 @@ simulated lowering are bit-equal by construction.
 request id, so same-index pages of different tenants spread across banks
 instead of all preferring the bank map of their page index.
 
-Fault injection (``fault_plan``), the watchdog, bank offlining and
-``fault_migrate_trace`` come with the port's fault slice (4b) and raise
-``NotImplementedError`` here; the events and ``stats()`` keep the
-reference's fault fields, always empty or zero.
+A seeded ``runtime.FaultPlan`` injects faults at the start of their tick,
+in live and simulated runs alike: a ``bank_offline`` evicts the bank's
+live pages and migrates them to surviving banks (``fault_migrate_trace``),
+a ``page_corrupt`` re-prefills its victim and replays its decode steps, a
+``decode_transient`` asks the live engine to retry the tick's step, and a
+``preempt`` only marks the tick (the live engine's checkpoints come with
+slice 4c).  A ``runtime.StepWatchdog`` may time the decode steps.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
+from repro_torch.runtime.faults import FaultEvent, FaultPlan
 from repro_torch.serving.kvcache import (PagedKVConfig, kv_read_stream,
                                          pool_pages, resolve_policy)
 
@@ -54,14 +59,6 @@ __all__ = [
     "simulate_scheduler_stream", "synthesize_requests",
     "scheduler_pool_config", "total_new_tokens", "CONTEXT_DISTS",
 ]
-
-_SLICE_4B = ("{what} comes with the port's fault slice (slice 4b: fault "
-             "plans, recovery, degraded memories and checkpoints)")
-
-
-def _fault_path(what: str) -> NotImplementedError:
-    return NotImplementedError(_SLICE_4B.format(what=what))
-
 
 # --------------------------------------------------------------------------
 # requests and traffic synthesis
@@ -176,6 +173,7 @@ class PagePool:
         self.free = np.ones((self.n_banks, self.pages_per_bank), bool)
         self.bank_used = np.zeros(self.n_banks, np.int64)
         self.policy = resolve_policy(policy)
+        self.offline: set[int] = set()                 # hard-failed banks
         self._where: dict[int, tuple[int, int]] = {}   # id -> (bank, slot)
         self._kbank = np.zeros(0, np.int64)            # bank_map(k) cache
         # (bank, slot) -> logical id, computed once: alloc is pure numpy
@@ -232,8 +230,26 @@ class PagePool:
             self.bank_used[bank] -= 1
 
     def offline_bank(self, bank: int) -> list[int]:
-        """Taking a bank out of service is a fault path: slice 4b."""
-        raise _fault_path("PagePool.offline_bank")
+        """Take a whole bank out of service (a hard memory fault).
+
+        Every free slot in the bank becomes unavailable (``alloc`` never
+        picks a bank with no free slot) and every live page on it leaves
+        the allocation map without returning to the pool, so its id is
+        never minted again.  Returns the evicted live page ids in ascending
+        order; the caller migrates their data to newly allocated pages on
+        surviving banks.  Idempotent: a second call for the bank returns
+        []."""
+        if not 0 <= bank < self.n_banks:
+            raise ValueError(f"bank {bank} out of range "
+                             f"[0, {self.n_banks})")
+        if bank in self.offline:
+            return []
+        self.offline.add(bank)
+        self.free[bank, :] = False
+        live = sorted(p for p, (b, _) in self._where.items() if b == bank)
+        for pid in live:
+            del self._where[pid]
+        return live
 
     # -- serialization -----------------------------------------------------
 
@@ -246,7 +262,7 @@ class PagePool:
             "bank_used": self.bank_used.tolist(),
             "where": {str(p): [int(b), int(s)]
                       for p, (b, s) in sorted(self._where.items())},
-            "offline": [],              # banks lost: the fault slice's
+            "offline": sorted(self.offline),
         }
 
     def load_state(self, state: dict) -> None:
@@ -255,12 +271,11 @@ class PagePool:
             raise ValueError(
                 f"pool shape mismatch: the state's free bitmap is "
                 f"{free.shape}, this pool is {self.free.shape}")
-        if state["offline"]:
-            raise _fault_path("a pool state with offline banks")
         self.free = free
         self.bank_used = np.asarray(state["bank_used"], np.int64)
         self._where = {int(p): (int(b), int(s))
                        for p, (b, s) in state["where"].items()}
+        self.offline = {int(b) for b in state["offline"]}
 
 
 # --------------------------------------------------------------------------
@@ -289,8 +304,29 @@ def admission_prefill_trace(cfg: PagedKVConfig, page_ids: np.ndarray,
 def fault_migrate_trace(cfg: PagedKVConfig, old_ids, new_ids,
                         n_kv_layers: int = 1, bank: int | None = None,
                         tick: int | None = None):
-    """A bank-loss page migration's trace is a fault path: slice 4b."""
-    raise _fault_path("fault_migrate_trace")
+    """A bank-loss page migration's exact ``AddressTrace``: per KV layer, a
+    K and a V gather of the dying bank's live pages, each followed by a
+    scatter to their new homes on surviving banks.  Ordinary banked
+    traffic: the cost model prices the evacuation burst with the conflict
+    formula of any Table II/III kernel."""
+    from repro_torch.core.trace import AddressTrace
+    from repro_torch.kernels.banked_gather.ops import banked_gather_trace
+    from repro_torch.kernels.banked_scatter.ops import banked_scatter_trace
+    old = np.asarray(old_ids, np.int32).reshape(-1)
+    new = np.asarray(new_ids, np.int32).reshape(-1)
+    if old.shape != new.shape:
+        raise ValueError(f"old/new page-id counts disagree "
+                         f"({old.shape[0]} vs {new.shape[0]})")
+    mask = np.ones(old.shape[0], bool)
+    chunks = []
+    for _ in range(n_kv_layers):
+        for _kv in range(2):                           # K then V
+            chunks.append(banked_gather_trace(None, None, old, mask=mask))
+            chunks.append(banked_scatter_trace(None, None, new, mask=mask))
+    t = AddressTrace.concat(*chunks)
+    t.meta.update({"what": "fault_migrate", "bank": bank, "tick": tick,
+                   "n_pages": int(old.shape[0]), "n_kv_layers": n_kv_layers})
+    return t
 
 
 def scheduler_step_trace(cfg: PagedKVConfig, page_table, pos, active,
@@ -303,8 +339,8 @@ def scheduler_step_trace(cfg: PagedKVConfig, page_table, pos, active,
     (unmapped and inactive lanes predicated off) followed by a K and a V
     scatter of each active lane's *current* page (the read-modify-write
     append at the lane's own position).  Addresses are logical pool page
-    ids.  ``degraded`` names the block as the reference's degraded-layout
-    step (the fault slice's; this port never sets it).
+    ids.  ``degraded`` names the block as a step on a layout that has lost
+    a bank.
     """
     from repro_torch.core.trace import AddressTrace
     from repro_torch.kernels.banked_gather.ops import banked_gather_trace
@@ -380,8 +416,13 @@ class TickEvent:
     page_table: np.ndarray | None = None    # decode-time snapshot (B, P)
     pos: np.ndarray | None = None           # (B,) pre-increment positions
     active: np.ndarray | None = None        # (B,) decoding lanes
-    #: the reference's fault and recovery records; the fault slice fills
-    #: them, this port leaves them empty
+    #: fault and recovery records of this tick (``FaultPlan`` injection):
+    #: ``migrations`` one per bank loss ({tick, bank, old_ids, new_ids,
+    #: lanes, slots}); ``recoveries`` one per corrupted page ({tick, rid,
+    #: lane, skipped} and, when not skipped, request, pid, plen, steps,
+    #: prompt_ids, page_table, pos); ``transients`` the injected decode
+    #: failures the live engine retries through; ``preempt`` marks a
+    #: preemption (the live engine's checkpoints come with slice 4c).
     migrations: list = field(default_factory=list)
     recoveries: list = field(default_factory=list)
     transients: int = 0
@@ -413,17 +454,19 @@ class Scheduler:
     decoding, and the lane joins the decode step on the tick its last
     chunk lands.  A prompt that fits one chunk is schedule-identical to
     whole-prompt admission.
+
+    Faults due at a tick fire first, before completions (see
+    ``_apply_faults``), so migrations and recoveries see the lane state the
+    fault struck.
     """
 
     def __init__(self, cfg: PagedKVConfig, n_lanes: int = 16,
                  max_seq: int = 256, policy="seq-skew",
                  n_kv_layers: int = 1, reserve_scratch: bool = True,
-                 fault_plan=None, prefill_chunk_pages: int | None = None,
-                 watchdog=None):
-        if fault_plan is not None:
-            raise _fault_path("Scheduler(fault_plan=...)")
-        if watchdog is not None:
-            raise _fault_path("Scheduler(watchdog=...)")
+                 fault_plan: FaultPlan | None = None,
+                 prefill_chunk_pages: int | None = None,
+                 watchdog=None,
+                 timer: Callable[[], float] = time.perf_counter):
         self.cfg = cfg
         self.n_lanes = n_lanes
         self.max_seq = max_seq
@@ -457,6 +500,32 @@ class Scheduler:
         self._busy_lane_ticks = 0
         self._decode_ticks = 0
         self._n_prefill_chunks = 0
+        #: the seeded fault timeline: construction config like
+        #: ``prefill_chunk_pages`` (restore with the same plan; the cursor
+        #: is serialized state)
+        self._fault_plan = fault_plan
+        self._fault_cursor = 0
+        self._degraded = False
+        self._dead_banks: list[int] = []
+        self._n_migrated_pages = 0
+        self._n_recoveries = 0
+        self._n_transients = 0
+        self._n_preempts = 0
+        #: optional straggler detection (``runtime.StepWatchdog``): each
+        #: decode step is timed with ``timer``; straggler ticks are
+        #: recorded (after any callback of the caller's) for ``stats()``
+        self._watchdog = watchdog
+        self._timer = timer
+        self._straggler_ticks: list[int] = []
+        if watchdog is not None:
+            user_cb = watchdog.on_straggler
+
+            def _record(step, seconds, med, _user=user_cb):
+                self._straggler_ticks.append(int(step))
+                if _user is not None:
+                    _user(step, seconds, med)
+
+            watchdog.on_straggler = _record
 
     # -- submission / cancellation -----------------------------------------
 
@@ -483,6 +552,131 @@ class Scheduler:
         if rid not in self._by_rid:
             raise KeyError(f"unknown request id {rid}")
         self._cancelled.add(rid)
+
+    # -- fault injection and recovery ---------------------------------------
+
+    @property
+    def dead_banks(self) -> tuple:
+        """Banks lost so far, ascending: ``arch.degrade(sched.dead_banks)``
+        prices the current layout."""
+        return tuple(sorted(self._dead_banks))
+
+    def _apply_faults(self, ev: TickEvent) -> None:
+        if self._fault_plan is None:
+            return
+        events, self._fault_cursor = self._fault_plan.due(
+            self.now, self._fault_cursor)
+        for f in events:
+            if f.kind == "bank_offline":
+                self._bank_offline(f, ev)
+            elif f.kind == "page_corrupt":
+                self._page_corrupt(f, ev)
+            elif f.kind == "decode_transient":
+                ev.transients += f.failures
+                self._n_transients += f.failures
+            elif f.kind == "preempt":
+                ev.preempt = True
+                self._n_preempts += 1
+
+    def _bank_offline(self, f: FaultEvent, ev: TickEvent) -> None:
+        """Lose a bank: evict its live pages from the pool, give each a new
+        page on a surviving bank (same in-sequence index, so the
+        preferred-bank policy places it), patch the page tables and emit
+        the evacuation burst as a ``fault_migrate`` trace block.  The data
+        is kept: the live engine copies every page (contrast
+        ``page_corrupt``)."""
+        if self.scratch_page is not None:
+            sb = int(np.asarray(
+                self.cfg.layout.bank_slot(np.asarray(self.scratch_page))[0]))
+            if f.bank == sb:
+                raise ValueError(
+                    f"bank {f.bank} hosts the reserved scratch page; the "
+                    f"fault plan may not take it offline (synthesize() "
+                    f"never picks it)")
+        live = self.pool.offline_bank(f.bank)
+        self._degraded = True
+        if f.bank not in self._dead_banks:
+            self._dead_banks.append(f.bank)
+        liveset = set(live)
+        old_ids: list[int] = []
+        new_ids: list[int] = []
+        lanes: list[int] = []
+        slots: list[int] = []
+        for lane in range(self.n_lanes):          # deterministic order
+            row = self.page_table[lane]
+            for k in np.flatnonzero(row >= 0):
+                pid = int(row[k])
+                if pid in liveset:
+                    new = self.pool.alloc(int(k), int(self.lane_rid[lane]))
+                    row[k] = new
+                    old_ids.append(pid)
+                    new_ids.append(new)
+                    lanes.append(lane)
+                    slots.append(int(k))
+        if len(old_ids) != len(live):
+            raise RuntimeError(
+                f"bank {f.bank}: {len(live)} live pages but only "
+                f"{len(old_ids)} found in lane page tables")
+        ev.migrations.append({"tick": self.now, "bank": f.bank,
+                              "old_ids": old_ids, "new_ids": new_ids,
+                              "lanes": lanes, "slots": slots})
+        self._n_migrated_pages += len(old_ids)
+        if old_ids:
+            ev.traces.append(fault_migrate_trace(
+                self.cfg, old_ids, new_ids, self.n_kv_layers,
+                bank=f.bank, tick=self.now))
+
+    def _page_corrupt(self, f: FaultEvent, ev: TickEvent) -> None:
+        """An uncorrectable page error (ECC parity): the page's data is
+        lost.  Recovery rebuilds it: re-prefill the request's prompt pages,
+        then replay its ``lane_pos - prompt_len`` completed decode steps one
+        lane at a time (positions ``plen + j``), which rewrites every
+        decode-written slot in order.  The replay's trace blocks are
+        emitted here, so simulation replays the same burst; the live engine
+        also re-runs the model and holds the replayed tokens to the
+        originals.  A request that is not resident (completed, still
+        queued) or is still mid-chunked-prefill (its remaining chunks
+        rewrite the prompt pages anyway) makes the event a recorded
+        no-op."""
+        lanes = np.flatnonzero(self.lane_rid == f.rid)
+        if lanes.size == 0:
+            ev.recoveries.append({"tick": self.now, "rid": f.rid,
+                                  "lane": -1, "skipped": True})
+            return
+        lane = int(lanes[0])
+        if lane in self._prefill_next:
+            ev.recoveries.append({"tick": self.now, "rid": f.rid,
+                                  "lane": lane, "skipped": True})
+            return
+        r = self._by_rid[f.rid]
+        row = self.page_table[lane]
+        mapped = row[row >= 0]
+        pid = int(mapped[f.page_idx % mapped.shape[0]])
+        plen = r.prompt_len
+        n_pref = -(-plen // self.cfg.page_len)
+        prompt_ids = row[:n_pref].copy()
+        steps = int(self.lane_pos[lane]) - plen
+        t = admission_prefill_trace(self.cfg, prompt_ids, self.n_kv_layers,
+                                    rid=f.rid)
+        t.meta["what"] = "fault_reprefill"
+        t.meta["tick"] = self.now
+        ev.traces.append(t)
+        for j in range(steps):
+            pos = self.lane_pos.copy()
+            pos[lane] = plen + j
+            act = np.zeros(self.n_lanes, bool)
+            act[lane] = True
+            tr = scheduler_step_trace(self.cfg, self.page_table.copy(), pos,
+                                      act, self.n_kv_layers, tick=self.now,
+                                      degraded=self._degraded)
+            tr.meta["replay"] = True
+            ev.traces.append(tr)
+        ev.recoveries.append({"tick": self.now, "rid": f.rid, "lane": lane,
+                              "request": r, "pid": pid, "plen": plen,
+                              "steps": steps, "prompt_ids": prompt_ids,
+                              "page_table": self.page_table.copy(),
+                              "pos": self.lane_pos.copy(), "skipped": False})
+        self._n_recoveries += 1
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -597,19 +791,23 @@ class Scheduler:
         ev.active = active
         ev.traces.append(scheduler_step_trace(
             self.cfg, ev.page_table, ev.pos, active, self.n_kv_layers,
-            tick=self.now))
+            tick=self.now, degraded=self._degraded))
         self.lane_pos[active] += 1
         self.lane_steps_left[active] -= 1
         self._decode_ticks += 1
 
     def tick(self) -> TickEvent:
-        """Run one scheduler tick (see the class docstring for the
-        phases)."""
+        """Run one scheduler tick (see the class docstring for the phases;
+        faults due at this tick fire first)."""
         ev = TickEvent(tick=self.now)
+        self._apply_faults(ev)
         self._complete(ev)
         self._prefill_continue(ev)
         self._admit(ev)
+        t0 = self._timer()
         self._decode(ev)
+        if ev.decoded and self._watchdog is not None:
+            self._watchdog.observe(self.now, self._timer() - t0)
         self._busy_lane_ticks += int((self.lane_rid >= 0).sum())
         self.now += 1
         if (not ev.decoded and not ev.admitted and not ev.completed
@@ -631,11 +829,11 @@ class Scheduler:
     def stats(self) -> dict:
         """Run statistics: makespan, decode-step count, mean lane
         occupancy, the pool's ``bank_load_stats`` (occupancy skew, what the
-        preferred-bank policy is judged on) and the reference's fault
-        counters (all zero: no fault path runs here)."""
+        preferred-bank policy is judged on), the fault counters and, with a
+        watchdog, its stragglers."""
         from repro_torch.serving.kvcache import bank_load_stats
         ticks = max(1, self.now)
-        return {
+        out = {
             "ticks": self.now,
             "decode_ticks": self._decode_ticks,
             "prefill_chunks": self._n_prefill_chunks,
@@ -643,21 +841,26 @@ class Scheduler:
             **{f"bank_{k}": float(v)
                for k, v in bank_load_stats(self.pool).items()},
             "faults": {
-                "migrated_pages": 0,
-                "recoveries": 0,
-                "transients": 0,
-                "preempts": 0,
-                "dead_banks": [],
-                "degraded": False,
+                "migrated_pages": self._n_migrated_pages,
+                "recoveries": self._n_recoveries,
+                "transients": self._n_transients,
+                "preempts": self._n_preempts,
+                "dead_banks": list(self.dead_banks),
+                "degraded": self._degraded,
             },
         }
+        if self._watchdog is not None:
+            out["stragglers"] = self._watchdog.stragglers
+            out["straggler_ticks"] = list(self._straggler_ticks)
+        return out
 
     # -- serialization ---------------------------------------------------------
 
     def state_dict(self) -> dict:
         """The scheduler's control-plane state as a JSON-serializable dict
-        of the reference's shape (lane arrays, queue, pool bitmap; the
-        fault cursor and counters are zero)."""
+        (lane arrays, queue, pool bitmap, fault cursor and counters).  The
+        fault plan and the watchdog are not serialized: construct with the
+        same plan and ``fault_cursor`` resumes it."""
         def req(r: Request) -> dict:
             return {"rid": r.rid, "arrival": r.arrival,
                     "prompt_len": r.prompt_len,
@@ -679,31 +882,25 @@ class Scheduler:
             "prefill_next": {str(lane): int(nxt)
                              for lane, nxt in sorted(
                                  self._prefill_next.items())},
-            "fault_cursor": 0,
-            "degraded": False,
-            "dead_banks": [],
-            "migrated_pages": 0,
-            "recoveries": 0,
-            "transients": 0,
-            "preempts": 0,
-            "straggler_ticks": [],
+            "fault_cursor": int(self._fault_cursor),
+            "degraded": bool(self._degraded),
+            "dead_banks": [int(b) for b in self._dead_banks],
+            "migrated_pages": int(self._n_migrated_pages),
+            "recoveries": int(self._n_recoveries),
+            "transients": int(self._n_transients),
+            "preempts": int(self._n_preempts),
+            "straggler_ticks": list(self._straggler_ticks),
             "pool": self.pool.state_dict(),
         }
 
     def load_state(self, state: dict) -> None:
         """Restore ``state_dict`` output into a scheduler built with the
-        same config (pool layout, lane count, max_seq, KV layers).  A state
-        that carries fault progress is the fault slice's to restore."""
+        same config (pool layout, lane count, max_seq, KV layers)."""
         lane_rid = np.asarray(state["lane_rid"], np.int64)
         if lane_rid.shape[0] != self.n_lanes:
             raise ValueError(
                 f"the state has {lane_rid.shape[0]} lanes, this scheduler "
                 f"has {self.n_lanes}")
-        if (state["fault_cursor"] or state["degraded"] or state["dead_banks"]
-                or state["migrated_pages"] or state["recoveries"]
-                or state["transients"] or state["preempts"]
-                or state["straggler_ticks"]):
-            raise _fault_path("a scheduler state with fault progress")
         self.now = int(state["now"])
         self.lane_rid = lane_rid
         self.lane_pos = np.asarray(state["lane_pos"], np.int32)
@@ -725,6 +922,14 @@ class Scheduler:
         self._n_prefill_chunks = int(state.get("prefill_chunks", 0))
         self._prefill_next = {int(lane): int(nxt) for lane, nxt
                               in state.get("prefill_next", {}).items()}
+        self._fault_cursor = int(state["fault_cursor"])
+        self._degraded = bool(state["degraded"])
+        self._dead_banks = [int(b) for b in state["dead_banks"]]
+        self._n_migrated_pages = int(state["migrated_pages"])
+        self._n_recoveries = int(state["recoveries"])
+        self._n_transients = int(state["transients"])
+        self._n_preempts = int(state["preempts"])
+        self._straggler_ticks = [int(t) for t in state["straggler_ticks"]]
         self.pool.load_state(state["pool"])
 
 
@@ -756,16 +961,21 @@ def scheduler_pool_config(arch, n_lanes: int, max_seq: int,
 def simulate_scheduler_stream(arch, requests: list[Request],
                               n_lanes: int = 16, max_seq: int = 256,
                               page_len: int = 8, n_kv_layers: int = 1,
-                              policy="seq-skew", fault_plan=None,
+                              policy="seq-skew",
+                              fault_plan: FaultPlan | None = None,
                               prefill_chunk_pages: int | None = None):
     """A serving day's KV traffic as a lazy, re-iterable ``TraceStream``:
     one source block per prefill ingest / ragged decode step, produced on
     demand by replaying the scheduler (each iteration runs a fresh
     ``Scheduler``, so thousand-sequence days cost in O(block) host
     memory).  The traffic depends on the architecture: the pool places
-    pages under the arch's bank map, skewed by ``policy``."""
-    if fault_plan is not None:
-        raise _fault_path("simulate_scheduler_stream(fault_plan=...)")
+    pages under the arch's bank map, skewed by ``policy``.
+
+    ``fault_plan`` replays a seeded fault timeline inside every
+    iteration's fresh scheduler (the plan is immutable, the cursor lives in
+    the scheduler), so a faulted day's stream is as re-iterable as a
+    healthy one, and bit-equal to a live ``ServeEngine.run_scheduler`` run
+    under the same plan."""
     from repro_torch.core import arch as _arch
     from repro_torch.core.trace import TraceStream
     cfg = scheduler_pool_config(arch, n_lanes, max_seq, page_len)
@@ -774,6 +984,7 @@ def simulate_scheduler_stream(arch, requests: list[Request],
     def blocks():
         sched = Scheduler(cfg, n_lanes=n_lanes, max_seq=max_seq,
                           policy=policy, n_kv_layers=n_kv_layers,
+                          fault_plan=fault_plan,
                           prefill_chunk_pages=prefill_chunk_pages)
         for ev in sched.run(reqs):
             yield from ev.traces
@@ -786,4 +997,6 @@ def simulate_scheduler_stream(arch, requests: list[Request],
         "n_tokens": total_new_tokens(reqs)}
     if prefill_chunk_pages is not None:
         meta["prefill_chunk_pages"] = prefill_chunk_pages
+    if fault_plan is not None:
+        meta["faults"] = fault_plan.counts()
     return TraceStream(blocks, meta=meta)

@@ -176,15 +176,15 @@ def test_arch_registry_lists_and_refusals():
     for bad in ("0B", "12B-xor", "16B-s2", "0R-1W", "banana"):
         with pytest.raises(KeyError):
             PA.get(bad)
-    # two-level names resolve to the reference's spec; degraded variants
-    # are not ported yet and are refused, never mispriced
+    # two-level names and degraded variants resolve to the reference's
+    # spec, field for field; degraded variants are never registered
     for two in ("4x4B-g64", "2x8B-g32"):
-        want = dataclasses.asdict(RA.get(two).spec)
-        del want["dead_banks"]
-        assert dataclasses.asdict(PA.get(two).spec) == want
-    for later in ("16B-xor!d3", "16B!d1+2"):
-        with pytest.raises(NotImplementedError):
-            PA.get(later)
+        assert dataclasses.asdict(PA.get(two).spec) == dataclasses.asdict(
+            RA.get(two).spec)
+    for deg in ("16B-xor!d3", "16B!d1+2"):
+        assert dataclasses.asdict(PA.get(deg).spec) == dataclasses.asdict(
+            RA.get(deg).spec)
+        assert deg not in PA.names()
 
 
 def test_trace_builder_and_chunking_equal_the_reference():

@@ -2,8 +2,9 @@
 imports JAX, the reference package ``repro`` or the reference's
 ``benchmarks``, and a CPU smoke generation (through the serving CLI), the
 Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
-autotune CLI, the cost bench and a scheduled serving day (``serve
---schedule``) run with all three blocked from import."""
+autotune CLI, the cost bench, a scheduled serving day (``serve
+--schedule``) and a faulted one (bank loss, page recovery, transient
+retries; ``serve --fault-bank``) run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -190,6 +191,51 @@ def test_cpu_scheduled_serving_runs_with_jax_and_repro_blocked():
     assert "10 ticks, 8 decode steps" in out.stdout
     assert "scheduler KV traffic (2 KV layers): 128 ops" in out.stdout
     assert "16B               3356     4.35" in out.stdout
+
+
+def test_cpu_faulted_day_runs_with_jax_and_repro_blocked():
+    """A CPU chaos day on the smoke config (a bank lost at tick 3 with its
+    live pages migrated, an ECC page recovered by re-prefill and replay, a
+    decode step failing twice) finishes with the healthy day's tokens, and
+    ``serve --schedule --fault-bank 1 --fault-tick 4 --cost`` prints its
+    fault summary and the degraded row, with JAX, ``repro`` and
+    ``benchmarks`` blocked."""
+    out = _run_blocked(
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.configs.base import RunConfig\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.runtime import FaultEvent, FaultPlan\n"
+        "from repro_torch.serving.engine import ServeEngine\n"
+        "from repro_torch.serving.scheduler import Request\n"
+        "cfg = get_smoke_config('llama3.2-1b')\n"
+        "params = init_tree(model_specs(cfg),"
+        " torch.Generator().manual_seed(0), device='cpu')\n"
+        "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
+        " params, max_batch=4, max_seq=32, mem_arch='16B-xor',"
+        " device='cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "spec = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0), (2, 9, 5),"
+        " (3, 12, 3))\n"
+        "reqs = [Request(i, a, p, m, rng.integers(0, cfg.vocab_size, p))"
+        " for i, (a, p, m) in enumerate(spec)]\n"
+        "plan = FaultPlan((FaultEvent(3, 'bank_offline', bank=1),"
+        " FaultEvent(5, 'page_corrupt', rid=0),"
+        " FaultEvent(6, 'decode_transient', failures=2)))\n"
+        "healthy = eng.run_scheduler(reqs).outputs\n"
+        "res = eng.run_scheduler(reqs, fault_plan=plan)\n"
+        "assert all(np.array_equal(res.outputs[k], v)"
+        " for k, v in healthy.items())\n"
+        "f = res.stats['faults']\n"
+        "assert f['migrated_pages'] > 0 and f['recoveries'] == 1, f\n"
+        "assert f['transients'] == 2 and f['dead_banks'] == [1], f\n"
+        "serve.main(['--smoke', '--device', 'cpu', '--schedule',"
+        " '--fault-bank', '1', '--fault-tick', '4', '--cost'])\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert "faults: bank(s) [1] lost at tick 4" in out.stdout
+    assert "(degraded survivors)" in out.stdout
 
 
 def test_default_device_is_the_card():

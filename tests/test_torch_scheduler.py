@@ -4,8 +4,9 @@ of every fault-free test of ``tests/test_scheduler.py``, each compared with
 the reference's own result on the same inputs (numpy seeds; the model
 weights converted with ``from_jax``), plus random serving days event for
 event, the live run against the reference's live run, the first ragged
-step's logits, the ``serve --schedule`` CLI, and the fault slice's
-``NotImplementedError``s.
+step's logits, the ``serve --schedule`` CLI, the fault paths on the
+same inputs as the reference, and the slice-4c ``NotImplementedError``s
+(``tests/test_torch_faults.py`` holds the fault paths in full).
 
 Integers (page ids, traces, cycles, ticks, tokens) are compared exactly;
 ``stats()`` floats too (the same float32 arithmetic on the same small
@@ -130,8 +131,16 @@ def _event(ev) -> dict:
         "active": arr(ev.active),
         "traces": [(t.meta, t.addrs.tolist(), t.kinds.tolist(),
                     t.instr.tolist(), arr(t.mask)) for t in ev.traces],
-        "faults": (ev.migrations, ev.recoveries, ev.transients,
-                   ev.preempt)}
+        "faults": (ev.migrations, [_record(r) for r in ev.recoveries],
+                   ev.transients, ev.preempt)}
+
+
+def _record(rec: dict) -> dict:
+    """A recovery record as plain data (the request as its rid, arrays as
+    lists)."""
+    return {k: (v.rid if k == "request" else
+                np.asarray(v).tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in rec.items()}
 
 
 def _run_events(s, reqs=None):
@@ -754,27 +763,62 @@ def test_serve_schedule_cli_prints_the_references_lines(capsys):
         p_serve_cli.COST_MEMORIES)
 
 
-# -- the fault slice (4b) is refused, never half-done ------------------------
+# -- the fault paths: ported (slice 4b), preemption refused (slice 4c) ----
 
 def test_fault_paths_raise_not_implemented_naming_slice_4b():
-    cfg = PS.scheduler_pool_config("16B", 4, 32, 8)
-    calls = [
-        lambda: PS.Scheduler(cfg, fault_plan=object()),
-        lambda: PS.Scheduler(cfg, watchdog=object()),
-        lambda: PS.simulate_scheduler_stream("16B", [], fault_plan=object()),
-        lambda: PS.fault_migrate_trace(cfg, [1], [2]),
-        lambda: PS.PagePool(cfg).offline_bank(0),
-    ]
-    eng = _engine()
-    for name in ("fault_plan", "guard", "checkpoint_dir", "resume_from"):
-        calls.append(lambda n=name: eng.run_scheduler(_requests(PS),
-                                                      **{n: object()}))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            call()
-    s = _sched(PS)
-    assert s.stats()["faults"] == _sched(RS).stats()["faults"]
-    sd = s.state_dict()
+    """Each fault path this test once held refused now runs and equals the
+    reference on the same inputs (the full chaos suite is
+    ``tests/test_torch_faults.py``); what stays refused is preemption's
+    checkpointing (``guard=``, ``checkpoint_dir=``, ``resume_from=``),
+    which raises ``NotImplementedError`` naming slice 4c, and a preemption
+    event without a checkpoint directory raises the reference's
+    ``ValueError``.  (The test keeps its name from when the whole fault
+    slice was refused.)"""
+    from repro.runtime import FaultEvent as RFE
+    from repro.runtime import FaultPlan as RFP
+    from repro.runtime import StepWatchdog as RWD
+    from repro_torch.runtime import FaultEvent, FaultPlan, StepWatchdog
+
+    def plan(mod_plan, mod_event):
+        return mod_plan((mod_event(tick=1, kind="bank_offline", bank=2),
+                         mod_event(tick=2, kind="page_corrupt", rid=0),
+                         mod_event(tick=3, kind="decode_transient",
+                                   failures=2)))
+
+    p_plan, r_plan = plan(FaultPlan, FaultEvent), plan(RFP, RFE)
+    p_reqs, r_reqs = _both(tokens=False)
+    got = _sched(PS, fault_plan=p_plan, watchdog=StepWatchdog())
+    want = _sched(RS, fault_plan=r_plan, watchdog=RWD())
+    assert _run_events(got, p_reqs) == _run_events(want, r_reqs)
+    assert set(got.stats()) == set(want.stats())
+    assert got.stats()["faults"] == want.stats()["faults"]
+    assert got.stats()["faults"]["dead_banks"] == [2]
+    p_stream = PS.simulate_scheduler_stream("16B", p_reqs, n_lanes=4,
+                                            max_seq=32, fault_plan=p_plan)
+    r_stream = RS.simulate_scheduler_stream("16B", r_reqs, n_lanes=4,
+                                            max_seq=32, fault_plan=r_plan)
+    assert p_stream.meta == r_stream.meta
+    _traces_equal(p_stream.materialize(), r_stream.materialize())
+    cfgs = [mod.scheduler_pool_config("16B", 4, 32, 8) for mod in (PS, RS)]
+    _traces_equal(PS.fault_migrate_trace(cfgs[0], [1], [2]),
+                  RS.fault_migrate_trace(cfgs[1], [1], [2]))
+    pools = [mod.PagePool(cfg) for mod, cfg in zip((PS, RS), cfgs)]
+    for pool in pools:
+        pool.alloc(0, 0)
+    assert pools[0].offline_bank(0) == pools[1].offline_bank(0)
+    assert pools[0].state_dict() == pools[1].state_dict()
+    sd = _sched(PS).state_dict()
     sd["dead_banks"] = [1]
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        _sched(PS).load_state(sd)
+    loaded = _sched(PS)
+    loaded.load_state(sd)
+    ref = _sched(RS)
+    ref.load_state(sd)
+    assert loaded.state_dict() == ref.state_dict() == sd
+
+    eng = _engine()
+    for name in ("guard", "checkpoint_dir", "resume_from"):
+        with pytest.raises(NotImplementedError, match="slice 4c"):
+            eng.run_scheduler(_requests(PS), **{name: object()})
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        eng.run_scheduler(_requests(PS), fault_plan=FaultPlan(
+            (FaultEvent(tick=0, kind="preempt"),)))
