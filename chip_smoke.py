@@ -70,6 +70,18 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                --schedule --fault-bank 1 --fault-tick 4 --cost`` through
                its ``main``; the phase's wall time beside the card's name
                and power limit;
+     preempt — the schedule phase's day preempted by a ``preempt`` event
+               at tick 20 (every lane busy), checkpointed under ``build/``
+               and resumed in a second ``run_scheduler`` call: merged
+               tokens equal to the healthy day's, the halves' traces
+               concatenated equal to the simulation, the halves' paired
+               row launches summing to the uninterrupted day's (1136 and
+               1264) with no plain call, the restored pools equal to the
+               saved ones (tolerance 0); the same with 2-page prefill
+               chunks, preempted after a tick that leaves a lane mid
+               prefill; a day stopped by a real ``PreemptionGuard``'s
+               SIGTERM; the checkpoint's bytes and the save, restore and
+               resume times beside the card's name and power limit;
   5. tables  — the paper tables' path through its CLI entry point
                (``repro_torch.bench.paper_tables.main``): Tables II and III
                priced on the card equal the CPU pricing, the 16B pins
@@ -103,6 +115,15 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                registry of 14 memories (two-level points included) priced
                on the card equals the CPU pricing on every case's trace
                and a random masked trace; the path launches no kernel;
+     serving_bench — the serving benchmark
+               (``repro_torch.bench.serving_bench``) through its ``main``
+               on the card: the full grid with ``--check`` (its live
+               check's paired row launches counted), ``--chaos --smoke
+               --check`` and ``--smoke``, every row, the ranking report
+               and the chaos row equal to the host's pricing, every pin
+               and gate held; then the two serving examples
+               (``paged_kv_serving``, its prices and picks equal to the
+               host's, and ``serve_lm``) through their ``main``;
   6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
                (32, 32) × f32/bf16/int32, bit-equal, the FFT passes
                (4096, 0/3/5), (1024, 2) at the reference tests' tolerance,
@@ -188,6 +209,9 @@ MAX_SEQ = PROMPT + NEW         # a whole number of pages: paged and dense
 def log(msg: str) -> None:
     print(msg, flush=True)
 
+
+#: the serving paths past ``serve`` that run the row kernels
+ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench")
 
 LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
              "moe_dispatch")
@@ -715,20 +739,6 @@ FAULT_EVENTS = ((10, "bank_offline", {"bank": FAULT_BANK}),
                 (20, "decode_transient", {"failures": 2}))
 
 
-def _row_launches(stream, n_kv: int) -> dict:
-    """The paired row launches a recorded scheduler day implies: per KV
-    layer, a gather and a scatter for each decode step (replays included)
-    and each migration, a scatter for each prefill ingest (re-prefills
-    included)."""
-    gathers = scatters = 0
-    for blk in stream:
-        what = blk.meta["what"]
-        gathers += what.startswith("sched_decode") or what == "fault_migrate"
-        scatters += 1
-    return {"banked_gather": n_kv * gathers,
-            "banked_scatter": n_kv * scatters}
-
-
 def phase_faults(engine, healthy: dict, smi: str) -> dict:
     """Serving under recoverable faults on the card: the schedule phase's
     day under a plan with a bank loss, an ECC page corruption and a
@@ -743,6 +753,7 @@ def phase_faults(engine, healthy: dict, smi: str) -> dict:
 
     import torch
 
+    from repro_torch.bench.serving_bench import implied_row_launches
     from repro_torch.core.cost_engine import cost_many
     from repro_torch.kernels.banked_gather import ops as G
     from repro_torch.kernels.banked_scatter import ops as S
@@ -787,7 +798,7 @@ def phase_faults(engine, healthy: dict, smi: str) -> dict:
     try:
         res, secs, launches, entries = _counted_path(
             "faults", lambda: eng.run_scheduler(reqs, fault_plan=plan),
-            lambda _: _row_launches(eng.scheduler_stream(), n_kv))
+            lambda _: implied_row_launches(eng.scheduler_stream(), n_kv))
     finally:
         del eng._migrate_pages, eng._recover_page
     f = res.stats["faults"]
@@ -886,6 +897,214 @@ def phase_faults(engine, healthy: dict, smi: str) -> dict:
             "run_s": secs, "bursts": bursts, "max_abs_err": pool_err,
             "total_cycles": totals, "cli_s": cli_s, "cli_lines": lines,
             "wall_s": wall, "nvidia_smi": smi}
+
+
+#: the preempted day: the schedule phase's day, preempted at a mid-day
+#: tick with all 4 lanes busy (checked by simulation), checkpointed under
+#: ``build/`` and resumed in a second call; the chunked day is preempted at
+#: the first tick from PREEMPT_TICK on after which a lane is mid-prefill
+PREEMPT_TICK = 20
+
+
+def _preempt_tick_mid_prefill(kv_cfg, reqs, n_kv: int, start: int) -> int:
+    """The first tick from ``start`` on after whose physics a lane of the
+    chunked day is mid-prefill, found by running the scheduler alone."""
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(kv_cfg, n_lanes=BATCH, max_seq=SCHED_MAX_SEQ,
+                      n_kv_layers=n_kv, prefill_chunk_pages=SCHED_CHUNK)
+    for ev in sched.run(reqs):
+        if ev.tick >= start and sched._prefill_next:
+            return ev.tick
+    raise AssertionError(f"no lane is mid-prefill after tick {start}")
+
+
+def phase_preempt(engine, healthy: dict, launches: dict, smi: str) -> dict:
+    """Preemption on the card: the schedule phase's day preempted by a
+    ``preempt`` event at a tick with every lane busy, checkpointed and
+    resumed in a second ``run_scheduler`` call (merged tokens equal to the
+    healthy day's; the halves' traces concatenated equal to the
+    simulation; the halves' paired row launches summing to the
+    uninterrupted day's, no plain call; the pools the resume restores equal
+    to the saved ones at tolerance 0); the same with chunked prefill,
+    preempted while a lane is mid-prefill; and a day stopped by a real
+    ``PreemptionGuard`` whose SIGTERM arrives before the run.  Prints the
+    checkpoint's bytes and the save, restore and resume times."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    import repro_torch.checkpoint as CK
+    from repro_torch.bench.serving_bench import implied_row_launches
+    from repro_torch.core.trace import AddressTrace
+    from repro_torch.runtime import FaultEvent, FaultPlan, PreemptionGuard
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import (Scheduler,
+                                               simulate_scheduler_stream,
+                                               synthesize_requests)
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+                      max_seq=SCHED_MAX_SEQ, mem_arch="16B",
+                      page_len=PAGE_LEN, device=engine.device)
+    reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
+                               context_dist="mixed", max_seq=SCHED_MAX_SEQ,
+                               seed=0, vocab_size=cfg.vocab_size)
+    n_kv = eng.n_kv_layers
+    sim_kw = dict(n_lanes=BATCH, max_seq=SCHED_MAX_SEQ, page_len=PAGE_LEN,
+                  n_kv_layers=n_kv)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck_root = Path(tempfile.mkdtemp(prefix="preempt_", dir=ROOT / "build"))
+
+    # the save and the resume's restore, timed to the end of their device
+    # work; each restored pool held to the saved one before the resumed
+    # half writes into it
+    timing: dict = {}
+    saved: dict = {}
+    save, restore = CK.save_checkpoint, CK.restore_checkpoint
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        timing["save_s"] = time.perf_counter() - t0
+        return path
+
+    def timed_restore(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(*args, **kw)
+        torch.cuda.synchronize()
+        timing["restore_s"] = time.perf_counter() - t0
+        pools = out["pools"]
+        timing["restore_err"] = max(
+            (pools[k][h].float() - saved[k][h].float()).abs().max().item()
+            for k in saved for h in ("k", "v"))
+        timing["restore_equal"] = all(
+            torch.equal(pools[k][h], saved[k][h])
+            for k in saved for h in ("k", "v"))
+        return out
+
+    def preempted_day(tag, plan, chunk=None, guard=None):
+        """Both halves of one preempted day; returns their results and
+        traces, the checkpoint's bytes, and the times."""
+        ck = str(ck_root / tag)
+        timing.clear()
+        saved.clear()
+        t0 = time.perf_counter()
+        if guard is None:
+            part1 = eng.run_scheduler(reqs, fault_plan=plan,
+                                      checkpoint_dir=ck,
+                                      prefill_chunk_pages=chunk)
+        else:
+            with PreemptionGuard(signals=(signal.SIGTERM,)) as g:
+                signal.raise_signal(signal.SIGTERM)
+                part1 = eng.run_scheduler(reqs, guard=g, checkpoint_dir=ck,
+                                          prefill_chunk_pages=chunk)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        saved.update(eng.last_pools)
+        tr1 = eng.scheduler_stream().materialize()
+        t0 = time.perf_counter()
+        part2 = eng.run_scheduler(None, fault_plan=plan, resume_from=ck,
+                                  prefill_chunk_pages=chunk)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        tr2 = eng.scheduler_stream().materialize()
+        ck_bytes = sum(f.stat().st_size
+                       for f in Path(part1.checkpoint).iterdir())
+        return {"part1": part1, "part2": part2, "tr1": tr1, "tr2": tr2,
+                "bytes": ck_bytes, "first_s": first_s, "resume_s": resume_s,
+                **timing}
+
+    def held(tag, day, plan, chunk, want_launches, got_launches):
+        """The checks of one preempted day."""
+        p1, p2 = day["part1"], day["part2"]
+        full = simulate_scheduler_stream(
+            eng.mem_arch, reqs, fault_plan=plan, prefill_chunk_pages=chunk,
+            **sim_kw).materialize()
+        cat = AddressTrace.concat(day["tr1"], day["tr2"])
+        trace_eq = all(np.array_equal(getattr(cat, f), getattr(full, f))
+                       for f in ("addrs", "kinds", "instr", "mask"))
+        tokens_eq = sorted(p2.outputs) == sorted(healthy) and all(
+            np.array_equal(p2.outputs[k], healthy[k]) for k in healthy)
+        log(f"[preempt] {tag}: preempted after tick {p1.ticks - 1} "
+            f"({len(p1.outputs)} requests done, checkpoint {day['bytes']} "
+            f"bytes), resumed to tick {p2.ticks}; merged tokens equal to "
+            f"the healthy day's {tokens_eq}; halves' traces ({len(day['tr1'].addrs)} + "
+            f"{len(day['tr2'].addrs)} ops) == simulation {trace_eq}; row "
+            f"launches {got_launches} (uninterrupted day {want_launches}); "
+            f"restored pools equal {day['restore_equal']} (max |diff| "
+            f"{day['restore_err']}); save {day['save_s']:.3f} s, restore "
+            f"{day['restore_s']:.3f} s, first half {day['first_s']:.3f} s, "
+            f"resumed half {day['resume_s']:.3f} s ({smi})")
+        if not (p1.preempted and not p2.preempted and tokens_eq and trace_eq
+                and day["restore_equal"] and day["restore_err"] == 0
+                and got_launches == want_launches):
+            raise AssertionError(f"[preempt] {tag} failed its checks")
+
+    # the day's tick with every lane busy, by simulation
+    busy = None
+    sched = Scheduler(eng.kv_cfg, n_lanes=BATCH, max_seq=SCHED_MAX_SEQ,
+                      n_kv_layers=n_kv)
+    for ev in sched.run(reqs):
+        if ev.tick == PREEMPT_TICK:
+            busy = int((sched.lane_rid >= 0).sum())
+    if busy != BATCH:
+        raise AssertionError(f"tick {PREEMPT_TICK} has {busy} busy lanes")
+    plan = FaultPlan((FaultEvent(tick=PREEMPT_TICK, kind="preempt"),))
+    CK.save_checkpoint, CK.restore_checkpoint = timed_save, timed_restore
+    try:
+        day, secs, got, entries = _counted_path(
+            "preempt", lambda: preempted_day("unchunked", plan),
+            lambda _: launches)
+        held("unchunked", day, plan, None, launches, got)
+        ch_tick = _preempt_tick_mid_prefill(eng.kv_cfg, reqs, n_kv,
+                                            PREEMPT_TICK)
+        ch_plan = FaultPlan((FaultEvent(tick=ch_tick, kind="preempt"),))
+        ch_want = implied_row_launches(simulate_scheduler_stream(
+            eng.mem_arch, reqs, prefill_chunk_pages=SCHED_CHUNK,
+            **sim_kw), n_kv)
+        chunked, _, ch_got, ch_entries = _counted_path(
+            "preempt chunked", lambda: preempted_day(
+                "chunked", ch_plan, chunk=SCHED_CHUNK),
+            lambda _: ch_want)
+        aux = CK.load_aux(str(ck_root / "chunked"), ch_tick + 1)
+        if not aux["sched"]["prefill_next"]:
+            raise AssertionError("the chunked day was not mid-prefill")
+        held(f"chunked ({SCHED_CHUNK} pages a chunk, tick {ch_tick}, lanes "
+             f"mid-prefill {sorted(aux['sched']['prefill_next'])})",
+             chunked, ch_plan, SCHED_CHUNK, ch_want, ch_got)
+        guarded, _, g_got, g_entries = _counted_path(
+            "preempt guard", lambda: preempted_day("guard", None,
+                                                   guard=True),
+            lambda _: launches)
+        held("SIGTERM through a PreemptionGuard", guarded, None, None,
+             launches, g_got)
+        if guarded["part1"].ticks != 1:
+            raise AssertionError("the guard did not stop the first tick")
+    finally:
+        CK.save_checkpoint, CK.restore_checkpoint = save, restore
+        shutil.rmtree(ck_root)
+    wall = time.perf_counter() - t_phase
+    log(f"[preempt] phase wall time {wall:.2f} s ({smi})")
+    days = {"unchunked": day, "chunked": chunked, "guard": guarded}
+    # the path's launches: the three preempted and resumed days together
+    return {"launches": {k: got[k] + ch_got[k] + g_got[k] for k in got},
+            "entries": {k: {e: entries[k][e] + ch_entries[k][e]
+                            + g_entries[k][e] for e in entries[k]}
+                        for k in entries},
+            "launches_by_day": {"unchunked": got, "chunked": ch_got,
+                                "guard": g_got},
+            "preempt_tick": PREEMPT_TICK, "chunked_tick": ch_tick,
+            "days": {k: {f: d[f] for f in ("bytes", "save_s", "restore_s",
+                                           "first_s", "resume_s",
+                                           "restore_err")}
+                     | {"ticks": (d["part1"].ticks, d["part2"].ticks)}
+                     for k, d in days.items()},
+            "max_abs_err": max(d["restore_err"] for d in days.values()),
+            "run_s": secs, "wall_s": wall, "nvidia_smi": smi}
 
 
 def _serving_inputs(engine) -> dict:
@@ -1651,6 +1870,112 @@ def phase_cost_bench(smi: str) -> dict:
                              f"{failures}")
     return {"seconds": secs, "nvidia_smi": smi, "launches": launches_after,
             "rows": rows, "registry": registry}
+
+
+def phase_serving_bench(smi: str) -> dict:
+    """The serving benchmark (``repro_torch.bench.serving_bench``) through
+    its ``main`` on the card: the full grid with ``--check`` (its live
+    check's paired row launches counted, no plain call), ``--chaos --smoke
+    --check`` and ``--smoke``; every row, the ranking report and the chaos
+    row equal the same functions with ``--device cpu``, and every pin and
+    gate holds.  Then both serving examples through their ``main`` on the
+    card."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.bench import serving_bench as SB
+    from repro_torch.examples import paged_kv_serving, serve_lm
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            got = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return got, text.getvalue().splitlines()
+
+    (full, full_lines), _, launches, entries = _counted_path(
+        "serving_bench", lambda: timed("check", lambda: SB.main(
+            ["--check", "--out", str(out_dir / "serving_bench.json")])),
+        lambda r: r[0]["scheduler"]["checks"][0]["row_launches"])
+    chaos, chaos_lines = timed("chaos", lambda: SB.main(
+        ["--chaos", "--smoke", "--check", "--out",
+         str(out_dir / "serving_bench_chaos.json")]))
+    smoke, _ = timed("smoke", lambda: SB.main(
+        ["--smoke", "--out", str(out_dir / "serving_bench_smoke.json")]))
+    # the same functions priced on the host
+    t0 = time.perf_counter()
+    host_rows = SB.rows(device="cpu")
+    host_sched = SB.sched_rows(device="cpu")
+    host_flips = SB.ranking_flip_report(host_sched, device="cpu")
+    host_chaos, _ = SB.chaos_section(device="cpu")
+    secs["host_pricing"] = time.perf_counter() - t0
+    live, day = full["scheduler"]["checks"]
+    checks = {
+        "serving rows == CPU": full["serving"] == host_rows,
+        "scheduled rows == CPU": full["scheduler"]["rows"] == host_sched,
+        "ranking == CPU": full["scheduler"]["ranking"] == host_flips,
+        "chaos row == CPU": chaos["faults"] == host_chaos,
+        "smoke rows are the grid's first": (
+            smoke["serving"] == host_rows[:9]
+            and smoke["scheduler"]["rows"] == host_sched[:18]),
+        "live == sim, 80 ops, 2800 / 128 cycles": live["ok"] and (
+            live["n_ops"], live["cycles"]) == (80, {"16B": 2800,
+                                                     "4R-2W": 128}),
+        "streamed day under half the dense matrix": day["ok"],
+        "low-arrival days flip to 4R-1W": full["scheduler"]["ranking"][
+            "has_flip"] and full["scheduler"]["ranking"][
+            "fixed_batch_winner"] == "4R-2W" and all(
+            v["arch"] == "4R-1W" for k, v in full["scheduler"]["ranking"][
+                "day_winners"].items() if "_r0.5_" in k),
+        "chaos pins 2800 / 4660 / 4668": chaos["faults"]["cycles"] == {
+            "healthy": 2800, "faulted": 4660, "faulted_degraded": 4668}
+        and chaos["faults"]["ok"],
+        "check OK printed": full_lines[-1].startswith("# check OK")
+        and chaos_lines[-1].startswith("# chaos check OK"),
+    }
+    log(f"[serving_bench] wall seconds on the card ({smi}): {secs}; the "
+        f"live check's row launches {launches} by entry {entries}")
+    log(f"[serving_bench] streamed day: {day}")
+    log(f"[serving_bench] ranking: {full['scheduler']['ranking']}")
+    log(f"[serving_bench] chaos: {chaos['faults']}")
+    log(f"[serving_bench] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"serving bench checks failed: {checks}")
+
+    # the two examples on the card; the first's prices and tuner picks
+    # equal to its run on the host
+    ex, ex_lines = {}, {}
+    for name, main in (("paged_kv_serving", paged_kv_serving.main),
+                       ("serve_lm", serve_lm.main)):
+        ex[name], ex_lines[name] = timed(name, lambda: main([]))
+        log(f"[serving_bench] examples/{name}: {secs[name]:.2f} s; last "
+            f"line {ex_lines[name][-1]!r}")
+    host_ex, _ = timed("paged_kv_serving_cpu",
+                       lambda: paged_kv_serving.main(["--device", "cpu"]))
+    card_ex = ex["paged_kv_serving"]
+    log(f"[serving_bench] paged_kv_serving cycles {card_ex['cycles']}, "
+        f"picks {card_ex['picks']}; on the host {host_ex['cycles']}, "
+        f"{host_ex['picks']}")
+    if not (ex_lines["paged_kv_serving"][-1]
+            == "banked paged-KV serving verified end-to-end ✓"
+            and ex_lines["serve_lm"][-1] == "greedy decode deterministic ✓"
+            and (card_ex["cycles"], card_ex["picks"], card_ex["n_ops"])
+            == (host_ex["cycles"], host_ex["picks"], host_ex["n_ops"])):
+        raise AssertionError(f"the examples printed {ex_lines}")
+    wall = time.perf_counter() - t_phase
+    log(f"[serving_bench] phase wall time {wall:.2f} s ({smi})")
+    return {"seconds": secs, "launches": launches, "entries": entries,
+            "streamed_day": day, "live_check": live,
+            "ranking": full["scheduler"]["ranking"],
+            "chaos": chaos["faults"], "checks": checks,
+            "examples": ex_lines, "wall_s": wall, "nvidia_smi": smi}
 
 
 def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
@@ -2456,9 +2781,12 @@ def main() -> int:
     record["schedule"] = phase_schedule(engine, smi)
     healthy = record["schedule"].pop("outputs")
     record["faults"] = phase_faults(engine, healthy, smi)
+    record["preempt"] = phase_preempt(engine, healthy,
+                                      record["schedule"]["launches"], smi)
     record["tables"] = phase_tables()
     record["figures"] = phase_figures(smi)
     record["cost_bench"] = phase_cost_bench(smi)
+    record["serving_bench"] = phase_serving_bench(smi)
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
     record["controllers"] = phase_controllers()
@@ -2485,7 +2813,7 @@ def main() -> int:
             "src/repro/kernels/conflict_popcount/kernel.py:43",
         "carry_arbiter": "src/repro/kernels/carry_arbiter/kernel.py:41",
         "moe_dispatch": "src/repro/kernels/moe_dispatch/kernel.py:59"}
-    # the row kernels: launches of the serving path (by entry too), times
+    # the row kernels: launches of the serving paths (by entry too), times
     # where bytes rule (single table, 16384 lines), the serving shapes'
     # single and paired times beside them
     kernels = []
@@ -2496,18 +2824,18 @@ def main() -> int:
             "source": "src/repro_torch/csrc/banked_rows.cu",
             "replaces": replaces[name],
             "launches": serve["launches"][name] + sum(
-                record[p]["launches"][name] for p in ("schedule", "faults")),
+                record[p]["launches"][name] for p in ROW_PATHS),
             "launches_by_path": {
                 "serve": serve["launches"][name],
-                **{p: record[p]["launches"][name]
-                   for p in ("schedule", "faults")}},
+                **{p: record[p]["launches"][name] for p in ROW_PATHS}},
             "entries": {"serve": serve["entries"][name],
                         **{p: record[p]["entries"][name]
-                           for p in ("schedule", "faults")}},
+                           for p in ROW_PATHS}},
             "max_abs_err": max(record["kernels"]["max_abs_err"][name],
                                record["path_kernels"]["max_abs_err"][name],
                                record["schedule"]["max_abs_err"],
                                record["faults"]["max_abs_err"],
+                               record["preempt"]["max_abs_err"],
                                record["row_times"]["max_abs_err"][name],
                                record["figures"]["max_abs_err"].get(name,
                                                                     0.0)),

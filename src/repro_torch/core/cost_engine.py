@@ -46,6 +46,7 @@ import functools
 import hashlib
 import queue
 import threading
+import weakref
 from collections import OrderedDict, deque
 
 import numpy as np
@@ -504,6 +505,30 @@ def _prefetched(src: TraceStream, prefetch: int) -> TraceStream:
     return TraceStream(gen(), meta=dict(src.meta))  # lint: allow-one-shot-stream
 
 
+class _StagingBytes:
+    """The bytes of ``_upload``'s host staging buffers (pinned on the card)
+    alive at once, and their peak since ``reset()``: host memory that torch
+    allocates, so ``tracemalloc`` does not see it."""
+
+    def __init__(self):
+        self.live = self.peak = 0
+
+    def reset(self) -> None:
+        self.peak = self.live
+
+    def hold(self, buf: torch.Tensor) -> None:
+        n = buf.nbytes
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(buf, self._release, n)
+
+    def _release(self, n: int) -> None:
+        self.live -= n
+
+
+STAGING = _StagingBytes()
+
+
 def _upload(addrs: np.ndarray, mask: np.ndarray, kinds: np.ndarray,
             device: torch.device) -> tuple:
     """A host block on ``device`` as (addrs int32, mask bool, kinds int32),
@@ -513,6 +538,7 @@ def _upload(addrs: np.ndarray, mask: np.ndarray, kinds: np.ndarray,
     pinned = device.type == "cuda"
     buf = torch.empty((addrs.shape[0], 2 * LANES + 1), dtype=torch.int32,
                       pin_memory=pinned)
+    STAGING.hold(buf)
     host = buf.numpy()
     host[:, :LANES] = addrs
     host[:, LANES:2 * LANES] = mask

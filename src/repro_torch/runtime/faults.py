@@ -20,10 +20,9 @@ side of the recovery layer:
       - ``decode_transient``  a decode step fails ``failures`` times before
                               succeeding; the live engine drives it through
                               ``runtime.fault_tolerance.retry_step``;
-      - ``preempt``           a preemption signal: the engine checkpoints
-                              scheduler + pools and returns (the port's
-                              checkpoints come with slice 4c; until then
-                              the scheduler only records the event).
+      - ``preempt``           a preemption signal: the live engine
+                              checkpoints scheduler + pools and returns;
+                              a second call resumes the day.
 
   * ``FaultPlan``  — an immutable, tick-ordered event sequence.  The
     scheduler consumes events with ``tick <= now`` through a cursor it owns

@@ -24,7 +24,10 @@ kernels, with per-lane positions (``_paged_attention_decode_ragged``).
 Under a ``runtime.FaultPlan`` a bank loss moves the dead bank's live pages
 through the paired row kernels, a corrupted page is rebuilt by a
 re-prefill and a replay of its request's decode steps, and a transient
-decode fault is retried; preemption checkpoints come with slice 4c.
+decode fault is retried.  A preemption (a ``preempt`` event or a tripped
+``runtime.PreemptionGuard``) checkpoints the pools and the scheduler's
+state through ``repro_torch.checkpoint``, and a second ``run_scheduler``
+call resumes the day from it.
 """
 from __future__ import annotations
 
@@ -55,9 +58,9 @@ class SchedulerRunResult:
     """One continuous-batching run: per-request generated ids (rid-keyed;
     a request's array has exactly ``max_new_tokens`` entries), the
     scheduler's run statistics (makespan, lane occupancy, bank-occupancy
-    skew, fault counters) and the tick count.  ``preempted`` and
-    ``checkpoint`` keep the reference's shape: preemption checkpoints come
-    with slice 4c, so they stay False and None."""
+    skew, fault counters) and the tick count.  A preempted run has
+    ``preempted=True`` and ``checkpoint``, the path of the step directory
+    it saved; resuming from it finishes the day."""
     outputs: dict[int, np.ndarray]
     stats: dict
     ticks: int
@@ -478,23 +481,27 @@ class ServeEngine:
         re-prefilled and replayed with every token held to the original
         (``_recover_page``); a transient decode fault raises before any
         device work and the step is retried through
-        ``runtime.retry_step``.  A preemption event without
-        ``checkpoint_dir`` raises ``ValueError``; ``guard``,
-        ``checkpoint_dir`` and ``resume_from`` (preemption checkpoints)
-        come with slice 4c and raise ``NotImplementedError``.
+        ``runtime.retry_step``.  A ``preempt`` event, or a tripped
+        ``runtime.PreemptionGuard`` (``guard``), checkpoints the pools,
+        the lanes' tokens and the scheduler's state to ``checkpoint_dir``
+        after the tick's physics (``repro_torch.checkpoint``, the
+        reference's format; the save copies every pool to the host) and
+        returns ``preempted=True`` with the checkpoint's path; without
+        ``checkpoint_dir`` it raises ``ValueError``.  Pass the directory
+        back as ``resume_from`` (with ``requests=None`` and the same
+        ``fault_plan`` and ``prefill_chunk_pages``) to finish the day with
+        the tokens of an uninterrupted run; lanes preempted mid-prefill
+        re-derive their held rows from the request's tokens.
+        ``scheduler_stream()`` then holds this call's half of the day.
 
         Requests need prompt ``tokens``.  The live path needs an
         attention-only model.  Each tick costs one host-to-device copy (the
         step's indices, pinned) and one read of the sampled tokens."""
+        from repro_torch.checkpoint import (latest_step, load_aux,
+                                            restore_checkpoint,
+                                            save_checkpoint)
         from repro_torch.runtime import TransientFault, retry_step
         from repro_torch.serving.scheduler import Scheduler
-        for name, value in (("guard", guard),
-                            ("checkpoint_dir", checkpoint_dir),
-                            ("resume_from", resume_from)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"run_scheduler({name}=...): preemption checkpoints "
-                    f"come with the port's slice 4c")
         if self.kv_mode != "paged":
             raise ValueError("run_scheduler requires kv_mode='paged'")
         if any(kind != "attn" for kind, _ in self.cfg.block_pattern()):
@@ -503,6 +510,9 @@ class ServeEngine:
                 "SSM state eviction/re-admission is not implemented); "
                 "hybrid traffic can still be simulated and costed via "
                 "scheduler.simulate_scheduler_stream")
+        if resume_from is not None and requests is not None:
+            raise ValueError("pass requests=None when resuming: the "
+                             "checkpointed scheduler still holds them")
         sched = scheduler or Scheduler(
             self.kv_cfg, n_lanes=self.max_batch, max_seq=self.max_seq,
             policy=policy, n_kv_layers=self.n_kv_layers,
@@ -517,6 +527,7 @@ class ServeEngine:
         #: held prefill rows of lanes mid-chunked-prefill (lane -> rows)
         pending: dict[int, dict] = {}
         self._sched_traces = []
+        preempted, ckpt_path = False, None
         with torch.inference_mode():
             pools = {
                 f"b{j}s{sb}": {h: torch.zeros((kv.n_pages, kv.row_width),
@@ -524,6 +535,42 @@ class ServeEngine:
                                for h in ("k", "v")}
                 for j, _ in enumerate(self.cfg.block_pattern())
                 for sb in range(self.cfg.n_superblocks)}
+            if resume_from is not None:
+                step = latest_step(resume_from)
+                if step is None:
+                    raise ValueError(f"no checkpoint found in {resume_from}")
+                # the pools land on the engine's device; lane_tok travels
+                # in the reference's (max_batch, 1) int32 and lands on the
+                # host, where the port keeps it
+                restored = restore_checkpoint(
+                    resume_from, step,
+                    {"pools": pools,
+                     "lane_tok": torch.zeros((self.max_batch, 1),
+                                             dtype=torch.int32)})
+                pools = restored["pools"]
+                lane_tok = restored["lane_tok"][:, 0].numpy().astype(
+                    np.int64)
+                aux = load_aux(resume_from, step)
+                if aux is None:
+                    raise ValueError(
+                        f"checkpoint step {step} in {resume_from} has no "
+                        f"scheduler sidecar (aux.json); was it written by "
+                        f"run_scheduler?")
+                sched.load_state(aux["sched"])
+                toks = {int(k): [int(t) for t in v]
+                        for k, v in aux["toks"].items()}
+                outputs = {int(k): np.asarray(v, np.int32)
+                           for k, v in aux["outputs"].items()}
+                lane_rid = np.asarray(aux["lane_rid"], np.int64)
+                # lanes checkpointed mid-chunked-prefill: their landed
+                # chunks are in the restored pools; the held rows are
+                # recomputed from the request's tokens (prefill is
+                # deterministic, so the remaining chunks scatter the rows
+                # an uninterrupted run would)
+                for lane in sched._prefill_next:
+                    r = sched._by_rid[int(sched.lane_rid[lane])]
+                    _, pending[lane] = self._prefill_rows(
+                        np.asarray(r.tokens, np.int32))
             for ev in sched.run(requests):
                 for mig in ev.migrations:
                     if mig["old_ids"]:
@@ -592,17 +639,34 @@ class ServeEngine:
                     for lane in np.flatnonzero(ev.active):
                         toks[int(lane_rid[lane])].append(int(nxt[lane]))
                 self._sched_traces.extend(ev.traces)
-                if ev.preempt:
-                    raise ValueError(
-                        "preemption fired but run_scheduler has no "
-                        "checkpoint_dir to drain into")
+                if ev.preempt or (guard is not None and guard.should_stop):
+                    if checkpoint_dir is None:
+                        raise ValueError(
+                            "preemption fired but run_scheduler has no "
+                            "checkpoint_dir to drain into")
+                    aux = {"sched": sched.state_dict(),
+                           "toks": {str(k): [int(t) for t in v]
+                                    for k, v in toks.items()},
+                           "outputs": {str(k): np.asarray(v).tolist()
+                                       for k, v in outputs.items()},
+                           "lane_rid": lane_rid.tolist()}
+                    # the save copies every pool to the host: the sync
+                    ckpt_path = save_checkpoint(
+                        checkpoint_dir, sched.now,
+                        {"pools": pools,
+                         "lane_tok": torch.from_numpy(
+                             lane_tok.astype(np.int32)[:, None])},
+                        aux=aux)
+                    preempted = True
+                    break
         self.last_pools = pools
         self._sched_meta = {"what": "scheduler-live",
                             "arch": self.mem_arch.name,
                             "policy": sched.policy_name,
                             "n_requests": len(outputs), "ticks": sched.now}
         return SchedulerRunResult(outputs=outputs, stats=sched.stats(),
-                                  ticks=sched.now)
+                                  ticks=sched.now, preempted=preempted,
+                                  checkpoint=ckpt_path)
 
     def scheduler_stream(self):
         """The last ``run_scheduler``'s KV traffic as a re-iterable

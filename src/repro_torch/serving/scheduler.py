@@ -36,8 +36,9 @@ in live and simulated runs alike: a ``bank_offline`` evicts the bank's
 live pages and migrates them to surviving banks (``fault_migrate_trace``),
 a ``page_corrupt`` re-prefills its victim and replays its decode steps, a
 ``decode_transient`` asks the live engine to retry the tick's step, and a
-``preempt`` only marks the tick (the live engine's checkpoints come with
-slice 4c).  A ``runtime.StepWatchdog`` may time the decode steps.
+``preempt`` marks the tick, after whose physics the live engine
+checkpoints the pools and this scheduler's ``state_dict`` and returns.  A
+``runtime.StepWatchdog`` may time the decode steps.
 """
 from __future__ import annotations
 
@@ -422,7 +423,7 @@ class TickEvent:
     #: lane, skipped} and, when not skipped, request, pid, plen, steps,
     #: prompt_ids, page_table, pos); ``transients`` the injected decode
     #: failures the live engine retries through; ``preempt`` marks a
-    #: preemption (the live engine's checkpoints come with slice 4c).
+    #: preemption (the live engine checkpoints after this tick).
     migrations: list = field(default_factory=list)
     recoveries: list = field(default_factory=list)
     transients: int = 0

@@ -3,12 +3,14 @@ fault plans (``repro_torch.runtime``), the degraded ``!d`` memories and
 their pricing (``core.arch``, ``core.cost_engine``), the scheduler's bank
 loss, ECC page recovery and transient faults, the watchdog and the retry
 primitive, and the live engine's chaos day.  A counterpart of every case of
-``tests/test_faults.py`` that needs neither checkpoints nor the symbolic
-prover, each compared with the reference's own result on the same inputs
+``tests/test_faults.py`` that does not need the symbolic prover, each
+compared with the reference's own result on the same inputs
 (numpy seeds; the model weights converted with ``from_jax``), plus 64
 degraded memories priced against the reference, 12 synthesized chaos days
-event for event, the serving bench's chaos pins and the ``serve
---fault-bank`` CLI.
+event for event, the serving bench's chaos pins, the ``serve
+--fault-bank`` CLI, and preemption: days checkpointed by a ``preempt``
+event or a tripped guard and resumed, in the port and across the two
+packages.
 
 Integers (page ids, traces, cycles, ticks, tokens) are compared exactly.
 The live engines run float32 compute, where the port's greedy tokens equal
@@ -844,14 +846,170 @@ def test_lost_page_zeroes_its_own_line(eng):
         assert torch.equal(p[keep], before[h][keep])
 
 
-def test_preemption_without_checkpoint_dir_raises(eng, r_eng):
+def test_preemption_without_checkpoint_dir_raises(eng, r_eng, tmp_path):
+    """A preemption with nowhere to drain raises the reference's
+    ``ValueError`` naming ``checkpoint_dir``, whether a ``preempt`` event
+    or a tripped guard fires it; ``guard=``, ``checkpoint_dir=`` and
+    ``resume_from=`` otherwise run as the reference's do."""
     for engine, mod, fr in ((eng, PS, PR), (r_eng, RS, RR)):
         plan = fr.FaultPlan((fr.FaultEvent(tick=4, kind="preempt"),))
         with pytest.raises(ValueError, match="checkpoint_dir"):
             engine.run_scheduler(_requests(mod), fault_plan=plan)
-    for name in ("guard", "checkpoint_dir", "resume_from"):
-        with pytest.raises(NotImplementedError, match="slice 4c"):
-            eng.run_scheduler(_requests(PS), **{name: "x"})
+        with fr.PreemptionGuard(signals=()) as g:
+            g._handler(15, None)
+            with pytest.raises(ValueError, match="checkpoint_dir"):
+                engine.run_scheduler(_requests(mod), guard=g)
+    # an untripped guard and an unused checkpoint directory change nothing
+    with PR.PreemptionGuard(signals=()) as g:
+        got = eng.run_scheduler(_requests(PS), guard=g,
+                                checkpoint_dir=str(tmp_path / "p"))
+    want = r_eng.run_scheduler(_requests(RS),
+                               checkpoint_dir=str(tmp_path / "r"))
+    assert not got.preempted and got.checkpoint is None
+    assert got.ticks == want.ticks and got.stats == want.stats
+    for rid, toks in want.outputs.items():
+        np.testing.assert_array_equal(got.outputs[rid], toks)
+    assert not (tmp_path / "p").exists() and not (tmp_path / "r").exists()
+    # resume_from: with fresh requests, from an empty or missing directory,
+    # from a checkpoint with no scheduler sidecar
+    from repro_torch.checkpoint import save_checkpoint
+    (tmp_path / "empty").mkdir()
+    save_checkpoint(str(tmp_path / "bare"), 1, {"x": torch.zeros(1)})
+    for engine, mod in ((eng, PS), (r_eng, RS)):
+        with pytest.raises(ValueError, match="resum"):
+            engine.run_scheduler(_requests(mod),
+                                 resume_from=str(tmp_path / "empty"))
+        for d in ("empty", "missing"):
+            with pytest.raises(ValueError, match="no checkpoint found"):
+                engine.run_scheduler(None, resume_from=str(tmp_path / d))
+    with pytest.raises(ValueError, match="disagree"):
+        eng.run_scheduler(None, resume_from=str(tmp_path / "bare"))
+
+
+# -- preemption: checkpoint, resume ------------------------------------------
+
+def _preempt_plan(mod, tick):
+    return mod.FaultPlan((mod.FaultEvent(tick=tick, kind="preempt"),))
+
+
+def _halves_equal_the_full_day(eng, reqs, plan, tr1, tr2, **kw) -> None:
+    full = PS.simulate_scheduler_stream(
+        eng.mem_arch, reqs, n_lanes=4, max_seq=32, page_len=8,
+        n_kv_layers=eng.n_kv_layers, fault_plan=plan, **kw).materialize()
+    _traces_equal(AddressTrace.concat(tr1, tr2), full)
+
+
+def test_live_preemption_checkpoint_resume_is_pinned(eng, baseline,
+                                                     tmp_path):
+    """Preempt mid-day, checkpoint, resume in a second call: the merged
+    outputs equal the uninterrupted run, the two halves' traces
+    concatenate to the full simulated day, the first half's pools are the
+    checkpoint's bit for bit, and ``lane_tok`` is saved in the reference's
+    (max_batch, 1) int32 form."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    reqs = _requests(PS)
+    plan = _preempt_plan(PR, 4)
+    ck = str(tmp_path / "ck")
+    part1 = eng.run_scheduler(reqs, fault_plan=plan, checkpoint_dir=ck)
+    assert part1.preempted and part1.checkpoint is not None
+    assert part1.ticks == latest_step(ck) == 5
+    assert part1.stats["faults"]["preempts"] == 1
+    assert set(part1.outputs) < {r.rid for r in reqs}
+    saved = eng.last_pools
+    tr1 = eng.scheduler_stream().materialize()
+    like = {"pools": saved,
+            "lane_tok": torch.zeros((4, 1), dtype=torch.int32)}
+    back = restore_checkpoint(ck, 5, like)
+    for key, pair in saved.items():
+        for h in ("k", "v"):
+            assert torch.equal(back["pools"][key][h], pair[h])
+    manifest = json.loads((Path(part1.checkpoint) /
+                           "manifest.json").read_text())
+    assert manifest["paths"][0] == "['lane_tok']"
+    assert manifest["shapes"][0] == [4, 1]
+    assert manifest["dtypes"][0] == "int32"
+    part2 = eng.run_scheduler(None, fault_plan=plan, resume_from=ck)
+    assert not part2.preempted and part2.checkpoint is None
+    assert sorted(part2.outputs) == sorted(baseline)
+    for r in reqs:
+        np.testing.assert_array_equal(part2.outputs[r.rid], baseline[r.rid])
+    tr2 = eng.scheduler_stream().materialize()
+    _halves_equal_the_full_day(eng, reqs, plan, tr1, tr2)
+
+
+def test_guard_tripped_day_checkpoints_and_resumes(eng, baseline, tmp_path):
+    """A real ``PreemptionGuard`` whose SIGTERM arrives before the run: the
+    day checkpoints after its first tick, and the resumed half finishes it
+    with the uninterrupted tokens; the halves' traces are the full day's."""
+    import signal
+    reqs = _requests(PS)
+    ck = str(tmp_path / "ck")
+    with PR.PreemptionGuard(signals=(signal.SIGTERM,)) as guard:
+        signal.raise_signal(signal.SIGTERM)
+        assert guard.should_stop
+        part1 = eng.run_scheduler(reqs, guard=guard, checkpoint_dir=ck)
+    assert part1.preempted and part1.ticks == 1
+    assert part1.stats["faults"]["preempts"] == 0
+    tr1 = eng.scheduler_stream().materialize()
+    part2 = eng.run_scheduler(None, resume_from=ck)
+    assert not part2.preempted
+    for r in reqs:
+        np.testing.assert_array_equal(part2.outputs[r.rid], baseline[r.rid])
+    _halves_equal_the_full_day(eng, reqs, None, tr1,
+                               eng.scheduler_stream().materialize())
+
+
+def test_preempted_chaos_day_resumes_between_its_faults(eng, baseline,
+                                                        tmp_path):
+    """The chaos day preempted after its bank loss and before its page
+    corruption and transient: the resumed half recovers the page, retries
+    the step and finishes with the healthy day's tokens; its fault
+    counters add up to the uninterrupted chaos day's."""
+    reqs = _requests(PS)
+    plan = PR.FaultPlan(tuple(sorted(
+        tuple(P_CHAOS) + (PR.FaultEvent(tick=4, kind="preempt"),),
+        key=lambda e: e.tick)))
+    ck = str(tmp_path / "ck")
+    part1 = eng.run_scheduler(reqs, fault_plan=plan, checkpoint_dir=ck)
+    assert part1.preempted
+    tr1 = eng.scheduler_stream().materialize()
+    part2 = eng.run_scheduler(None, fault_plan=plan, resume_from=ck)
+    for r in reqs:
+        np.testing.assert_array_equal(part2.outputs[r.rid], baseline[r.rid])
+    f = part2.stats["faults"]
+    assert (f["dead_banks"], f["recoveries"], f["transients"],
+            f["preempts"]) == ([1], 1, 2, 1)
+    _halves_equal_the_full_day(eng, reqs, plan, tr1,
+                               eng.scheduler_stream().materialize())
+
+
+def test_preemption_cross_resumes_between_the_port_and_the_reference(
+        eng, r_eng, tmp_path):
+    """A day preempted by the reference engine resumes in the port, and one
+    preempted by the port resumes in the reference: both end with the
+    reference's uninterrupted outputs, and the resumed halves record the
+    same trace."""
+    want = r_eng.run_scheduler(_requests(RS)).outputs
+    r_ck, p_ck = str(tmp_path / "r"), str(tmp_path / "p")
+    r1 = r_eng.run_scheduler(_requests(RS), fault_plan=_preempt_plan(RR, 4),
+                             checkpoint_dir=r_ck)
+    p1 = eng.run_scheduler(_requests(PS), fault_plan=_preempt_plan(PR, 4),
+                           checkpoint_dir=p_ck)
+    assert r1.preempted and p1.preempted and r1.ticks == p1.ticks
+    for name in ("manifest.json", "aux.json"):
+        assert (json.loads((Path(r1.checkpoint) / name).read_text())
+                == json.loads((Path(p1.checkpoint) / name).read_text()))
+    got = eng.run_scheduler(None, fault_plan=_preempt_plan(PR, 4),
+                            resume_from=r_ck)
+    p_tr = eng.scheduler_stream().materialize()
+    back = r_eng.run_scheduler(None, fault_plan=_preempt_plan(RR, 4),
+                               resume_from=p_ck)
+    r_tr = r_eng.scheduler_stream().materialize()
+    for res in (got, back):
+        assert not res.preempted and sorted(res.outputs) == sorted(want)
+        for rid, toks in want.items():
+            np.testing.assert_array_equal(res.outputs[rid], toks)
+    _traces_equal(p_tr, r_tr)
 
 
 # -- the serve CLI -----------------------------------------------------------

@@ -3,8 +3,10 @@ imports JAX, the reference package ``repro`` or the reference's
 ``benchmarks``, and a CPU smoke generation (through the serving CLI), the
 Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
 autotune CLI, the cost bench, a scheduled serving day (``serve
---schedule``) and a faulted one (bank loss, page recovery, transient
-retries; ``serve --fault-bank``) run with all three blocked from import."""
+--schedule``), a faulted one (bank loss, page recovery, transient
+retries; ``serve --fault-bank``), the serving bench's ``--check`` and
+``--chaos --check`` and a preempted and resumed day run with all three
+blocked from import."""
 import ast
 import os
 import subprocess
@@ -27,7 +29,7 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro", "benchmarks"}
 
 
 def test_no_port_module_imports_jax_or_the_reference():
@@ -41,7 +43,7 @@ def _run_blocked(body: str) -> subprocess.CompletedProcess:
     """Run ``body`` in a fresh interpreter with the reference blocked."""
     script = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'repro', 'benchmarks'):\n"
         "    sys.modules[name] = None\n"
         + body +
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.',\n"
@@ -236,6 +238,66 @@ def test_cpu_faulted_day_runs_with_jax_and_repro_blocked():
     assert "isolated ok" in out.stdout
     assert "faults: bank(s) [1] lost at tick 4" in out.stdout
     assert "(degraded survivors)" in out.stdout
+
+
+@pytest.mark.parametrize("chaos", [False, True])
+def test_serving_bench_checks_run_with_the_reference_blocked(tmp_path,
+                                                             chaos):
+    """``python -m repro_torch.bench.serving_bench --smoke --check --device
+    cpu`` and ``--chaos --smoke --check --device cpu``, run as ``-m`` runs
+    them, with JAX, ``repro`` and ``benchmarks`` blocked: every gate holds
+    and ``--out`` is written."""
+    argv = ["serving_bench"] + (["--chaos"] if chaos else []) + [
+        "--smoke", "--check", "--device", "cpu", "--out",
+        str(tmp_path / "s.json")]
+    out = _run_blocked(
+        "import runpy\n"
+        f"sys.argv = {argv!r}\n"
+        "runpy.run_module('repro_torch.bench.serving_bench',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert ("# chaos check OK" if chaos else "# check OK") in out.stdout
+    assert (tmp_path / "s.json").exists()
+
+
+def test_cpu_preempted_day_resumes_with_jax_and_repro_blocked(tmp_path):
+    """A CPU smoke day preempted at tick 4, checkpointed and resumed in a
+    second call finishes with the uninterrupted day's tokens, with JAX,
+    ``repro`` and ``benchmarks`` blocked."""
+    out = _run_blocked(
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.configs.base import RunConfig\n"
+        "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.runtime import FaultEvent, FaultPlan\n"
+        "from repro_torch.serving.engine import ServeEngine\n"
+        "from repro_torch.serving.scheduler import Request\n"
+        "cfg = get_smoke_config('llama3.2-1b')\n"
+        "params = init_tree(model_specs(cfg),"
+        " torch.Generator().manual_seed(0), device='cpu')\n"
+        "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
+        " params, max_batch=4, max_seq=32, device='cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "spec = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0), (2, 9, 5),"
+        " (3, 12, 3))\n"
+        "reqs = [Request(i, a, p, m, rng.integers(0, cfg.vocab_size, p))"
+        " for i, (a, p, m) in enumerate(spec)]\n"
+        "plan = FaultPlan((FaultEvent(4, 'preempt'),))\n"
+        "healthy = eng.run_scheduler(reqs).outputs\n"
+        f"ck = r'{tmp_path / 'ck'}'\n"
+        "first = eng.run_scheduler(reqs, fault_plan=plan,"
+        " checkpoint_dir=ck)\n"
+        "assert first.preempted and first.checkpoint, first\n"
+        "res = eng.run_scheduler(None, fault_plan=plan, resume_from=ck)\n"
+        "assert not res.preempted\n"
+        "assert sorted(res.outputs) == sorted(healthy)\n"
+        "assert all(np.array_equal(res.outputs[k], v)"
+        " for k, v in healthy.items())\n"
+        "print('resumed', first.ticks, res.ticks)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert "resumed 5 " in out.stdout
 
 
 def test_default_device_is_the_card():

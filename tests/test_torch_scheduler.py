@@ -4,9 +4,10 @@ of every fault-free test of ``tests/test_scheduler.py``, each compared with
 the reference's own result on the same inputs (numpy seeds; the model
 weights converted with ``from_jax``), plus random serving days event for
 event, the live run against the reference's live run, the first ragged
-step's logits, the ``serve --schedule`` CLI, the fault paths on the
-same inputs as the reference, and the slice-4c ``NotImplementedError``s
-(``tests/test_torch_faults.py`` holds the fault paths in full).
+step's logits, the ``serve --schedule`` CLI, the fault paths and
+preemption's keywords on the same inputs as the reference
+(``tests/test_torch_faults.py`` holds the fault paths in full), and a
+chunked day preempted mid-prefill and resumed.
 
 Integers (page ids, traces, cycles, ticks, tokens) are compared exactly;
 ``stats()`` floats too (the same float32 arithmetic on the same small
@@ -763,17 +764,16 @@ def test_serve_schedule_cli_prints_the_references_lines(capsys):
         p_serve_cli.COST_MEMORIES)
 
 
-# -- the fault paths: ported (slice 4b), preemption refused (slice 4c) ----
+# -- the fault paths and preemption -----------------------------------------
 
-def test_fault_paths_raise_not_implemented_naming_slice_4b():
+def test_fault_paths_raise_not_implemented_naming_slice_4b(r_engine,
+                                                           tmp_path):
     """Each fault path this test once held refused now runs and equals the
     reference on the same inputs (the full chaos suite is
-    ``tests/test_torch_faults.py``); what stays refused is preemption's
-    checkpointing (``guard=``, ``checkpoint_dir=``, ``resume_from=``),
-    which raises ``NotImplementedError`` naming slice 4c, and a preemption
-    event without a checkpoint directory raises the reference's
-    ``ValueError``.  (The test keeps its name from when the whole fault
-    slice was refused.)"""
+    ``tests/test_torch_faults.py``), preemption's keywords (``guard=``,
+    ``checkpoint_dir=``, ``resume_from=``) too, and the refusals left are
+    the reference's ``ValueError``s.  (The test keeps its name from when
+    the whole fault slice was refused.)"""
     from repro.runtime import FaultEvent as RFE
     from repro.runtime import FaultPlan as RFP
     from repro.runtime import StepWatchdog as RWD
@@ -815,10 +815,63 @@ def test_fault_paths_raise_not_implemented_naming_slice_4b():
     ref.load_state(sd)
     assert loaded.state_dict() == ref.state_dict() == sd
 
+    # preemption's keywords run as the reference's on the same inputs: an
+    # untripped guard and an unused checkpoint directory change nothing,
+    # fresh requests with resume_from and a preemption with nowhere to
+    # drain raise its ValueErrors
+    from repro.runtime import PreemptionGuard as RGuard
+    from repro_torch.runtime import PreemptionGuard
     eng = _engine()
-    for name in ("guard", "checkpoint_dir", "resume_from"):
-        with pytest.raises(NotImplementedError, match="slice 4c"):
-            eng.run_scheduler(_requests(PS), **{name: object()})
+    with PreemptionGuard(signals=()) as g, RGuard(signals=()) as rg:
+        got = eng.run_scheduler(_requests(PS), guard=g,
+                                checkpoint_dir=str(tmp_path / "p"))
+        want = r_engine.run_scheduler(_requests(RS), guard=rg,
+                                      checkpoint_dir=str(tmp_path / "r"))
+    assert (got.ticks, got.stats, got.preempted, got.checkpoint) == (
+        want.ticks, want.stats, want.preempted, want.checkpoint)
+    for rid, toks in want.outputs.items():
+        np.testing.assert_array_equal(got.outputs[rid], toks)
+    for engine, mod in ((eng, PS), (r_engine, RS)):
+        with pytest.raises(ValueError, match="requests=None"):
+            engine.run_scheduler(_requests(mod),
+                                 resume_from=str(tmp_path / "p"))
     with pytest.raises(ValueError, match="checkpoint_dir"):
         eng.run_scheduler(_requests(PS), fault_plan=FaultPlan(
             (FaultEvent(tick=0, kind="preempt"),)))
+
+
+@pytest.mark.parametrize("tick", [0, 1, 3, 4])
+def test_chunked_live_preempt_resume_mid_prefill(tmp_path, r_engine, tick):
+    """Live preemption of a day with 1-page prefill chunks, at tick 1 as
+    the reference's test does and at the ticks after which a lane is mid
+    prefill (0, 3 and 4, found by simulation): the resumed half re-derives
+    the held K/V rows from the request's tokens, finishes with the
+    uninterrupted chunked day's tokens (the reference's too), and the two
+    halves' traces concatenate to the full chunked simulation."""
+    from repro_torch.runtime import FaultEvent, FaultPlan
+    reqs = _requests(PS)
+    eng = _engine()
+    baseline = eng.run_scheduler(reqs, prefill_chunk_pages=1).outputs
+    want = r_engine.run_scheduler(_requests(RS),
+                                  prefill_chunk_pages=1).outputs
+    plan = FaultPlan((FaultEvent(tick=tick, kind="preempt"),))
+    ck = str(tmp_path / "ck")
+    part1 = eng.run_scheduler(reqs, fault_plan=plan, checkpoint_dir=ck,
+                              prefill_chunk_pages=1)
+    assert part1.preempted and part1.ticks == tick + 1
+    aux = json.loads((tmp_path / "ck" / f"step_{tick + 1:08d}" /
+                      "aux.json").read_text())
+    assert bool(aux["sched"]["prefill_next"]) == (tick != 1)
+    tr1 = eng.scheduler_stream().materialize()
+    part2 = eng.run_scheduler(None, fault_plan=plan, resume_from=ck,
+                              prefill_chunk_pages=1)
+    assert not part2.preempted
+    for r in reqs:
+        np.testing.assert_array_equal(part2.outputs[r.rid], baseline[r.rid])
+        np.testing.assert_array_equal(part2.outputs[r.rid], want[r.rid])
+    full = PS.simulate_scheduler_stream(
+        eng.mem_arch, reqs, n_lanes=4, max_seq=32, page_len=8,
+        n_kv_layers=eng.n_kv_layers, fault_plan=plan,
+        prefill_chunk_pages=1).materialize()
+    _traces_equal(PTrace.concat(tr1, eng.scheduler_stream().materialize()),
+                  full)
