@@ -124,6 +124,18 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                and gate held; then the two serving examples
                (``paged_kv_serving``, its prices and picks equal to the
                host's, and ``serve_lm``) through their ``main``;
+     model_traffic — the model-traffic bench
+               (``repro_torch.bench.model_traffic_bench``) through its
+               ``main`` with ``--check`` on the card: one decode step of
+               llama3.2-1b, mixtral-8x22b and jamba-v0.1-52b at their
+               published configs priced on the nine paper memories, each
+               section's wall time; every row and the ranking equal to the
+               host's pricing, the pins (a whole llama step won by 16B,
+               ``attn_decode`` alone by 4R-1W, the flip), the whole-step
+               winners (mixtral 16B, jamba 16B-offset), the streamed
+               mixtral step's host peak (numpy plus the engine's staging)
+               at most half its dense matrix, its op count, peak and
+               price time printed; no kernel launched;
   6. sweep   — the transpose over (128, 128), (256, 512), (512, 128) and
                (32, 32) × f32/bf16/int32, bit-equal, the FFT passes
                (4096, 0/3/5), (1024, 2) at the reference tests' tolerance,
@@ -181,6 +193,12 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                requests, E = 16) and at 2^24 requests (E = 16 and 128)
                beside its byte bound and plain version (no library call
                computes it), and the device time of its one launch;
+     quickstart — ``repro_torch.examples.quickstart`` through its ``main``
+               on the card: its lines and values equal its host run;
+               section 3's gather one launch of ``gather_rows`` (by the
+               launch counters and by ``torch.profiler``), bit-equal to
+               its plain version; its launch joins the gather's count in
+               the kernels line;
  12. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time.
 
@@ -1978,6 +1996,167 @@ def phase_serving_bench(smi: str) -> dict:
             "examples": ex_lines, "wall_s": wall, "nvidia_smi": smi}
 
 
+#: the reference's whole-step winners (``benchmarks/model_traffic_bench.py``
+#: pins llama's; mixtral's and jamba's are what it computes, held equal in
+#: ``tests/test_torch_model_traces.py``)
+MODEL_WINNERS = {"llama3.2-1b": "16B", "mixtral-8x22b": "16B",
+                 "jamba-v0.1-52b": "16B-offset"}
+
+
+def phase_model_traffic(smi: str) -> dict:
+    """The model-traffic bench (``repro_torch.bench.model_traffic_bench``)
+    through its ``main`` on the card with ``--check``, each section's wall
+    time taken (the rows, the ranking, the gates); every row and the
+    ranking equal to the same functions priced with ``device="cpu"``, the
+    pins (16B / 4R-1W / the flip) and the streamed mixtral step's gate
+    held; the path launches no kernel (``moe_a2a`` takes the dispatch's
+    ``ref``, as the reference does)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.bench import model_traffic_bench as MT
+    t_phase = time.perf_counter()
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    secs = {}
+    originals = {name: getattr(MT, name)
+                 for name in ("rows", "ranking_report", "check")}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            return got
+        return call
+    for name, fn in originals.items():
+        setattr(MT, name, timed(name, fn))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            card = timed("main", MT.main)(
+                ["--check", "--out",
+                 str(ROOT / "chiprun_out" / "model_traffic_bench.json")])
+    finally:
+        for name, fn in originals.items():
+            setattr(MT, name, fn)
+    lines = text.getvalue().splitlines()
+    launches = {name: e.launches for name, e in entries.items()}
+    # the same functions priced on the host
+    t0 = time.perf_counter()
+    host_rows = MT.rows(device="cpu")
+    host_rank = MT.ranking_report(device="cpu")
+    host_step = MT.check_streamed_step(device="cpu")
+    secs["host_pricing"] = time.perf_counter() - t0
+    step = card["checks"][0]
+    winners = {m: w["arch"]
+               for m, w in card["ranking"]["model_winners"].items()}
+    checks = {
+        "rows == CPU": card["rows"] == host_rows,
+        "27 rows": len(card["rows"]) == 27,
+        "ranking == CPU": card["ranking"] == host_rank,
+        "pins 16B / 4R-1W / flip": (
+            winners["llama3.2-1b"] == MT.PIN_MODEL_WINNER
+            and card["ranking"]["kernel_winners"]["attn_decode"]
+            == MT.PIN_ATTN_KERNEL_WINNER
+            and card["ranking"]["llama_flips_attn_kernel"] == MT.PIN_FLIPS),
+        "whole-step winners": winners == MODEL_WINNERS,
+        "streamed step == CPU": all(
+            step[k] == host_step[k] for k in ("n_ops", "total_cycles_16B",
+                                              "dense_matrix_bytes")),
+        "streamed step under half the dense matrix": step["ok"] and (
+            step["dense_matrix_bytes"] >= MT.PEAK_HEADROOM * (
+                step["stream_peak_bytes"] + step["pinned_bytes"])),
+        "check OK printed": lines[-1].startswith("# check OK"),
+        "no kernel launched": not any(launches.values()),
+    }
+    wall = time.perf_counter() - t_phase
+    log(f"[model_traffic] wall seconds on the card ({smi}): {secs}; "
+        f"kernel launches on the path: {launches}")
+    log(f"[model_traffic] whole-step winners {winners}; kernel winners "
+        f"{card['ranking']['kernel_winners']}")
+    log(f"[model_traffic] streamed mixtral step: {step['n_ops']} ops, host "
+        f"peak {step['stream_peak_bytes']} B + {step['pinned_bytes']} B "
+        f"staged against the dense {step['dense_matrix_bytes']} B, priced "
+        f"on 9 memories in {step['price_s']} s (host pricing "
+        f"{host_step['price_s']} s); checks: {checks}")
+    log(f"[model_traffic] phase wall time {wall:.2f} s ({smi})")
+    if not all(checks.values()):
+        raise AssertionError(f"model traffic checks failed: {checks}")
+    return {"seconds": secs, "launches": launches, "winners": winners,
+            "ranking": card["ranking"], "streamed_step": step,
+            "host_streamed_step": host_step, "checks": checks,
+            "rows": card["rows"], "wall_s": wall, "nvidia_smi": smi}
+
+
+def phase_quickstart(smi: str) -> dict:
+    """The port's quickstart (``repro_torch.examples.quickstart``) through
+    its ``main`` on the card: its printed lines and values equal its run
+    on the host; section 3's gather ran as the hand-written
+    ``gather_rows`` (one launch of the single-table entry by the launch
+    counters, one ``gather_rows`` kernel by ``torch.profiler``) and is
+    bit-equal to its plain version on the same CUDA inputs."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core import arch as A
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.kernels.banked_gather.ops import (GATHERS,
+                                                       banked_gather_plain)
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+
+    def run(argv):
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            got = QS.main(argv)
+        return got, text.getvalue()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, card_text = run([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: e.launches for name, e in entries.items()}
+    by_entry = GATHERS.by_entry()
+    host, host_text = run(["--device", "cpu"])
+    table, idx, rows = card["gather"]
+    lay = A.get("16B-offset").layout
+    want = banked_gather_plain(lay.to_banked(table), idx, lay.n_banks,
+                               lay.mapping, shift=lay.shift)
+    err = _row_cases_equal("banked_gather", "the quickstart's section 3",
+                           [(rows, want)])
+    # which CUDA kernels a quickstart run launches, by torch.profiler
+    names = [e.name for e in _profiled_kernels(lambda: run([]))]
+    gather_kernels = [n for n in names if "gather_rows" in n]
+    checks = {
+        "printed == CPU": card_text == host_text,
+        "values == CPU": {k: v for k, v in card.items() if k != "gather"}
+        == {k: v for k, v in host.items() if k != "gather"},
+        "rows == CPU": torch.equal(rows.cpu(), host["gather"][2]),
+        "one gather launch, single-table entry": launches == {
+            **{k: 0 for k in launches}, "banked_gather": 1}
+        and by_entry["banked_gather_launch"] == 1,
+        "one gather_rows kernel by the profiler": len(gather_kernels) == 1,
+    }
+    log(f"[quickstart] {secs:.2f} s on the card ({smi}); launches {launches}"
+        f" by entry {by_entry}; profiled CUDA kernels {len(names)}, "
+        f"gather_rows {gather_kernels}; section 3 rows == plain (err {err})"
+        f"; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"quickstart checks failed: {checks}")
+    return {"seconds": secs, "launches": launches, "entries": by_entry,
+            "profiled_gather_kernels": gather_kernels,
+            "max_abs_err": {"banked_gather": err}, "checks": checks,
+            "printed": card_text.splitlines(), "nvidia_smi": smi}
+
+
 def _check_fft_pass(xr, xi, n, p, err, what) -> tuple:
     """The kernel pass and the plain pass on the same CUDA planes, rtol =
     atol = 1e-5 (tests/test_kernels.py:140-143); returns the plain output,
@@ -2787,6 +2966,7 @@ def main() -> int:
     record["figures"] = phase_figures(smi)
     record["cost_bench"] = phase_cost_bench(smi)
     record["serving_bench"] = phase_serving_bench(smi)
+    record["model_traffic"] = phase_model_traffic(smi)
     record["table_kernels"] = phase_table_kernels()
     record["table_sweep"] = phase_table_sweep()
     record["controllers"] = phase_controllers()
@@ -2797,6 +2977,10 @@ def main() -> int:
     record["table_times"] = phase_table_times()
     record["controller_times"] = phase_controller_times()
     record["dispatch_times"] = phase_dispatch_times()
+    # after every phase that reads kernels with ``_profiled_kernels``: in a
+    # run where this phase's session came first, each later session lost
+    # both of its opening markers
+    record["quickstart"] = phase_quickstart(smi)
     record["profile"] = phase_profile(engine)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
@@ -2824,10 +3008,12 @@ def main() -> int:
             "source": "src/repro_torch/csrc/banked_rows.cu",
             "replaces": replaces[name],
             "launches": serve["launches"][name] + sum(
-                record[p]["launches"][name] for p in ROW_PATHS),
+                record[p]["launches"][name] for p in ROW_PATHS + (
+                    "quickstart",)),
             "launches_by_path": {
                 "serve": serve["launches"][name],
-                **{p: record[p]["launches"][name] for p in ROW_PATHS}},
+                **{p: record[p]["launches"][name]
+                   for p in ROW_PATHS + ("quickstart",)}},
             "entries": {"serve": serve["entries"][name],
                         **{p: record[p]["entries"][name]
                            for p in ROW_PATHS}},
@@ -2838,7 +3024,9 @@ def main() -> int:
                                record["preempt"]["max_abs_err"],
                                record["row_times"]["max_abs_err"][name],
                                record["figures"]["max_abs_err"].get(name,
-                                                                    0.0)),
+                                                                    0.0),
+                               record["quickstart"]["max_abs_err"].get(
+                                   name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

@@ -4,7 +4,8 @@
 the card and returns tidy records; ``paper_tables`` formats the paper's
 Tables II and III over it.  Workloads are ISA programs (``Workload`` — the
 paper's transpose/FFT builders) or per-architecture trace lowerings
-(``TraceWorkload`` — paged-KV serving traffic).
+(``TraceWorkload`` — paged-KV serving traffic, scheduled serving days
+and whole-model decode steps).
 """
 from repro_torch.bench.runner import (TraceWorkload, Workload, run_cell,
                                       run_cells, sweep, verify_workload)

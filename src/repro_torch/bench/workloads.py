@@ -6,8 +6,8 @@ Table II: N×N matrix transpose (N ∈ {32, 64, 128}); Table III: 4096-point
 Cooley-Tukey FFT (radix ∈ {4, 8, 16}), functionally verified against numpy.
 ``serving_workload`` is a ``TraceWorkload``: paged-KV prefill + decode
 traffic lowered per-architecture (the page allocator follows the arch's
-bank map); ``scheduler_workload`` is a continuous-batching serving day.
-The whole-model workload comes with a later slice.
+bank map); ``scheduler_workload`` is a continuous-batching serving day;
+``model_workload`` is one whole-model decode step.
 """
 from __future__ import annotations
 
@@ -97,12 +97,44 @@ def serving_workload(batch: int = 4, prompt_len: int = 32,
         stream_fn=stream_fn)
 
 
-def model_workload(*args, **kwargs) -> TraceWorkload:
-    """Whole-model decode traffic (``repro.bench.model_workload``): comes
-    with the port's MoE and whole-model traffic slice."""
-    raise NotImplementedError(
-        "model_workload comes with the port's MoE and whole-model traffic "
-        "slice (models/trace.py is not ported yet)")
+def model_workload(config_name: str = "llama3_2_1b", batch: int = 4,
+                   prompt_len: int = 32, page_len: int = 8,
+                   block_ops: int | None = 4096, seed: int = 0,
+                   name: str | None = None, device="cuda") -> TraceWorkload:
+    """One whole-model decode step (``repro_torch.models.model_step_trace``)
+    as a sweep/tune workload: attention + RoPE + paged-KV gathers, MoE
+    all-to-all dispatch, and SSM state updates stitched per the model
+    config's layer pattern (llama3_2_1b / mixtral_8x22b / jamba_v0_1_52b),
+    its pages allocated on ``device``.
+
+    Like ``serving_workload`` the lowering is per banked layout: the KV
+    page allocator places pages under the arch's bank map, so the step's
+    address stream is a property of the (architecture, traffic) pair.
+    Streams are priced in O(block) memory through the ``Trace`` protocol:
+    a 56-layer Mixtral step never materializes.  ``meta["n_tokens"]`` (one
+    token per sequence per step) feeds the ``us_per_token`` objective.
+    """
+    from repro_torch.models.trace import (model_step_trace,
+                                          resolve_model_config)
+    cfg = resolve_model_config(config_name)
+    kw = dict(batch=batch, prompt_len=prompt_len, page_len=page_len,
+              block_ops=block_ops, seed=seed, device=device)
+
+    def stream_fn(arch):
+        return model_step_trace(cfg, arch, **kw)
+
+    def trace_fn(arch):
+        # per-cell introspection only; sweeps price the stream
+        return stream_fn(arch).materialize()    # lint: allow-materialize
+
+    return TraceWorkload(
+        name=name or f"model_{config_name}_b{batch}_p{prompt_len}",
+        trace_fn=trace_fn,
+        meta={"model": cfg.name, "batch": batch, "prompt_len": prompt_len,
+              "page_len": page_len, "seed": seed, "n_layers": cfg.n_layers,
+              "n_tokens": batch},
+        lowering_key=_layout_key,
+        stream_fn=stream_fn)
 
 
 def scheduler_workload(n_requests: int = 64, arrival_rate: float = 1.0,

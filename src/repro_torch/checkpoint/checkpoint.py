@@ -6,12 +6,22 @@ Layout:   <dir>/step_<N>/          (tmp dir + atomic rename = crash safe)
             arrays.npz             the flattened leaves (host values)
             aux.json               optional JSON sidecar
 
-A tree is a nested dict of tensors (numpy arrays and Python scalars are
-leaves too).  It is flattened in the reference's order, dict keys sorted
-at every level, and each leaf is named as the reference names it
-(``['pools']['b0s10']['k']``), so a checkpoint either package writes
-restores in the other.  dtype names in the manifest are numpy's
-(``bfloat16``, ``float32``, ``int32``, ``int64``, ``bool``, ...).  numpy
+A tree is flattened as ``jax.tree_util`` flattens a pytree, so a
+checkpoint either package writes restores in the other:
+
+  * a dict is walked in sorted key order, each child named ``[key!r]``
+    (an ``OrderedDict`` in insertion order);
+  * a list or a tuple is walked in order, each child named ``[i]``; a
+    namedtuple's child is named ``.field``;
+  * ``None`` is an empty subtree: it has no leaf and no name;
+  * anything else is a leaf (a tensor, a numpy array, a Python scalar),
+    its shape ``np.shape`` of it and its name the path down to it
+    (``['pools']['b0s10']['k']``, ``['a'][0]``).
+
+A restore gives back the template's containers: lists as lists, tuples as
+tuples, ``None`` where the template has ``None``.  dtype names in the
+manifest are numpy's (``bfloat16``, ``float32``, ``int32``, ``int64``,
+``bool``, ...).  numpy
 has no bfloat16: a bf16 leaf is stored as 2-byte void (the bits of its
 ``int16`` view), which the reference reinterprets through the manifest
 dtype, and restored by viewing those bits back as ``torch.bfloat16``.
@@ -29,6 +39,7 @@ import re
 import shutil
 import tempfile
 import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -45,23 +56,55 @@ _TORCH_DTYPES = {
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
-def _flatten_with_paths(tree, prefix: str = "") -> list:
-    """(name, leaf) pairs in the reference's order: dict keys sorted at
-    every level, each leaf named by its key path (``['a']['b']``)."""
+def _keys(tree: dict) -> list:
+    return list(tree) if isinstance(tree, OrderedDict) else sorted(tree)
+
+
+def _children(tree):
+    """(name suffix, child) pairs of a container node, in the reference's
+    order; None for a leaf.  ``None`` is a node with no children."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        out = []
-        for key in sorted(tree):
-            out += _flatten_with_paths(tree[key], f"{prefix}[{key!r}]")
-        return out
-    return [(prefix, tree)]
+        return [(f"[{key!r}]", tree[key]) for key in _keys(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return None
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> list:
+    """(name, leaf) pairs in the reference's order, each leaf named by its
+    key path (``['a']['b']``, ``['a'][0]``)."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [pair for name, child in kids
+            for pair in _flatten_with_paths(child, prefix + name)]
 
 
 def _unflatten(like, leaves: list):
-    """``like``'s dict structure with its leaves taken from ``leaves`` in
-    flattening order."""
+    """``like``'s structure with its leaves taken from ``leaves`` in
+    flattening order (the containers' types kept)."""
+    kids = _children(like)
+    if kids is None:
+        return leaves.pop(0)
+    values = [_unflatten(child, leaves) for _, child in kids]
+    if like is None:
+        return None
     if isinstance(like, dict):
-        return {key: _unflatten(like[key], leaves) for key in sorted(like)}
-    return leaves.pop(0)
+        return type(like)(zip(_keys(like), values))
+    if hasattr(like, "_fields"):
+        return type(like)(*values)
+    return type(like)(values)
+
+
+def _leaf_dtype_name(leaf) -> str:
+    """A template leaf's dtype name: a tensor's or an array's, a Python
+    scalar's as numpy makes it (``int64``, ``float64``, ``bool``)."""
+    dtype = getattr(leaf, "dtype", None)
+    return _dtype_name(dtype if dtype is not None else np.asarray(leaf).dtype)
 
 
 def _dtype_name(dtype) -> str:
@@ -161,9 +204,10 @@ def _stored_dtype_ok(arr: np.ndarray, name: str) -> bool:
 
 
 def restore_checkpoint(directory: str, step: int, like, device=None):
-    """Restore into the structure of ``like`` (a tree of tensors, or of
-    anything with ``.shape`` and ``.dtype``).  Each tensor lands on
-    ``device``, else on its template leaf's device, else the CPU."""
+    """Restore into the structure of ``like`` (a tree of tensors, of
+    anything with ``.shape`` and ``.dtype``, or of Python scalars).  Each
+    tensor lands on ``device``, else on its template leaf's device, else
+    the CPU."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -186,13 +230,13 @@ def restore_checkpoint(directory: str, step: int, like, device=None):
                 f"leaf {name}: arrays.npz holds shape {tuple(arr.shape)} "
                 f"but the manifest recorded {saved_shape} — the checkpoint "
                 f"is corrupt")
-        want_shape = tuple(ref.shape)
+        want_shape = tuple(np.shape(ref))
         if saved_shape != want_shape:
             raise ValueError(
                 f"leaf {name}: checkpoint shape {saved_shape} != template "
                 f"shape {want_shape} — restoring into a different model/"
                 f"config than the one checkpointed")
-        want_dtype = _dtype_name(ref.dtype)
+        want_dtype = _leaf_dtype_name(ref)
         if saved_dtype != want_dtype:
             raise ValueError(
                 f"leaf {name}: checkpoint dtype {saved_dtype} != template "
@@ -214,12 +258,11 @@ def _gc(directory: str, keep: int) -> None:
 
 def _snapshot(tree):
     """A host copy of every leaf that later writes to the source cannot
-    change."""
-    if isinstance(tree, dict):
-        return {k: _snapshot(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    return np.array(tree)
+    change (containers kept)."""
+    return _unflatten(tree, [
+        leaf.detach().to("cpu", copy=True)
+        if isinstance(leaf, torch.Tensor) else np.array(leaf)
+        for _, leaf in _flatten_with_paths(tree)])
 
 
 class Checkpointer:

@@ -229,6 +229,26 @@ class MemoryArchitecture:
             setattr(cost, f"{k}_ops", int(addr_trace.op_counts.get(k, 0)))
         return cost
 
+    def cost_trace(self, load_addrs: list, store_addrs: list,
+                   tw_addrs: list | None = None, compute_cycles: int = 0,
+                   op_counts: dict | None = None,
+                   device="cuda") -> TraceCost:
+        """Cost a full program trace given as lists of (ops, LANES)
+        address blocks (one instruction per block), priced on ``device``.
+        Builds an ``AddressTrace`` and delegates to ``cost``."""
+        from repro_torch.core.trace import AddressTrace
+
+        def instr(addrs, kind):      # trace construction is host work
+            if isinstance(addrs, torch.Tensor):
+                addrs = addrs.cpu().numpy()
+            return AddressTrace.from_ops(addrs, kind)
+        chunks = ([instr(a, "load") for a in load_addrs]
+                  + [instr(a, "store") for a in store_addrs]
+                  + [instr(a, "tw") for a in (tw_addrs or [])])
+        trace = AddressTrace.concat(*chunks).with_compute(
+            compute_cycles, op_counts)
+        return self.cost(trace, device=device)
+
     def run_program(self, program, init_memory=None, execute: bool = True,
                     device="cuda"):
         """Run (and/or cost) an ISA program on this memory (see isa.vm):

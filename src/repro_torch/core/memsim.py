@@ -7,13 +7,17 @@ memories (nR-mW; the 4R-1W-VB variant arbitrates writes over 4
 pseudo-banks).  fmax: 771 MHz for every memory except 4R-2W (600 MHz).
 
 Degraded (bank-offline) memories carry their dead banks in
-``MemSpec.dead_banks``; ``repro_torch.core.arch`` prices them.  The
-functional ``Memory`` is not ported.
+``MemSpec.dead_banks``; ``repro_torch.core.arch`` prices them.
+``op_conflict_cycles``, ``instruction_cycles`` and ``cost_trace`` are the
+reference's spec-level entry points, delegating to the architecture
+classes; ``Memory`` is the functional word memory.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Literal
+
+import torch
 
 LANES = 16  # the eGPU issues 16 requests per clock (one warp)
 
@@ -129,6 +133,80 @@ TRANSPOSE_MEMORIES: tuple[MemSpec, ...] = tuple(
 )
 
 
+# --------------------------------------------------------------------------
+# Timing: spec-level entry points delegating to the MemoryArchitecture
+# classes (``repro_torch.core.arch`` owns the conflict and cycle model; the
+# preferred entry point is ``arch.cost(AddressTrace)``)
+# --------------------------------------------------------------------------
+
+def op_conflict_cycles(spec: MemSpec, addrs: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       is_write: bool = False) -> torch.Tensor:
+    """(ops, LANES) addresses -> (ops,) cycles each operation occupies
+    memory.  Multi-port memories cost only the active lanes under ``mask``
+    (ceil(active/ports) per op); banked memories arbitrate active lanes
+    only."""
+    from repro_torch.core import arch as _arch
+    return _arch.from_spec(spec).op_cycles(addrs, mask=mask,
+                                           is_write=is_write)
+
+
+def instruction_cycles(spec: MemSpec, addrs: torch.Tensor, is_write: bool,
+                       mask: torch.Tensor | None = None) -> int:
+    """Cycles one memory instruction (a whole (ops, LANES) block) occupies,
+    with the per-instruction pipeline overhead of banked memories (the
+    multi-port memories' round-robin controller adds none)."""
+    from repro_torch.core import arch as _arch
+    return _arch.from_spec(spec).instruction_cycles(addrs, is_write=is_write,
+                                                    mask=mask)
+
+
+# --------------------------------------------------------------------------
+# Functional memory
+# --------------------------------------------------------------------------
+
+@dataclass
+class Memory:
+    """Flat 32-bit word memory with float32 view semantics: data is stored
+    as float32 words (the paper's benchmarks are FP32 FFT data and
+    word-sized matrix elements).  Writes return a new ``Memory``."""
+    words: torch.Tensor  # (n_words,) float32
+
+    @staticmethod
+    def zeros(n_words: int, device="cuda") -> "Memory":
+        return Memory(torch.zeros((n_words,), dtype=torch.float32,
+                                  device=device))
+
+    def _index(self, addrs) -> torch.Tensor:
+        return torch.as_tensor(addrs, device=self.words.device).to(
+            torch.int64)
+
+    def read(self, addrs) -> torch.Tensor:
+        return self.words[self._index(addrs)]
+
+    def write(self, addrs, values,
+              mask: torch.Tensor | None = None) -> "Memory":
+        """Store ``values`` at ``addrs`` (negative addresses count from the
+        end, as in the reference); a lane whose ``mask`` is false, or whose
+        address lies outside the memory, writes nothing."""
+        n = self.words.shape[0]
+        a = self._index(addrs).reshape(-1)
+        v = torch.as_tensor(values, dtype=torch.float32,
+                            device=self.words.device).reshape(-1)
+        a = torch.where(a < 0, a + n, a)
+        keep = (a >= 0) & (a < n)
+        if mask is not None:
+            keep = keep & torch.as_tensor(
+                mask, device=self.words.device).to(torch.bool).reshape(-1)
+        words = self.words.clone()
+        words[a[keep]] = v[keep]
+        return Memory(words)
+
+
+# --------------------------------------------------------------------------
+# Trace accounting
+# --------------------------------------------------------------------------
+
 @dataclass
 class TraceCost:
     """Accumulated cycle cost of a trace under one memory spec."""
@@ -163,3 +241,17 @@ class TraceCost:
     def write_bank_eff(self) -> float:
         denom = self.store_cycles
         return 100.0 * self.n_store_ops / denom if denom else float("nan")
+
+
+def cost_trace(spec: MemSpec, load_addrs: list, store_addrs: list,
+               tw_addrs: list | None = None, compute_cycles: int = 0,
+               op_counts: dict | None = None, device="cuda") -> TraceCost:
+    """Cost a full program trace given as lists of per-instruction (ops,
+    LANES) address blocks, priced on ``device``.  Delegates to
+    ``MemoryArchitecture.cost_trace``, which lowers the lists to one
+    ``AddressTrace`` and prices it with ``arch.cost``: build the
+    ``AddressTrace`` directly in new code."""
+    from repro_torch.core import arch as _arch
+    return _arch.from_spec(spec).cost_trace(
+        load_addrs, store_addrs, tw_addrs=tw_addrs,
+        compute_cycles=compute_cycles, op_counts=op_counts, device=device)

@@ -25,7 +25,7 @@ def main(argv=None) -> dict:
         prog="python -m repro_torch.examples.serve_lm",
         description="Batched prefill + decode through the ServeEngine.")
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help=f"model config (the port has {', '.join(ARCH_IDS)})")
+                    help=f"model config (one of {', '.join(ARCH_IDS)})")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -34,8 +34,8 @@ def main(argv=None) -> dict:
                     help="where the model runs (default: cuda)")
     args = ap.parse_args(argv)
     if args.arch not in ARCH_IDS:
-        ap.error(f"--arch {args.arch}: the port serves {', '.join(ARCH_IDS)}; "
-                 f"the other model families come with the port's slice 5")
+        ap.error(f"--arch {args.arch}: unknown model config; choose from "
+                 f"{', '.join(ARCH_IDS)}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve_lm: no CUDA device; the example serves on "
                          "the card (pass --device cpu to run on the host)")

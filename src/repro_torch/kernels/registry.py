@@ -92,6 +92,11 @@ _BUILTIN_PACKAGES = ("banked_gather", "banked_scatter", "banked_transpose",
                      "carry_arbiter", "conflict_popcount", "fft_stage",
                      "moe_dispatch")
 
+#: modules outside ``repro_torch.kernels`` that also self-register kernels
+#: on import (the whole-model traffic lowerings attn_decode, moe_a2a and
+#: ssm_scan), so ``get`` and ``names`` see them without a manual import
+_BUILTIN_MODULES = ("repro_torch.models.trace",)
+
 
 def register(kernel: Kernel) -> Kernel:
     _KERNELS[kernel.name] = kernel
@@ -116,6 +121,8 @@ def _ensure_builtins() -> None:
     import importlib
     for pkg in _BUILTIN_PACKAGES:
         importlib.import_module(f"repro_torch.kernels.{pkg}")
+    for mod in _BUILTIN_MODULES:
+        importlib.import_module(mod)
 
 
 def get(name: str) -> Kernel:

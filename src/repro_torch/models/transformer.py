@@ -6,7 +6,8 @@ paged-KV attention).
 The layer stack is ``n_superblocks`` repetitions of the config's
 ``block_pattern()``, with parameters stacked over superblocks as in the
 reference; the reference scans them, the port loops.  MoE and SSM blocks
-raise ``NotImplementedError``: they come with the MoE slice.
+and modality frontends raise ``NotImplementedError`` in ``model_specs``,
+before any weight is made: their model code is ROADMAP item 21.
 """
 from __future__ import annotations
 
@@ -16,8 +17,15 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import Leaf, fan_in_scale, stack_specs
 
-_LATER = ("{what} blocks are not ported yet: they come with the MoE and "
-          "whole-model traffic slice")
+_LATER = ("{what} blocks are not ported yet: their model code is ROADMAP "
+          "item 21 (the MoE, SSM, hybrid, audio and vision families)")
+
+
+def _no_frontend(cfg: ModelConfig) -> None:
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are not ported yet: their "
+            f"model code is ROADMAP item 21")
 
 
 def _dense_only(kind: str, is_moe: bool) -> None:
@@ -40,6 +48,7 @@ def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
 
 
 def model_specs(cfg: ModelConfig) -> dict:
+    _no_frontend(cfg)
     vp, d = cfg.padded_vocab(), cfg.d_model
     specs = {
         "embed": Leaf((vp, d), scale=1.0),
@@ -89,9 +98,7 @@ def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            dtype) -> torch.Tensor:
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet")
+    _no_frontend(cfg)
     # rows of the cast table == cast rows of the table: gather first, so
     # the whole embedding is never cast per call
     x = params["embed"][tokens].to(dtype)

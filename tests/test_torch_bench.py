@@ -20,6 +20,7 @@ from benchmarks import paper_data as RDATA  # noqa: E402
 from benchmarks import table2_transpose as RT2  # noqa: E402
 from benchmarks import table3_fft as RT3  # noqa: E402
 from repro import bench as RB  # noqa: E402
+from repro.core import arch as RA  # noqa: E402
 from repro_torch import bench as PB  # noqa: E402
 from repro_torch.bench import paper_data as PDATA  # noqa: E402
 from repro_torch.bench import paper_tables as PT  # noqa: E402
@@ -142,10 +143,15 @@ def test_serving_workload_cells_equal_the_reference():
 
 
 def test_later_slices_workloads_raise():
-    """The whole-model workload is a later slice's and raises; the
-    scheduler workload, ported with the scheduler, is the reference's."""
-    with pytest.raises(NotImplementedError):
-        PB.model_workload("llama3_2_1b")
+    """The workloads of the later slices are ported now and none raises:
+    the whole-model workload (with ``models/trace.py``) and the scheduler
+    workload (with the scheduler) are the reference's, name, meta and
+    lowering key."""
+    got = PB.model_workload("llama3_2_1b", device="cpu")
+    want = RB.model_workload("llama3_2_1b")
+    assert (got.name, got.meta) == (want.name, want.meta)
+    for a in ("16B", "8B-offset", "4R-2W"):
+        assert got._key(PA.get(a)) == want._key(RA.get(a))
     got, want = PB.scheduler_workload(8), RB.scheduler_workload(8)
     assert (got.name, got.meta) == (want.name, want.meta)
 

@@ -9,6 +9,7 @@ trees with bf16 leaves (a hypothesis property).  Every comparison is
 exact: a checkpoint moves bytes."""
 import json
 import os
+from collections import OrderedDict, namedtuple
 
 import jax
 import jax.numpy as jnp
@@ -255,3 +256,173 @@ def _flat(tree, prefix=()):
     if isinstance(tree, dict):
         return [p for k in tree for p in _flat(tree[k], prefix + (k,))]
     return [(prefix, tree)]
+
+
+# -- trees that are not dicts of arrays: lists, tuples, None, scalars --------
+
+_Moments = namedtuple("_Moments", "mu nu")
+
+_NON_DICT = {
+    "list": (lambda f: {"a": [f(np.ones(2, np.float32)),
+                              f(np.zeros(3, np.float32))]},
+             ["['a'][0]", "['a'][1]"]),
+    "tuple": (lambda f: {"a": (f(np.ones(2, np.float32)),
+                               f(np.zeros(3, np.float32)))},
+              ["['a'][0]", "['a'][1]"]),
+    "none": (lambda f: {"a": f(np.ones(2, np.float32)), "b": None},
+             ["['a']"]),
+    "scalar": (lambda f: {"a": 3}, ["['a']"]),
+    # jax walks an OrderedDict in insertion order, a namedtuple by field
+    "ordered_named": (lambda f: {"s": _Moments(f(np.ones(1, np.float32)),
+                                               [f(np.zeros(2, np.float32))]),
+                                 "o": OrderedDict(
+                                     [("z", f(np.ones(3, np.int32))),
+                                      ("a", f(np.zeros(1, np.int32)))])},
+                      ["['o']['z']", "['o']['a']", "['s'].mu",
+                       "['s'].nu[0]"]),
+    "nested": (lambda f: {"o": ({"m": [f(np.arange(4, dtype=np.int32)),
+                                       None, 2.5]}, True),
+                          "x": [[f(np.ones((2, 2), np.float32))]]},
+               ["['o'][0]['m'][0]", "['o'][0]['m'][2]", "['o'][1]",
+                "['x'][0][0]"]),
+}
+
+
+def _leaves_equal(got, want) -> None:
+    """Two restored trees: the same containers (list, tuple, None) and
+    every leaf equal in shape, dtype name and value."""
+    assert type(got) is type(want) or (
+        isinstance(want, (int, float, bool)) and np.ndim(got) == 0)
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _leaves_equal(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _leaves_equal(g, w)
+    elif want is None:
+        assert got is None
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        assert g.shape == w.shape and g.tolist() == w.tolist()
+
+
+@pytest.mark.parametrize("case", sorted(_NON_DICT))
+def test_non_dict_trees_cross_restore_both_ways(tmp_path, case):
+    """A tree with lists, tuples, ``None`` and Python scalar leaves: the
+    port writes the reference's leaf count, paths, shapes and dtypes, and
+    each package restores the other's checkpoint (and its own) into the
+    template's containers: lists as lists, tuples as tuples, ``None``
+    kept."""
+    build, paths = _NON_DICT[case]
+    p_state, r_state = build(torch.from_numpy), build(jnp.asarray)
+    save_checkpoint(str(tmp_path / "p"), 1, p_state)
+    r_save(str(tmp_path / "r"), 1, r_state)
+    got, want = (json.loads((tmp_path / d / "step_00000001" /
+                             "manifest.json").read_text())
+                 for d in ("p", "r"))
+    assert got == want
+    assert got["paths"] == paths
+    for d in ("p", "r"):
+        _leaves_equal(restore_checkpoint(str(tmp_path / d), 1, p_state),
+                      p_state)
+        _leaves_equal(r_restore(str(tmp_path / d), 1, r_state), r_state)
+
+
+def test_python_scalar_template_restores_numpys_dtype(tmp_path):
+    save_checkpoint(str(tmp_path), 1, {"i": 3, "f": 2.5, "b": True})
+    manifest = json.loads((tmp_path / "step_00000001" /
+                           "manifest.json").read_text())
+    assert manifest["dtypes"] == ["bool", "float64", "int64"]
+    back = restore_checkpoint(str(tmp_path), 1, {"i": 0, "f": 0.0,
+                                                 "b": False})
+    assert back["i"].dtype == torch.int64 and int(back["i"]) == 3
+    assert back["f"].dtype == torch.float64 and float(back["f"]) == 2.5
+    assert back["b"].dtype == torch.bool and bool(back["b"])
+    with pytest.raises(ValueError, match="template dtype"):
+        restore_checkpoint(str(tmp_path), 1, {"i": 0.0, "f": 0.0,
+                                              "b": False})
+    with pytest.raises(ValueError, match="disagree"):
+        restore_checkpoint(str(tmp_path), 1, {"i": 0, "f": None, "b": 0})
+
+
+def test_async_checkpointer_keeps_lists_and_tuples(tmp_path):
+    ck = Checkpointer(str(tmp_path))
+    x = torch.arange(3)
+    state = {"opt": (x, [torch.ones(2), None])}
+    ck.save(1, state)
+    x.add_(7)
+    ck.wait()
+    back = restore_checkpoint(str(tmp_path), 1, state)
+    assert isinstance(back["opt"], tuple) and isinstance(back["opt"][1],
+                                                         list)
+    assert back["opt"][0].tolist() == [0, 1, 2] and back["opt"][1][1] is None
+
+
+def _dict_only_flatten(tree, prefix=""):
+    """The dict-only flattening every earlier port checkpoint was written
+    with: sorted keys, ``[key!r]`` names."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _dict_only_flatten(tree[k], f"{prefix}[{k!r}]")]
+    return [(prefix, tree)]
+
+
+def test_run_scheduler_checkpoint_is_unchanged(tmp_path, monkeypatch):
+    """A preempted ``run_scheduler`` day's checkpoint (``{"pools": ...,
+    "lane_tok": ...}``, all tensors) flattens exactly as the dict-only
+    walk did: the same names, the same leaves in the same order, so its
+    manifest and arrays are byte for byte what they were; and its
+    manifest is the reference's for the same arrays."""
+    import repro_torch.checkpoint as PCk
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.runtime import FaultEvent, FaultPlan
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+    saved = []
+    real = PCk.save_checkpoint
+
+    def spy(directory, step, state, *a, **kw):
+        saved.append(state)
+        return real(directory, step, state, *a, **kw)
+    monkeypatch.setattr(PCk, "save_checkpoint", spy)
+    cfg = get_smoke_config("llama3.2-1b")
+    gen = torch.Generator().manual_seed(0)
+    eng = ServeEngine(cfg, RunConfig(remat="none", attn_impl="dense"),
+                      init_tree(model_specs(cfg), gen, device="cpu"),
+                      max_batch=4, max_seq=32, kv_mode="paged", page_len=8,
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=a, prompt_len=p, max_new_tokens=m,
+                    tokens=rng.integers(0, cfg.vocab_size, p).astype(
+                        np.int32))
+            for i, (a, p, m) in enumerate(((0, 12, 8), (0, 5, 6),
+                                           (1, 8, 4)))]
+    res = eng.run_scheduler(reqs, checkpoint_dir=str(tmp_path / "ck"),
+                            fault_plan=FaultPlan((FaultEvent(
+                                tick=3, kind="preempt"),)))
+    assert res.preempted and len(saved) == 1
+    state = saved[0]
+    assert sorted(state) == ["lane_tok", "pools"]
+    new, old = _flatten_with_paths(state), _dict_only_flatten(state)
+    assert [p for p, _ in new] == [p for p, _ in old]
+    assert all(a is b for (_, a), (_, b) in zip(new, old, strict=True))
+    step = latest_step(str(tmp_path / "ck"))
+    manifest = json.loads((tmp_path / "ck" / f"step_{step:08d}" /
+                           "manifest.json").read_text())
+    assert manifest["paths"] == [p for p, _ in old]
+
+    def host(x):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return x.numpy()
+    r_save(str(tmp_path / "r"), step, {
+        k: ({n: {h: host(t) for h, t in v.items()} for n, v in
+             state[k].items()} if k == "pools" else host(state[k]))
+        for k in state})
+    assert json.loads((tmp_path / "r" / f"step_{step:08d}" /
+                       "manifest.json").read_text()) == manifest

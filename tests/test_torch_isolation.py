@@ -5,7 +5,8 @@ Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
 autotune CLI, the cost bench, a scheduled serving day (``serve
 --schedule``), a faulted one (bank loss, page recovery, transient
 retries; ``serve --fault-bank``), the serving bench's ``--check`` and
-``--chaos --check`` and a preempted and resumed day run with all three
+``--chaos --check``, a preempted and resumed day, the model-traffic
+bench's ``--smoke --check`` and the quickstart run with all three
 blocked from import."""
 import ast
 import os
@@ -164,6 +165,31 @@ def test_cost_bench_runs_with_the_reference_blocked(tmp_path):
     assert "isolated ok" in out.stdout
     assert "[1613, 5580, 71327, 135943]" in out.stdout
     assert (tmp_path / "c.json").exists()
+
+
+def test_model_traffic_bench_and_quickstart_run_with_the_reference_blocked(
+        tmp_path):
+    """``python -m repro_torch.bench.model_traffic_bench --smoke --check
+    --device cpu`` and ``python -m repro_torch.examples.quickstart
+    --device cpu``, run as ``-m`` runs them, with JAX, ``repro`` and
+    ``benchmarks`` blocked: the pinned flip holds and the quickstart's
+    gather reads the rows."""
+    out = _run_blocked(
+        "import runpy\n"
+        "sys.argv = ['model_traffic_bench', '--smoke', '--check',\n"
+        f"            '--device', 'cpu', '--out', r'{tmp_path / 'm.json'}']\n"
+        "runpy.run_module('repro_torch.bench.model_traffic_bench',\n"
+        "                 run_name='__main__', alter_sys=True)\n"
+        "sys.argv = ['quickstart', '--device', 'cpu']\n"
+        "runpy.run_module('repro_torch.examples.quickstart',\n"
+        "                 run_name='__main__', alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert "model winners llama3.2-1b->16B; llama flips" in out.stdout
+    assert "# check OK" in out.stdout
+    assert "rows [1536.0, 30720.0, 3584.0, 3584.0]  (cost 54 cyc)" in \
+        out.stdout
+    assert (tmp_path / "m.json").exists()
 
 
 def test_cpu_serving_runs_with_jax_and_repro_blocked():

@@ -204,4 +204,4 @@ def test_serve_lm_example_is_deterministic_and_refuses_other_archs(capsys):
     capsys.readouterr()
     with pytest.raises(SystemExit):
         serve_lm.main(["--device", "cpu", "--arch", "gemma3-1b"])
-    assert "slice 5" in capsys.readouterr().err
+    assert "unknown model config; choose from" in capsys.readouterr().err
