@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
-CUDA card: the quickest proof that the port builds, serves and reproduces
-the paper's Tables II and III, dispatches MoE requests and runs the kernel
-micro-bench on the GPU.
+CUDA card: the quickest proof that the port builds, serves, trains and
+reproduces the paper's Tables II and III, dispatches MoE requests and runs
+the kernel micro-bench on the GPU.
 
     python3 chip_smoke.py
 
@@ -200,7 +200,22 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                its plain version; its launch joins the gather's count in
                the kernels line;
  12. profile — ``torch.profiler`` over a short generation: device busy
-               share and the ops that take the time.
+               share and the ops that take the time;
+ 13. train   — training (``repro_torch.launch.train``, the ``Trainer``),
+               after the serving engine is freed: the CLI's default run at
+               full width and depth (llama3.2-1b, 4 steps of 16 x 64,
+               dense attention; finite losses, the WSD warmup's lr, the
+               loss falling); a ``Trainer`` with the ``RunConfig``
+               defaults (remat "full", attention "auto") at ``train_4k``'s
+               sequence 4096, batch cut from 256 to 2, 2 steps through
+               blocked flash attention (its calls counted); from that
+               state one layer's attention and the loss, flash against
+               dense at bf16 tolerances; the smoke config's resumed run
+               against its straight run (rtol 1e-5, under deterministic
+               algorithms; the default algorithms' difference printed);
+               one float32 step on the card against the host; each step's
+               time, tokens/s and peak device memory beside the card's
+               name and power limit; no kernel of the seven launched.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -208,6 +223,7 @@ limit, and ``{"ok": true, "device": {...}}``.  Details go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -2936,6 +2952,340 @@ def phase_profile(engine) -> dict:
             "top_host": sorted(rows, key=lambda r: -r[3])[:25]}
 
 
+#: an H100 SXM's dense bf16 peak (NVIDIA's data sheet, at 700 W)
+BF16_PEAK_TFLOPS = 989.0
+#: the long training step: ``train_4k``'s sequence (4096), its global batch
+#: cut from 256 to 2 to fit one card
+TRAIN_LONG = (2, 4096)
+#: bf16 tolerances of the long step's flash-against-dense checks: one
+#: layer's attention output within 2e-2 of its largest magnitude (about
+#: five bf16 steps at the max), the loss within 5e-3 of itself
+FLASH_ATTN_TOL, FLASH_LOSS_RTOL = 2e-2, 5e-3
+
+
+def _profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA); returns its
+    result and the window's wall, device time by kernel, busy share and
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(k[2] for k in kernels)
+    return out, {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                 "busy_share": device_ms / (wall * 1e3),
+                 "launches": sum(k[1] for k in kernels),
+                 "top_device": sorted(kernels, key=lambda r: -r[2])[:12]}
+
+
+def _log_profile(tag: str, prof: dict, smi: str) -> None:
+    log(f"[train] {tag} under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['device_ms']:.1f} ms = "
+        f"{100 * prof['busy_share']:.1f} %, {prof['launches']} kernel "
+        f"launches ({smi})")
+    for key, count, ms in prof["top_device"][:8]:
+        log(f"[train]   device {ms:9.3f} ms  x{count:<6} {key[:80]}")
+
+
+def _recorded_steps(TR, steps: list, profile_at=None):
+    """Patch ``TR.make_train_step`` (the trainer's) so each step is timed
+    on the host to the end of its device work and its metrics kept, step
+    ``profile_at`` under ``torch.profiler`` instead; returns the original
+    to restore."""
+    import torch
+    original = TR.make_train_step
+
+    def make(*args, **kw):
+        step_fn = original(*args, **kw)
+
+        def run(state, batch):
+            state, met = step_fn(state, batch)
+            return state, {k: float(v) for k, v in met.items()}
+
+        def timed(state, batch):
+            if len(steps) == profile_at:
+                (state, met), prof = _profiled(lambda: run(state, batch))
+                steps.append({**met, "s": prof["wall_ms"] / 1e3,
+                              "tokens": batch["tokens"].numel(),
+                              "profile": prof})
+                return state, met
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = run(state, batch)
+            torch.cuda.synchronize()
+            steps.append({**met, "s": time.perf_counter() - t0,
+                          "tokens": batch["tokens"].numel()})
+            return state, met
+        return timed
+    TR.make_train_step = make
+    return original
+
+
+def _moments_filled(state, seed: int):
+    """``state`` with its moments as a running job's (m ~ 1e-3, sqrt(v) ~
+    1e-2, drawn on the host from ``seed``) and its step 5, past the
+    warmup, so the next update moves every parameter."""
+    import torch
+
+    from repro_torch.models.params import tree_map
+    g = torch.Generator().manual_seed(seed)
+    m = tree_map(lambda t: (1e-3 * torch.randn(t.shape, generator=g)).to(
+        t.device), state.opt.m)
+    v = tree_map(lambda t: (1e-4 * (0.5 + torch.rand(
+        t.shape, generator=g))).to(t.device), state.opt.v)
+    return state._replace(step=torch.full_like(state.step, 5),
+                          opt=state.opt._replace(m=m, v=v))
+
+
+def phase_train(smi: str) -> dict:
+    """Training (slice 7a) on the card: (a) the train CLI
+    (``repro_torch.launch.train.main``) at full width and depth,
+    llama3.2-1b, 4 steps of global batch 16 x seq 64, dense attention;
+    (b) a ``Trainer`` at full width with the ``RunConfig`` defaults
+    (remat "full", attention "auto") at ``train_4k``'s sequence, batch cut
+    to 2, 2 steps, through blocked flash attention; (c) from (b)'s state,
+    one layer's attention and the step's loss under "flash" against
+    "dense" (bf16 tolerances); (d) the smoke config's 10 straight steps
+    against 5 + checkpoint under ``build/`` + resume + 5, rtol 1e-5; (e)
+    one float32 train step of the smoke config on the card against the
+    same step on the host.  Each step's time, tokens/s, model-FLOPs rate
+    and the peak device memory are printed beside the card's name and
+    power limit, with (a)'s last step and a third step of (b) under
+    ``torch.profiler`` (busy share, kernels by device time); the path
+    launches none of the seven kernels."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import count_params
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    cfg = get_config("llama3.2-1b")
+    n_params = count_params(T.model_specs(cfg))
+    checks, record = {}, {"nvidia_smi": smi, "n_params": n_params}
+    log(f"[train] llama3.2-1b: {n_params} parameters (embedding once); "
+        f"device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated; "
+        f"TF32 matmuls {torch.backends.cuda.matmul.allow_tf32}")
+
+    def run_steps(tag, fn, profile_at=None):
+        steps = []
+        original = _recorded_steps(TR, steps, profile_at)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = fn()
+        finally:
+            TR.make_train_step = original
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for i, s in enumerate(steps):
+            # the model-FLOPs rate: 6 x parameters x tokens a second
+            s["model_tflops"] = 6 * n_params * s["tokens"] / s["s"] / 1e12
+            log(f"[train] {tag} step {i}: loss {s['loss']:.6g}, lr "
+                f"{s['lr']:.6g}, grad_norm {s['grad_norm']:.6g}, "
+                f"{s['s']:.4f} s = {s['tokens'] / s['s']:.1f} tokens/s, "
+                f"6·N·tokens {s['model_tflops']:.2f} TFLOP/s = "
+                f"{100 * s['model_tflops'] / BF16_PEAK_TFLOPS:.2f} % of "
+                f"the bf16 peak ({smi})"
+                f"{' (profiled)' if 'profile' in s else ''}")
+            if "profile" in s:
+                _log_profile(f"{tag} step {i}", s["profile"], smi)
+        log(f"[train] {tag}: peak device memory {peak:.3f} GB "
+            f"(torch.cuda.max_memory_allocated, {smi})")
+        return out, steps, peak
+
+    # (a) the CLI's default step at full width and depth
+    text = io.StringIO()
+
+    def cli():
+        with contextlib.redirect_stdout(text):
+            return train_cli.main(["--arch", "llama3.2-1b", "--steps", "4"])
+    _, steps_a, peak_a = run_steps("(a) CLI", cli, profile_at=3)
+    losses = [s["loss"] for s in steps_a]
+    checks["(a) 4 steps, finite losses"] = len(steps_a) == 4 and bool(
+        np.isfinite(losses).all())
+    checks["(a) lr 0 at step 0, then 1e-3"] = [s["lr"] for s in steps_a] == [
+        0.0] + [float(np.float32(1e-3))] * 3
+    checks["(a) first loss above ln V"] = bool(
+        losses[0] > np.log(cfg.vocab_size))
+    checks["(a) loss fell by step 3"] = losses[3] < losses[0]
+    checks["(a) final printed"] = text.getvalue().startswith("final: {")
+    record["cli"] = {"steps": steps_a, "peak_gb": peak_a}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the long step: RunConfig defaults, flash through "auto"
+    batch, seq = TRAIN_LONG
+    rc = RunConfig()
+    flash_calls = []
+    flash = L.attention_flash
+
+    def counted(*args):
+        flash_calls.append(1)
+        return flash(*args)
+    L.attention_flash = counted
+    try:
+        ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch, seed=0)
+        out_b, steps_b, peak_b = run_steps(f"(b) {batch} x {seq}", lambda: Trainer(
+            cfg, rc, TrainerConfig(total_steps=2, log_every=1), ds,
+            device="cuda").run())
+    finally:
+        L.attention_flash = flash
+    # each step: the forward and remat "full"'s recompute, a call a layer
+    want_flash = 2 * 2 * cfg.n_layers
+    checks["(b) 2 finite steps"] = len(steps_b) == 2 and bool(
+        np.isfinite([s["loss"] for s in steps_b]).all())
+    checks["(b) flash ran, forward + recompute"] = (
+        len(flash_calls) == want_flash)
+    record["long"] = {"steps": steps_b, "peak_gb": peak_b,
+                      "flash_calls": len(flash_calls),
+                      "remat": rc.remat, "attn_impl": rc.attn_impl,
+                      "batch": batch, "seq": seq}
+
+    # a third step of (b)'s run, under the profiler
+    _, prof_b = _profiled(lambda: make_train_step(cfg, rc, total_steps=2)(
+        out_b["state"], ds.batch(2, device="cuda")))
+    _log_profile(f"(b) {batch} x {seq} step 2", prof_b, smi)
+    record["long"]["profile"] = prof_b
+
+    # (c) flash against dense from (b)'s state, the next batch
+    params = out_b["state"].params
+    del out_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = ds.batch(3, device="cuda")
+    with torch.no_grad():
+        p0 = T.superblock_params(params, 0, 0)
+        x = L.rmsnorm(p0["ln1"], T._embed(cfg, params, tokens["tokens"],
+                                          torch.bfloat16), cfg.norm_eps)
+        outs = {impl: L.attention(cfg, RunConfig(attn_impl=impl), p0[
+            "mixer"], x).float() for impl in ("flash", "dense")}
+        attn_err = (outs["flash"] - outs["dense"]).abs().max().item()
+        attn_scale = outs["dense"].abs().max().item()
+        del outs, x
+        loss = {impl: float(T.loss_fn(cfg, RunConfig(attn_impl=impl),
+                                      params, tokens)[1]["loss"])
+                for impl in ("flash", "dense")}
+    loss_err = abs(loss["flash"] - loss["dense"])
+    log(f"[train] (c) {batch} x {seq}, flash vs dense: layer 0 attention max "
+        f"|diff| {attn_err:.6g} of max |out| {attn_scale:.6g} (tolerance "
+        f"{FLASH_ATTN_TOL} of it); loss {loss['flash']:.8g} vs "
+        f"{loss['dense']:.8g}, |diff| {loss_err:.6g} (rtol "
+        f"{FLASH_LOSS_RTOL})")
+    checks["(c) attention flash == dense (bf16)"] = (
+        attn_err <= FLASH_ATTN_TOL * attn_scale)
+    checks["(c) loss flash == dense (bf16)"] = (
+        loss_err <= FLASH_LOSS_RTOL * abs(loss["dense"]))
+    record["flash_vs_dense"] = {"attn_max_abs_diff": attn_err,
+                                "attn_max_abs": attn_scale, "loss": loss}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) resume == straight on the smoke config, checkpoint under build/
+    smoke = get_smoke_config("llama3.2-1b")
+    rc_s = RunConfig(remat="none", attn_impl="dense", learning_rate=3e-3,
+                     warmup_steps=5)
+    ds_s = SyntheticLM(vocab_size=smoke.vocab_size, seq_len=32,
+                       global_batch=8, seed=3, branching=2)
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def resumed_vs_straight():
+        ck = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+        try:
+            straight = Trainer(smoke, rc_s, TrainerConfig(
+                total_steps=10, log_every=1), ds_s,
+                device="cuda").run()["final"]["loss"]
+            Trainer(smoke, rc_s, TrainerConfig(
+                total_steps=5, ckpt_dir=ck, ckpt_every=5, log_every=1),
+                ds_s, device="cuda").run()
+            resumed = Trainer(smoke, rc_s, TrainerConfig(
+                total_steps=10, ckpt_dir=ck, ckpt_every=50, log_every=1),
+                ds_s, device="cuda").run()["final"]["loss"]
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        return straight, resumed, abs(resumed - straight) / abs(straight)
+
+    free = resumed_vs_straight()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = resumed_vs_straight()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] (d) smoke resume vs straight, 10 steps: default "
+        f"algorithms {free[1]:.9g} vs {free[0]:.9g} (rel {free[2]:.3g}); "
+        f"deterministic algorithms {det[1]:.9g} vs {det[0]:.9g} (rel "
+        f"{det[2]:.3g}; rtol 1e-5 gates this one)")
+    checks["(d) resumed == straight (deterministic, rtol 1e-5)"] = (
+        det[2] <= 1e-5)
+    record["resume"] = {"default": free, "deterministic": det}
+
+    # (e) one float32 step on the card against the same step on the host
+    rc_f = RunConfig(remat="none", attn_impl="dense", compute_dtype="float32",
+                     warmup_steps=2, learning_rate=3e-3)
+    host = _moments_filled(init_train_state(
+        smoke, rc_f, torch.Generator().manual_seed(4), device="cpu"), 4)
+    def to_card(tree):
+        return None if tree is None else tree_map(
+            lambda t: t.to("cuda", copy=True), tree)
+    card = host._replace(step=to_card(host.step),
+                         params=to_card(host.params),
+                         opt=type(host.opt)(*map(to_card, host.opt)))
+    fstep = make_train_step(smoke, rc_f)
+    card, met_c = fstep(card, ds_s.batch(0, device="cuda"))
+    host, met_h = fstep(host, ds_s.batch(0, device="cpu"))
+    worst = 0.0
+    for got, want in ((card.params, host.params), (card.opt.m, host.opt.m),
+                      (card.opt.v, host.opt.v)):
+        for g_, w_ in zip(leaves(got), leaves(want)):
+            excess = ((g_.cpu() - w_).abs() - 1e-4 * w_.abs()).max().item()
+            worst = max(worst, excess)
+    loss_rel = abs(float(met_c["loss"]) - float(met_h["loss"])) / abs(
+        float(met_h["loss"]))
+    log(f"[train] (e) float32 smoke step, card vs host: loss "
+        f"{float(met_c['loss']):.9g} vs {float(met_h['loss']):.9g} (rel "
+        f"{loss_rel:.3g}, rtol 1e-5); params, m, v: max(|diff| - 1e-4 "
+        f"|host|) {worst:.3g} (atol 1e-6)")
+    checks["(e) card step == host step (f32)"] = (
+        loss_rel <= 1e-5 and worst <= 1e-6)
+    record["card_vs_host"] = {"loss_rel": loss_rel, "excess": worst}
+
+    launches = {name: e.launches for name, e in entries.items()}
+    checks["no kernel launched"] = not any(launches.values())
+    wall = time.perf_counter() - t_phase
+    log(f"[train] phase wall time {wall:.2f} s ({smi}); kernel launches "
+        f"{launches}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"train checks failed: {checks}")
+    return {**record, "checks": checks, "launches": launches,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2982,6 +3332,11 @@ def main() -> int:
     # both of its opening markers
     record["quickstart"] = phase_quickstart(smi)
     record["profile"] = phase_profile(engine)
+    # training needs the card's memory: the serving engine goes first
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["train"] = phase_train(smi)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda

@@ -1,8 +1,9 @@
 from repro_torch.models.params import (Leaf, count_params, from_jax,
                                        init_tree)
 from repro_torch.models.trace import model_step_trace, resolve_model_config
-from repro_torch.models.transformer import decode_step, model_specs, prefill
+from repro_torch.models.transformer import (decode_step, forward, loss_fn,
+                                            model_specs, prefill)
 
 __all__ = ["Leaf", "count_params", "from_jax", "init_tree", "decode_step",
-           "model_specs", "prefill", "model_step_trace",
-           "resolve_model_config"]
+           "forward", "loss_fn", "model_specs", "prefill",
+           "model_step_trace", "resolve_model_config"]

@@ -1,6 +1,6 @@
 """Transformer building blocks (port of ``repro.models.layers``): RMSNorm,
-RoPE, GQA attention (dense prefill and single-token decode, sliding window
-and softcap variants) and the gated MLP.
+RoPE, GQA attention (dense, blocked flash and single-token decode; sliding
+window and softcap variants) and the gated MLP.
 
 The einsums, mask value (``NEG_INF``) and casts are the reference's: the
 softmax runs in float32, everything else in the activations' dtype (the
@@ -107,22 +107,69 @@ def attention_dense(cfg: ModelConfig, q, k, v, qpos, kpos, window: int):
     return torch.einsum("bkgst,btkh->bskgh", p, v)
 
 
+def attention_flash(cfg: ModelConfig, q, k, v, qpos, kpos, window: int,
+                    block_q: int, block_k: int):
+    """Online-softmax blocked attention, causal (the reference's loop over
+    blocks, unrolled in Python): a key block wholly in a query block's
+    future, or wholly out of its window, is skipped."""
+    b, sq, kvh, g, hd = q.shape
+    sk = k.shape[1]
+    nq, nk = -(-sq // block_q), -(-sk // block_k)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * block_q:(qi + 1) * block_q]
+        qp = qpos[qi * block_q:(qi + 1) * block_q]
+        bq = q_blk.shape[1]
+        m = torch.full((b, kvh, g, bq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, g, bq), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, kvh, g, bq, hd), dtype=torch.float32,
+                          device=q.device)
+        q_lo, q_hi = qi * block_q, (qi + 1) * block_q - 1
+        for kj in range(nk):
+            k_lo, k_hi = kj * block_k, (kj + 1) * block_k - 1
+            if k_lo > q_hi:                       # strictly future block
+                continue
+            if window and k_hi < q_lo - window + 1:
+                continue                          # fully out of window
+            k_blk = k[:, k_lo:k_lo + block_k]
+            v_blk = v[:, k_lo:k_lo + block_k]
+            kp = kpos[k_lo:k_lo + block_k]
+            s = torch.einsum("bqkgh,btkh->bkgqt", q_blk, k_blk) * scale
+            s = softcap(s, cfg.attn_softcap).float()
+            s = torch.where(_mask(qp, kp, window), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * corr + pexp.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkh->bkgqh", pexp, v_blk.float())
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(torch.einsum("bkgqh->bqkgh", o).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def attention(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor, *,
               window: int = 0, positions=None, return_kv: bool = False):
-    """Full-sequence (prefill) attention; returns (B, S, D) and, with
-    ``return_kv``, the roped K/V for the prefill cache."""
+    """Full-sequence (train / prefill) attention; returns (B, S, D) and,
+    with ``return_kv``, the roped K/V for the prefill cache.  ``attn_impl``
+    "flash", or "auto" on a sequence longer than 2 x ``flash_block``, takes
+    ``attention_flash``; otherwise the dense scores."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions)
     impl = rc.attn_impl
     if impl == "auto":
         impl = "flash" if s > 2 * rc.flash_block else "dense"
-    if impl != "dense":
-        raise NotImplementedError(
-            f"attention impl {impl!r} (sequence {s}): the port has the "
-            f"dense path; blocked flash attention comes with a later slice")
-    q, k, v = _qkv(cfg, p, x, positions)
-    o = attention_dense(cfg, q, k, v, positions, positions, window)
+    if impl == "flash":
+        o = attention_flash(cfg, q, k, v, positions, positions, window,
+                            rc.flash_block, rc.flash_block)
+    else:
+        o = attention_dense(cfg, q, k, v, positions, positions, window)
     o = o.reshape(b, s, cfg.n_heads, cfg.hd)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     if return_kv:

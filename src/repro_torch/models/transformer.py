@@ -1,21 +1,30 @@
 """Model assembly for the dense family (port of ``repro.models.transformer``):
-parameter specs, prefill, single-token decode and the block-level decode
-with its ``attn_fn`` hook (where the serving engine plugs in the banked
-paged-KV attention).
+parameter specs; the training forward (``apply_block``, ``hidden_states``,
+``forward``) with its remat policies and the loss (``loss_fn``, both
+cross-entropy forms); prefill, single-token decode and the block-level
+decode with its ``attn_fn`` hook (where the serving engine plugs in the
+banked paged-KV attention).
 
 The layer stack is ``n_superblocks`` repetitions of the config's
 ``block_pattern()``, with parameters stacked over superblocks as in the
-reference; the reference scans them, the port loops.  MoE and SSM blocks
-and modality frontends raise ``NotImplementedError`` in ``model_specs``,
-before any weight is made: their model code is ROADMAP item 21.
+reference; the reference scans them, the port loops.  The training forward
+unbinds each stacked leaf once, so its gradient is one ``stack`` a leaf.
+MoE and SSM blocks and modality frontends raise ``NotImplementedError`` in
+``model_specs``, before any weight is made: their model code is ROADMAP
+item 21.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import Leaf, fan_in_scale, stack_specs
+
+AUX_LOSS_COEF = 0.01
 
 _LATER = ("{what} blocks are not ported yet: their model code is ROADMAP "
           "item 21 (the MoE, SSM, hybrid, audio and vision families)")
@@ -76,6 +85,133 @@ def superblock_params(params: dict, j: int, sb: int) -> dict:
             return {k: pick(v) for k, v in tree.items()}
         return tree[sb]
     return pick(params["blocks"][f"b{j}"])
+
+
+def apply_block(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
+                kind: str, is_moe: bool, j: int, positions=None):
+    """Pre-norm residual block; returns (x, aux_loss)."""
+    _dense_only(kind, is_moe)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = L.attention(cfg, rc, p["mixer"], h, window=_block_window(cfg, j),
+                    positions=positions)
+    if cfg.post_block_norms:
+        h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
+    x = x + h
+    h = L.mlp(cfg, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if cfg.post_block_norms:
+        h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
+    return x + h, aux
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matmuls
+    with no batch dimension (the weight einsums, which torch runs as a
+    ``bmm`` of batch 1) and recompute everything else."""
+    if op in _MATMULS or (op == torch.ops.aten.bmm.default
+                          and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(rc: RunConfig, fn):
+    """``fn`` under the ``RunConfig``'s remat policy: "none" as is,
+    "full" recomputed in the backward, "dots" recomputed but for the
+    weight matmuls' outputs."""
+    if rc.remat == "none":
+        return fn
+    if rc.remat == "dots":
+        def contexts():
+            return create_selective_checkpoint_contexts(_save_weight_matmuls)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=contexts)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unbind_superblocks(tree, n: int) -> list:
+    """A stacked tree as ``n`` per-superblock trees: one ``unbind`` a
+    leaf, so the backward writes each stacked gradient once."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_superblocks(v, n) for k, v in tree.items()}
+        return [{k: parts[k][sb] for k in tree} for sb in range(n)]
+    return list(tree.unbind(0))
+
+
+def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
+                  tokens: torch.Tensor):
+    """Shared trunk: final-norm'd hidden states (B, S, D) + MoE aux."""
+    dtype = getattr(torch, rc.compute_dtype)
+    x = _embed(cfg, params, tokens, dtype)
+    pattern = cfg.block_pattern()
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def superblock(x, *block_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, (kind, is_moe) in enumerate(pattern):
+            x, a = apply_block(cfg, rc, block_params[j], x, kind, is_moe, j,
+                               positions)
+            aux = aux + a
+        return x, aux
+
+    sb_fn = _remat(rc, superblock)
+    per_sb = [_unbind_superblocks(params["blocks"][f"b{j}"],
+                                  cfg.n_superblocks)
+              for j in range(len(pattern))]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sb in range(cfg.n_superblocks):
+        x, a = sb_fn(x, *(blocks[sb] for blocks in per_sb))
+        aux = aux + a
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward(cfg: ModelConfig, rc: RunConfig, params: dict,
+            tokens: torch.Tensor):
+    """Training/scoring forward pass -> (logits (B, S, Vp), aux_loss)."""
+    x, aux = hidden_states(cfg, rc, params, tokens)
+    return _unembed(cfg, params, x), aux
+
+
+def _sharded_ce(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+    """The reference's vocab-parallel cross-entropy, on one device: the
+    log-sum-exp over the logits, the target logit from a row gather of the
+    unembedding (never from indexing the full logits)."""
+    if cfg.tie_embeddings:
+        w = params["embed"]                      # (Vp, D)
+        logits = torch.einsum("btd,vd->btv", h, w.to(h.dtype))
+        tvec = w[target].to(h.dtype)             # (B, T, D)
+    else:
+        w = params["lm_head"]                    # (D, Vp)
+        logits = torch.einsum("btd,dv->btv", h, w.to(h.dtype))
+        tvec = w.t()[target].to(h.dtype)
+    logits = L.softcap(logits, cfg.final_softcap).float()
+    vp = cfg.padded_vocab()
+    if vp != cfg.vocab_size:
+        logits = logits + torch.where(
+            torch.arange(vp, device=h.device) < cfg.vocab_size, 0.0,
+            L.NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)                # (B, T)
+    tl = torch.sum(h.float() * tvec.float(), dim=-1)
+    tl = L.softcap(tl, cfg.final_softcap) if cfg.final_softcap else tl
+    return (lse - tl).mean()
+
+
+def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
+    """Next-token cross-entropy (+ MoE aux); returns (loss + aux term,
+    {"loss", "aux"})."""
+    tokens = batch["tokens"]
+    target = tokens[:, 1:]
+    if rc.ce_impl == "sharded":
+        h, aux = hidden_states(cfg, rc, params, tokens)
+        loss = _sharded_ce(cfg, params, h[:, :-1], target)
+    else:
+        logits, aux = forward(cfg, rc, params, tokens)
+        logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+        loss = -torch.gather(logp, -1, target[..., None])[..., 0].mean()
+    return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux": aux}
 
 
 def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,

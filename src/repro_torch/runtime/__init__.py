@@ -1,12 +1,15 @@
 """Fault plans and fault-tolerance primitives (port of ``repro.runtime``):
-seeded ``FaultPlan`` timelines the serving scheduler replays, and the
-``retry_step`` / ``StepWatchdog`` / ``PreemptionGuard`` primitives.  The
-reference's ``elastic_restore`` and ``make_current_mesh`` are not ported.
+seeded ``FaultPlan`` timelines the serving scheduler replays, the
+``retry_step`` / ``StepWatchdog`` / ``PreemptionGuard`` primitives and
+``elastic_restore``.  The reference's ``make_current_mesh`` is ROADMAP
+item 27.
 """
+from repro_torch.runtime.elastic import elastic_restore
 from repro_torch.runtime.fault_tolerance import (PreemptionGuard,
                                                  StepWatchdog, retry_step)
 from repro_torch.runtime.faults import (FAULT_KINDS, FaultEvent, FaultPlan,
                                         TransientFault)
 
 __all__ = ["PreemptionGuard", "StepWatchdog", "retry_step",
-           "FAULT_KINDS", "FaultEvent", "FaultPlan", "TransientFault"]
+           "FAULT_KINDS", "FaultEvent", "FaultPlan", "TransientFault",
+           "elastic_restore"]

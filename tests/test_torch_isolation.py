@@ -6,8 +6,8 @@ autotune CLI, the cost bench, a scheduled serving day (``serve
 --schedule``), a faulted one (bank loss, page recovery, transient
 retries; ``serve --fault-bank``), the serving bench's ``--check`` and
 ``--chaos --check``, a preempted and resumed day, the model-traffic
-bench's ``--smoke --check`` and the quickstart run with all three
-blocked from import."""
+bench's ``--smoke --check``, the quickstart, and training (the train CLI
+and the train example) run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -324,6 +324,26 @@ def test_cpu_preempted_day_resumes_with_jax_and_repro_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
     assert "resumed 5 " in out.stdout
+
+
+@pytest.mark.parametrize("module,argv,tail", [
+    ("repro_torch.launch.train",
+     ["--arch", "llama3.2-1b", "--smoke", "--steps", "3"], "final: {"),
+    ("repro_torch.examples.train_lm", ["--steps", "40"], "loss ")])
+def test_training_runs_with_the_reference_blocked(module, argv, tail):
+    """``python -m repro_torch.launch.train --arch llama3.2-1b --smoke
+    --steps 3 --device cpu`` and ``python -m
+    repro_torch.examples.train_lm --steps 40 --device cpu`` (its loss must
+    fall), run as ``-m`` runs them, with JAX, ``repro`` and ``benchmarks``
+    blocked."""
+    out = _run_blocked(
+        "import runpy\n"
+        f"sys.argv = {[module] + argv + ['--device', 'cpu']!r}\n"
+        f"runpy.run_module({module!r}, run_name='__main__',"
+        " alter_sys=True)\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert any(ln.startswith(tail) for ln in out.stdout.splitlines())
 
 
 def test_default_device_is_the_card():

@@ -130,6 +130,92 @@ def test_non_dense_families_name_their_slice():
     moe = dataclasses.replace(CFG, n_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="MoE"):
         model_specs(moe)
-    with pytest.raises(NotImplementedError, match="flash"):
-        PL.attention(CFG, dataclasses.replace(PRC, attn_impl="flash"),
-                     {}, torch.zeros((1, 4, CFG.d_model)))
+    ssm = dataclasses.replace(CFG, family="ssm", n_heads=0, ssm_state=4)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        model_specs(ssm)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        model_specs(dataclasses.replace(CFG, frontend="audio_frames"))
+
+
+#: the reference layer tests' flash cases (``tests/test_layers.py``):
+#: rtol = atol = 2e-5 against the reference and against dense attention
+FCFG = dataclasses.replace(CFG, name="t", n_layers=1, vocab_size=64)
+RFCFG = dataclasses.replace(RCFG, name="t", n_layers=1, vocab_size=64)
+_r_flash = jax.jit(RL.attention_flash, static_argnums=(0, 6, 7, 8))
+
+
+def _close2(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def _qkv(s=64, b=2, seed=0):
+    rng = np.random.default_rng(seed)
+    kv, g, hd = FCFG.n_kv_heads, FCFG.n_heads // FCFG.n_kv_heads, FCFG.hd
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, kv, g, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+
+@pytest.mark.parametrize("window", [0, 16, 40])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_flash_equals_the_reference_and_dense(window, block):
+    q, k, v = _qkv()
+    pos = np.arange(64)
+    got = PL.attention_flash(FCFG, *map(torch.tensor, (q, k, v)),
+                             torch.tensor(pos), torch.tensor(pos), window,
+                             block, block)
+    want = _r_flash(RFCFG, *map(jnp.asarray, (q, k, v)), jnp.asarray(pos),
+                    jnp.asarray(pos), window, block, block)
+    dense = PL.attention_dense(FCFG, *map(torch.tensor, (q, k, v)),
+                               torch.tensor(pos), torch.tensor(pos), window)
+    _close2(got, want)
+    _close2(got, dense)
+
+
+@pytest.mark.parametrize("block", [8, 12])
+def test_flash_with_softcap_and_ragged_blocks(block):
+    cfg = dataclasses.replace(FCFG, attn_softcap=30.0)
+    rcfg = dataclasses.replace(RFCFG, attn_softcap=30.0)
+    q, k, v = _qkv(s=32, seed=1)
+    pos = np.arange(32)
+    got = PL.attention_flash(cfg, *map(torch.tensor, (q, k, v)),
+                             torch.tensor(pos), torch.tensor(pos), 0, block,
+                             block)
+    want = _r_flash(rcfg, *map(jnp.asarray, (q, k, v)), jnp.asarray(pos),
+                    jnp.asarray(pos), 0, block, block)
+    dense = PL.attention_dense(cfg, *map(torch.tensor, (q, k, v)),
+                               torch.tensor(pos), torch.tensor(pos), 0)
+    _close2(got, want)
+    _close2(got, dense)
+
+
+@pytest.mark.parametrize("impl,flash_calls", [("flash", 1), ("auto", 1),
+                                              ("dense", 0)])
+def test_attention_takes_flash_past_twice_the_block(impl, flash_calls,
+                                                    monkeypatch):
+    """``attn_impl="flash"``, and ``"auto"`` on a sequence longer than 2 x
+    ``flash_block`` (32 > 2 x 8), run ``attention_flash``; the result is
+    the reference's with the same ``RunConfig``."""
+    rng = np.random.default_rng(2)
+    p = {name: (0.1 * rng.standard_normal(shape)).astype(np.float32)
+         for name, shape in (("wq", (64, 4, 16)), ("wk", (64, 2, 16)),
+                             ("wv", (64, 2, 16)), ("wo", (4, 16, 64)))}
+    x = rng.standard_normal((2, 32, 64)).astype(np.float32)
+    calls = []
+    flash = PL.attention_flash
+    monkeypatch.setattr(PL, "attention_flash",
+                        lambda *a: calls.append(1) or flash(*a))
+    rc = RunConfig(attn_impl=impl, flash_block=8, compute_dtype="float32")
+    rrc = RRun(attn_impl=impl, flash_block=8, compute_dtype="float32")
+    for window in (0, 12):
+        got = PL.attention(FCFG, rc, {k: torch.tensor(a) for k, a in
+                                     p.items()}, torch.tensor(x),
+                           window=window)
+        want = RL.attention(RFCFG, rrc, jax.tree.map(jnp.asarray, p),
+                            jnp.asarray(x), NO_AXES, window=window)
+        _close2(got, want)
+    assert len(calls) == 2 * flash_calls
+    short = RunConfig(attn_impl="auto", flash_block=16)
+    PL.attention(FCFG, short, {k: torch.tensor(a) for k, a in p.items()},
+                 torch.tensor(x))
+    assert len(calls) == 2 * flash_calls       # 32 = 2 x 16: dense
