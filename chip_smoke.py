@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
-CUDA card: the quickest proof that the port builds, serves, trains and
-reproduces the paper's Tables II and III, dispatches MoE requests and runs
-the kernel micro-bench on the GPU.
+CUDA card: the quickest proof that the port builds, serves (dense, MoE,
+SSM and hybrid models), trains and reproduces the paper's Tables II and
+III, dispatches MoE requests and runs the kernel micro-bench on the GPU.
 
     python3 chip_smoke.py
 
@@ -215,7 +215,26 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                algorithms; the default algorithms' difference printed);
                one float32 step on the card against the host; each step's
                time, tokens/s and peak device memory beside the card's
-               name and power limit; no kernel of the seven launched.
+               name and power limit; no kernel of the seven launched;
+ 14. families — serving the MoE, SSM and hybrid families, after every
+               earlier model is freed: jamba-v0.1-52b at full width cut to
+               one superblock (8 layers: 7 Mamba, 1 attention, MoE on 4)
+               and falcon-mamba-7b at full width and depth (64 Mamba
+               layers), random f32 weights from seed 0, bf16 compute, 4
+               requests x 64 prompt + 16 new tokens on 8-token pages of a
+               16B pool: peak device memory, prefill time, decode-step
+               median and max, tokens/s and one profiled decode step,
+               beside the card's name and power limit; jamba's paired row
+               launches (15 gathers, 16 scatters) and falcon's none, no
+               plain call; jamba's generation with the row entries forced
+               to their plain versions equal in tokens and every decode
+               state leaf (tolerance 0); falcon's layer 0 in float32, the
+               chunked scan against 64 recurrent steps at the reference
+               test's tolerance; jamba's first MoE layer's router stream
+               through the dispatch kernel, bit-equal to the registry's
+               ``ref``; the four families' smoke configs in float32, card
+               against host: tokens equal, logits within 1e-5 of the
+               largest.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -223,6 +242,7 @@ limit, and ``{"ok": true, "device": {...}}``.  Details go to
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -245,7 +265,7 @@ def log(msg: str) -> None:
 
 
 #: the serving paths past ``serve`` that run the row kernels
-ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench")
+ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench", "families")
 
 LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
              "moe_dispatch")
@@ -3286,6 +3306,352 @@ def phase_train(smi: str) -> dict:
             "wall_s": wall}
 
 
+#: the full-width family points: (arch, layers kept).  jamba keeps one
+#: superblock of its 32 layers (7 Mamba + 1 attention, MoE on every
+#: second), 13.3 G parameters (53 GB in f32; the whole 206 GB does not fit
+#: one card); falcon-mamba keeps all 64 layers (7.3 G parameters, 29 GB)
+FAMILY_POINTS = (("jamba-v0.1-52b", 8), ("falcon-mamba-7b", 64))
+#: the smoke configs of the four families, held card against host
+FAMILY_SMOKES = ("falcon-mamba-7b", "jamba-v0.1-52b", "mixtral-8x22b",
+                 "phi3.5-moe-42b-a6.6b")
+#: float32 card-against-host tolerance of the smoke logits, as a share of
+#: the largest logit's magnitude (the two devices sum in other orders;
+#: TF32 is off)
+FAMILY_LOGIT_TOL = 1e-5
+
+
+def _family_point(arch: str, n_layers: int, smi: str, check=None) -> dict:
+    """One full-width point: random f32 weights from seed 0, bf16 compute,
+    ``generate`` of BATCH requests x PROMPT + NEW tokens on 8-token pages
+    of a 16B pool through ``_counted_path`` (the KV layers' paired row
+    launches as the path implies, none of a plain version); the same run
+    with the row entries forced to their plain versions (tokens and every
+    decode-state leaf equal, tolerance 0); a prefill timed alone; one
+    decode step under ``torch.profiler``.  Jamba's first MoE layer's
+    router stream (prefill, one group) goes through the dispatch kernel
+    against the registry's ``ref``, bit-equal.  ``check(params)``, if
+    given, runs on the point's weights before they are freed; its result
+    is the point's ``check``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.kernels.moe_dispatch import ops as D
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    rc = RunConfig(remat="none", attn_impl="dense")
+    specs = model_specs(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_tree(specs, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the serving peak: weights made (init's own peak holds a stacked
+    # leaf twice), then everything serving adds on top
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n_params = count_params(specs)
+    engine = ServeEngine(cfg, rc, params, max_batch=BATCH, max_seq=MAX_SEQ,
+                         mem_arch="16B", page_len=PAGE_LEN, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (BATCH, PROMPT))
+    engine.generate(prompts, max_new_tokens=2)       # warm-up (cuBLAS etc.)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(cfg, rc, params, toks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+
+    n_kv, steps = engine.n_kv_layers, NEW - 1
+    step_s = []
+    paged_step = engine._paged_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = paged_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+    engine._paged_step = timed_step
+    try:
+        res, secs, launches, entries = _counted_path(
+            f"families {arch}",
+            lambda: engine.generate(prompts, max_new_tokens=NEW),
+            lambda _: {"banked_gather": n_kv * steps,
+                       "banked_scatter": n_kv * steps + n_kv})
+    finally:
+        del engine._paged_step
+    tokens = res.tokens
+    if tokens.shape != (BATCH, NEW) or tokens.min() < 0 or (
+            tokens.max() >= cfg.vocab_size):
+        raise AssertionError(f"[families] {arch}: bad tokens "
+                             f"{tokens.shape} [{tokens.min()}, "
+                             f"{tokens.max()}]")
+    state = engine.last_pools
+
+    # the same generation through the plain row versions: tolerance 0
+    kernels = KV.banked_gather_pair, KV.banked_scatter_pair
+    KV.banked_gather_pair, KV.banked_scatter_pair = _plain_pairs(G, S)
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    try:
+        plain = engine.generate(prompts, max_new_tokens=NEW)
+    finally:
+        KV.banked_gather_pair, KV.banked_scatter_pair = kernels
+    plain_launches = G.GATHERS.launches + S.SCATTERS.launches
+    torch.cuda.synchronize()
+    same_state = all(torch.equal(a[name], b[name])
+                     for a, b in zip(state.values(),
+                                     engine.last_pools.values())
+                     for name in a)
+    n_leaves = sum(len(a) for a in state.values())
+    log(f"[families] {arch}: the generation with the row entries forced "
+        f"to their plain versions ({plain_launches} kernel launches): "
+        f"tokens equal {np.array_equal(tokens, plain.tokens)}, all "
+        f"{n_leaves} decode-state leaves (K/V pools, SSM h and conv) equal "
+        f"{same_state} (tolerance 0)")
+    if plain_launches or not same_state or not np.array_equal(
+            tokens, plain.tokens):
+        raise AssertionError(f"[families] {arch}: the kernels' generation "
+                             f"differs from the plain one")
+    del state, plain
+
+    # one decode step under the profiler, from the run's final state
+    pos = PROMPT + NEW - 1
+    tok = torch.as_tensor(tokens[:, -1:], device="cuda")
+    with torch.inference_mode():
+        _, prof = _profiled(lambda: engine._paged_step(
+            params, tok, engine.last_pools, engine.last_pages, pos))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[families] {arch} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params:,} parameters, "
+        f"{4 * n_params / 1e9:.2f} GB f32; {n_kv} KV layers): weights made "
+        f"in {init_s:.3f} s; {BATCH} requests x {PROMPT} prompt + {NEW} new "
+        f"tokens in {secs:.3f} s = {BATCH * NEW / secs:.1f} tokens/s "
+        f"(prefill included); prefill alone {prefill_s * 1e3:.2f} ms; a "
+        f"decode step median {np.median(step_s) * 1e3:.2f} ms, max "
+        f"{max(step_s) * 1e3:.2f} ms; device memory {weights_gb:.3f} GB "
+        f"of weights, serving peak {peak:.3f} GB ({smi})")
+    log(f"[families] {arch} one decode step under torch.profiler: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+        f"= {100 * prof['busy_share']:.1f} %, {prof['launches']} kernel "
+        f"launches")
+    for key, count, ms in prof["top_device"][:8]:
+        log(f"[families]   device {ms:9.3f} ms  x{count:<6} {key[:80]}")
+    log(f"[families] {arch} req0 tokens: {tokens[0].tolist()}")
+    out = {"n_layers": cfg.n_layers, "n_params": n_params,
+           "n_kv_layers": n_kv, "launches": launches, "entries": entries,
+           "generate_s": secs, "tokens_per_s": BATCH * NEW / secs,
+           "prefill_ms": prefill_s * 1e3,
+           "step_ms": [s * 1e3 for s in step_s],
+           "step_median_ms": float(np.median(step_s)) * 1e3,
+           "step_max_ms": max(step_s) * 1e3, "weights_gb": weights_gb,
+           "peak_mem_gb": peak,
+           "init_s": init_s, "profile": prof, "max_abs_err": 0.0}
+
+    if cfg.n_experts:
+        # the first MoE layer's router stream in a prefill (one group of
+        # BATCH x PROMPT tokens): the CUDA dispatch against ``ref``
+        streams = []
+        arbiter = M.arbiter_positions
+
+        def record(top_e, n_experts):
+            streams.append(top_e)
+            return arbiter(top_e, n_experts)
+        M.arbiter_positions = record
+        try:
+            with torch.inference_mode():
+                T.prefill(cfg, rc, params, toks)
+        finally:
+            M.arbiter_positions = arbiter
+        top_e = streams[0]
+        g, s_len, k = top_e.shape
+        req = top_e.permute(0, 2, 1).reshape(g, k * s_len)
+        cap = M.capacity(cfg, s_len)
+        want_pos, want_kept = registry.get("moe_dispatch").ref(
+            None, req, cfg.n_experts, capacity=cap)
+        D.DISPATCH.launches = 0
+        pos_k, kept_k = D.moe_dispatch_positions(req[0], cfg.n_experts, cap)
+        torch.cuda.synchronize()
+        n_launch = D.DISPATCH.launches
+        same = (torch.equal(pos_k, want_pos[0])
+                and torch.equal(kept_k, want_kept[0]))
+        err = (pos_k.long() - want_pos[0].long()).abs().max().item()
+        log(f"[families] {arch} first MoE layer's router stream (prefill, "
+            f"{g} group of {s_len} tokens x top-{k} = {k * s_len} requests "
+            f"over {cfg.n_experts} experts, capacity {cap}, "
+            f"{int((~want_kept[0]).sum())} dropped): moe_dispatch_positions "
+            f"({n_launch} launch) against the registry's ref: positions and "
+            f"kept equal {same}, max |diff| {err}")
+        if g != 1 or not same or n_launch != 1:
+            raise AssertionError(f"[families] {arch}: the dispatch kernel "
+                                 f"disagrees with the router's ref")
+        out["router_dispatch"] = {"requests": k * s_len, "capacity": cap,
+                                  "launches": n_launch, "max_abs_err": err}
+    if check is not None:
+        out["check"] = check(cfg, params)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _fp32_matmuls():
+    """float32 matmuls in float32 inside the block (TF32 off)."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _falcon_scan_check(cfg, params) -> dict:
+    """Layer 0 of falcon-mamba at full width (the point's weights) in
+    float32 on the card: ``mamba_prefill`` over PROMPT tokens (one chunk,
+    and chunks of 16) against PROMPT ``mamba_decode`` steps, at the
+    reference test's tolerances (y and h rtol 2e-4 / atol 2e-5, conv rtol
+    1e-5 / atol 1e-6)."""
+    import torch
+
+    from repro_torch.models import ssm as SS
+    from repro_torch.models import transformer as T
+
+    p = T.superblock_params(params, 0, 0)["mixer"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = 0.1 * torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen,
+                          device="cuda")
+    worst = {}
+    with _fp32_matmuls(), torch.inference_mode():
+        cache = {"h": torch.zeros((BATCH, cfg.d_inner, cfg.ssm_state),
+                                  device="cuda"),
+                 "conv": torch.zeros((BATCH, cfg.ssm_conv - 1, cfg.d_inner),
+                                     device="cuda")}
+        ys = []
+        for t in range(PROMPT):
+            y, cache = SS.mamba_decode(cfg, p, x[:, t:t + 1], cache)
+            ys.append(y)
+        y_seq = torch.cat(ys, dim=1)
+        for chunk in (256, 16):
+            y, c = SS.mamba_prefill(cfg, p, x, chunk=chunk)
+            for name, a, b, rtol, atol in (
+                    ("y", y, y_seq, 2e-4, 2e-5),
+                    ("h", c["h"], cache["h"], 2e-4, 2e-5),
+                    ("conv", c["conv"], cache["conv"], 1e-5, 1e-6)):
+                worst[f"{name}_chunk{min(chunk, PROMPT)}"] = {
+                    "max_abs": (a - b).abs().max().item(),
+                    "scale": b.abs().max().item()}
+                if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                    raise AssertionError(
+                        f"[families] falcon layer 0 {name} (chunk {chunk}) "
+                        f"off the sequential decode: max |diff| "
+                        f"{(a - b).abs().max().item():.3g}")
+    log(f"[families] falcon-mamba-7b layer 0 at full width, float32 on the "
+        f"card: mamba_prefill over {PROMPT} tokens (one chunk; chunks of "
+        f"16) against {PROMPT} mamba_decode steps: " + ", ".join(
+            f"{k} max |diff| {v['max_abs']:.3g} of {v['scale']:.3g}"
+            for k, v in worst.items()) + " (y, h: rtol 2e-4 atol 2e-5; "
+        "conv: rtol 1e-5 atol 1e-6)")
+    return worst
+
+
+def _family_smokes() -> dict:
+    """The smoke configs of the four families in float32, paged, on the
+    card against the host on the same weights (made on the host from seed
+    0): greedy tokens equal, the prefill's and every decode step's logits
+    within FAMILY_LOGIT_TOL of the largest logit's magnitude."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.engine import ServeEngine
+
+    rc = RunConfig(remat="none", attn_impl="dense", compute_dtype="float32")
+    out = {}
+    for arch in FAMILY_SMOKES:
+        cfg = get_smoke_config(arch)
+        host = init_tree(model_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                    (2, 16))
+        runs = {}
+        for device, params in (("cpu", host), ("cuda", tree_map(
+                lambda t: t.to("cuda"), host))):
+            eng = ServeEngine(cfg, rc, params, max_batch=2, max_seq=24,
+                              page_len=8, device=device)
+            logits, sample = [], eng._sample
+
+            def keep(lg, *args, _sample=sample, _logits=logits):
+                _logits.append(lg[..., :cfg.vocab_size].float().cpu())
+                return _sample(lg, *args)
+            eng._sample = keep
+            runs[device] = (eng.generate(prompts, max_new_tokens=8).tokens,
+                            logits)
+        (t_cpu, l_cpu), (t_gpu, l_gpu) = runs["cpu"], runs["cuda"]
+        scale = max(x.abs().max().item() for x in l_cpu)
+        err = max((a - b).abs().max().item() for a, b in zip(l_gpu, l_cpu))
+        log(f"[families] {cfg.name} float32, card against host: tokens "
+            f"equal {np.array_equal(t_cpu, t_gpu)}; {len(l_cpu)} logits "
+            f"(prefill + decode steps) max |diff| {err:.3g} = "
+            f"{err / scale:.3g} of max |logit| {scale:.4g} (tolerance "
+            f"{FAMILY_LOGIT_TOL})")
+        if not np.array_equal(t_cpu, t_gpu) or err > FAMILY_LOGIT_TOL * scale:
+            raise AssertionError(f"[families] {cfg.name}: the card's "
+                                 f"float32 serving differs from the host's")
+        out[arch] = {"max_abs_err": err, "scale": scale,
+                     "steps": len(l_cpu)}
+    return out
+
+
+def phase_families(smi: str) -> dict:
+    """Serving the MoE, SSM and hybrid families on the card (slice 5a),
+    after every earlier model is freed: (a) jamba-v0.1-52b (one superblock
+    of 8 layers) and falcon-mamba-7b (64 layers) at full width, each
+    point's time, memory and a profiled decode step; (b) jamba's paged
+    generation through the row kernels equal to the plain one, (c)
+    falcon's launching none; (d) falcon's layer 0 scan against its
+    recurrence in float32; (e) jamba's router stream through the dispatch
+    kernel; (f) the four smoke configs, card against host, in float32."""
+    import torch
+
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"[families] device memory held before the phase: {held:.3f} GB")
+    points = {arch: _family_point(
+        arch, n, smi, _falcon_scan_check if arch == "falcon-mamba-7b"
+        else None) for arch, n in FAMILY_POINTS}
+    with _fp32_matmuls():
+        smokes = _family_smokes()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[families] phase wall {wall:.2f} s; device memory held after: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB ({smi})")
+    jamba = points["jamba-v0.1-52b"]
+    return {"points": points, "smokes": smokes,
+            "wall_s": wall,
+            "launches": jamba["launches"], "entries": jamba["entries"],
+            "router_dispatch": jamba["router_dispatch"],
+            "max_abs_err": 0.0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3337,6 +3703,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["train"] = phase_train(smi)
+    # the families' full-width points need the card's memory: the train
+    # phase freed its models
+    record["families"] = phase_families(smi)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda
@@ -3380,6 +3749,7 @@ def main() -> int:
                                record["row_times"]["max_abs_err"][name],
                                record["figures"]["max_abs_err"].get(name,
                                                                     0.0),
+                               record["families"]["max_abs_err"],
                                record["quickstart"]["max_abs_err"].get(
                                    name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3440,10 +3810,18 @@ def main() -> int:
         "source": "src/repro_torch/csrc/moe_dispatch.cu",
         "replaces": replaces["moe_dispatch"],
         "launches": record["bench"]["launches"]["moe_dispatch"],
+        # the bench CLI's launches are the path's; the families phase's
+        # one launch on jamba's router stream is held to the router's ref
+        "launches_by_path": {
+            "bench": record["bench"]["launches"]["moe_dispatch"],
+            "families_router_check":
+                record["families"]["router_dispatch"]["launches"]},
         "max_abs_err": max(record["dispatch"]["max_abs_err"]["moe_dispatch"],
                            record["dispatch_times"]["max_abs_err"][
                                "moe_dispatch"],
-                           bench_err["moe_dispatch"]),
+                           bench_err["moe_dispatch"],
+                           record["families"]["router_dispatch"][
+                               "max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,7 @@
 """Batched serving example (the counterpart of ``examples/serve_lm.py``):
 prefill and decode a batch of requests through the ``ServeEngine``'s
-banked paged-KV decode path, on the smoke config of ``--arch`` with the
-port's seeded weights.
+banked paged-KV decode path, on the smoke config of ``--arch`` (any text
+family: dense, MoE, SSM or hybrid) with the port's seeded weights.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch llama3.2-1b] [--device cpu]
 """

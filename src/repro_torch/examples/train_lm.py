@@ -9,8 +9,8 @@ Presets:
   100m            — ~100M-param model, sized for the card.
 
 ``--arch <id> --smoke`` trains that architecture's reduced config (the
-dense families; the MoE, SSM, hybrid and modality families are ROADMAP
-item 21 and refused before any weight is made).
+dense families; training the MoE, SSM, hybrid and modality families is
+ROADMAP item 21b and refused before any weight is made).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm [--preset tiny]
           [--arch llama3.2-1b --smoke] [--steps 200] [--ckpt DIR]

@@ -27,8 +27,18 @@ healthy one.
   python -m repro_torch.launch.serve --arch llama3.2-1b --schedule \
       --n-requests 8 --fault-bank 1 --fault-tick 4 --cost
 
+Every text family serves: dense, MoE (mixtral, phi3.5-moe), SSM
+(falcon-mamba: no attention layer, so no KV pool and a 0-cycle KV trace)
+and hybrid (jamba: Mamba and attention layers, MoE FFNs).  The audio and
+vision frontends are refused before any weight is made (ROADMAP item 21b).
+
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --cost
+
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the host
-(the tests do).
+(the tests do):
+
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke \
+      --device cpu --cost
 """
 from __future__ import annotations
 

@@ -1,17 +1,19 @@
-"""Model assembly for the dense family (port of ``repro.models.transformer``):
-parameter specs; the training forward (``apply_block``, ``hidden_states``,
-``forward``) with its remat policies and the loss (``loss_fn``, both
-cross-entropy forms); prefill, single-token decode and the block-level
-decode with its ``attn_fn`` hook (where the serving engine plugs in the
-banked paged-KV attention).
+"""Model assembly (port of ``repro.models.transformer``): parameter specs
+for every block kind (attention or Mamba mixer, dense or MoE FFN);
+prefill, single-token decode and the block-level decode with its
+``attn_fn`` hook (where the serving engine plugs in the banked paged-KV
+attention) for the dense, MoE, SSM and hybrid families; the training
+forward (``apply_block``, ``hidden_states``, ``forward``) with its remat
+policies and the loss (``loss_fn``, both cross-entropy forms) for the
+dense family.
 
 The layer stack is ``n_superblocks`` repetitions of the config's
 ``block_pattern()``, with parameters stacked over superblocks as in the
 reference; the reference scans them, the port loops.  The training forward
 unbinds each stacked leaf once, so its gradient is one ``stack`` a leaf.
-MoE and SSM blocks and modality frontends raise ``NotImplementedError`` in
-``model_specs``, before any weight is made: their model code is ROADMAP
-item 21.
+Training an SSM mixer or a MoE FFN raises ``NotImplementedError``, and
+modality frontends are refused in ``model_specs``, before any weight is
+made: they are ROADMAP item 21b.
 """
 from __future__ import annotations
 
@@ -22,34 +24,45 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.params import Leaf, fan_in_scale, stack_specs
 
 AUX_LOSS_COEF = 0.01
 
-_LATER = ("{what} blocks are not ported yet: their model code is ROADMAP "
-          "item 21 (the MoE, SSM, hybrid, audio and vision families)")
+_LATER = ("{what} are not ported yet: training and scoring the MoE, SSM "
+          "and hybrid families, and the audio and vision frontends, are "
+          "ROADMAP item 21b")
 
 
 def _no_frontend(cfg: ModelConfig) -> None:
     if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet: their "
-            f"model code is ROADMAP item 21")
+        raise NotImplementedError(_LATER.format(
+            what=f"{cfg.name}: modality frontends"))
+
+
+def train_dense_only(cfg: ModelConfig) -> None:
+    """Refuse to train a config with an SSM mixer or a MoE FFN (or a
+    frontend), before any weight is made."""
+    _no_frontend(cfg)
+    for kind, is_moe in cfg.block_pattern():
+        _dense_only(kind, is_moe)
 
 
 def _dense_only(kind: str, is_moe: bool) -> None:
     if kind != "attn":
-        raise NotImplementedError(_LATER.format(what=f"{kind!r} mixer"))
+        raise NotImplementedError(_LATER.format(
+            what=f"training through {kind!r} mixer blocks"))
     if is_moe:
-        raise NotImplementedError(_LATER.format(what="MoE FFN"))
+        raise NotImplementedError(_LATER.format(
+            what="training through MoE FFN blocks"))
 
 
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
-    _dense_only(kind, is_moe)
     p = {"ln1": L.rmsnorm_spec(cfg.d_model),
          "ln2": L.rmsnorm_spec(cfg.d_model),
-         "mixer": L.attn_specs(cfg),
-         "ffn": L.mlp_specs(cfg)}
+         "mixer": L.attn_specs(cfg) if kind == "attn" else S.ssm_specs(cfg),
+         "ffn": M.moe_specs(cfg) if is_moe else L.mlp_specs(cfg)}
     if cfg.post_block_norms:
         p["ln1_post"] = L.rmsnorm_spec(cfg.d_model)
         p["ln2_post"] = L.rmsnorm_spec(cfg.d_model)
@@ -143,6 +156,7 @@ def _unbind_superblocks(tree, n: int) -> list:
 def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
                   tokens: torch.Tensor):
     """Shared trunk: final-norm'd hidden states (B, S, D) + MoE aux."""
+    train_dense_only(cfg)
     dtype = getattr(torch, rc.compute_dtype)
     x = _embed(cfg, params, tokens, dtype)
     pattern = cfg.block_pattern()
@@ -214,19 +228,32 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
     return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux": aux}
 
 
+def _ffn(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
+         is_moe: bool) -> torch.Tensor:
+    """The block's FFN on the normed residual (a MoE's aux is dropped: it
+    is a training term)."""
+    if is_moe:
+        return M.moe(cfg, rc, p, x)[0]
+    return L.mlp(cfg, p, x)
+
+
 def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
                        x: torch.Tensor, cache: dict, pos: torch.Tensor,
                        kind: str, is_moe: bool, j: int, attn_fn=None):
-    """One block's decode step.  ``attn_fn`` swaps the attention-cache
-    implementation (same signature as ``L.attention_decode``)."""
-    _dense_only(kind, is_moe)
+    """One block's decode step against its cache ({"k", "v"} for an
+    attention block, {"h", "conv"} for an SSM block).  ``attn_fn`` swaps
+    the attention-cache implementation (same signature as
+    ``L.attention_decode``); SSM blocks ignore it."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h, new_cache = (attn_fn or L.attention_decode)(
-        cfg, p["mixer"], h, cache, pos, window=_block_window(cfg, j))
+    if kind == "attn":
+        h, new_cache = (attn_fn or L.attention_decode)(
+            cfg, p["mixer"], h, cache, pos, window=_block_window(cfg, j))
+    else:
+        h, new_cache = S.mamba_decode(cfg, p["mixer"], h, cache)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
-    h = L.mlp(cfg, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h = _ffn(cfg, rc, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), is_moe)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
     return x + h, new_cache
@@ -257,61 +284,71 @@ def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor):
     return logits
 
 
+def _stack_caches(parts: dict) -> dict:
+    """{"b{j}": [per-superblock cache dicts]} -> {"b{j}": {name: stacked
+    over superblocks}}."""
+    return {key: {name: torch.stack([c[name] for c in caches])
+                  for name in caches[0]}
+            for key, caches in parts.items()}
+
+
 def prefill(cfg: ModelConfig, rc: RunConfig, params: dict,
             tokens: torch.Tensor):
     """Inference prefill: returns (last-position logits (B, 1, Vp), decode
-    cache ``{"blocks": {"b{j}": {"k", "v"}}}`` with (n_superblocks, B, t,
-    KV, HD) K/V, t = S or the window)."""
+    cache ``{"blocks": {"b{j}": ...}}``), each leaf stacked over
+    superblocks: an attention block's {"k", "v"} (n_superblocks, B, t, KV,
+    HD), t = S or the window; an SSM block's {"h" (n_superblocks, B, Di,
+    N) float32, "conv" (n_superblocks, B, K-1, Di)}."""
     dtype = getattr(torch, rc.compute_dtype)
     x = _embed(cfg, params, tokens, dtype)
     pattern = cfg.block_pattern()
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
-    caches = {f"b{j}": {"k": [], "v": []} for j in range(len(pattern))}
+    caches = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):
         for j, (kind, is_moe) in enumerate(pattern):
-            _dense_only(kind, is_moe)
             p = superblock_params(params, j, sb)
-            w = _block_window(cfg, j)
-            t = min(s, w) if w else s
-            if s % t:
-                raise ValueError("ring cache needs seq % window == 0")
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            h, (k, v) = L.attention(cfg, rc, p["mixer"], h, window=w,
-                                    positions=positions, return_kv=True)
-            caches[f"b{j}"]["k"].append(k[:, -t:])
-            caches[f"b{j}"]["v"].append(v[:, -t:])
+            if kind == "attn":
+                w = _block_window(cfg, j)
+                t = min(s, w) if w else s
+                if s % t:
+                    raise ValueError("ring cache needs seq % window == 0")
+                h, (k, v) = L.attention(cfg, rc, p["mixer"], h, window=w,
+                                        positions=positions, return_kv=True)
+                caches[f"b{j}"].append({"k": k[:, -t:], "v": v[:, -t:]})
+            else:
+                h, sc = S.mamba_prefill(cfg, p["mixer"], h)
+                caches[f"b{j}"].append(sc)
             if cfg.post_block_norms:
                 h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
             x = x + h
-            h = L.mlp(cfg, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+            h = _ffn(cfg, rc, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                     is_moe)
             if cfg.post_block_norms:
                 h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
             x = x + h
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(cfg, params, x[:, -1:])
-    blocks = {key: {h: torch.stack(c[h]) for h in ("k", "v")}
-              for key, c in caches.items()}
-    return logits, {"blocks": blocks}
+    return logits, {"blocks": _stack_caches(caches)}
 
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, params: dict,
                 token: torch.Tensor, cache: dict, pos: torch.Tensor):
-    """One decode step.  token: (B, 1) int64; pos: () current position.
-    Returns (logits (B, 1, Vp), new cache)."""
+    """One decode step.  token: (B, 1) int64; pos: () current position;
+    ``cache`` as ``prefill`` returns it (attention caches padded to the
+    decode buffer).  Returns (logits (B, 1, Vp), new cache)."""
     dtype = getattr(torch, rc.compute_dtype)
     x = _embed(cfg, params, token, dtype)
     pattern = cfg.block_pattern()
-    new = {f"b{j}": {"k": [], "v": []} for j in range(len(pattern))}
+    new = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):
         for j, (kind, is_moe) in enumerate(pattern):
-            c = {h: cache["blocks"][f"b{j}"][h][sb] for h in ("k", "v")}
+            c = {name: leaf[sb]
+                 for name, leaf in cache["blocks"][f"b{j}"].items()}
             x, nc = apply_block_decode(cfg, rc,
                                        superblock_params(params, j, sb), x,
                                        c, pos, kind, is_moe, j)
-            for h in ("k", "v"):
-                new[f"b{j}"][h].append(nc[h])
+            new[f"b{j}"].append(nc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    blocks = {key: {h: torch.stack(c[h]) for h in ("k", "v")}
-              for key, c in new.items()}
-    return _unembed(cfg, params, x), {"blocks": blocks}
+    return _unembed(cfg, params, x), {"blocks": _stack_caches(new)}

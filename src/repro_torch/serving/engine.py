@@ -15,7 +15,10 @@ through the CUDA kernels on those pools, one launch per layer for K and V:
 Every decode step also records its exact ``AddressTrace`` (``step_trace``
 / ``serving_trace``), so ``cost_many`` prices the serving traffic on the
 paper's memories.  ``kv_mode="dense"`` keeps the seq-contiguous reference
-cache the paged path is held against.
+cache the paged path is held against.  An SSM layer (falcon-mamba,
+jamba's Mamba layers) has no pages: its recurrent state rides beside the
+pools, one {"h", "conv"} a layer, and a model with no attention layer
+serves with no pool and an empty KV trace.
 
 ``run_scheduler`` is the continuous-batching half: a
 ``scheduler.Scheduler`` admits, decodes and retires requests lane by lane,
@@ -110,7 +113,9 @@ class ServeEngine:
         self._sched_meta: dict = {}
         #: final PageTableState of the last paged generate
         self.last_pages: KV.PageTableState | None = None
-        #: the KV pools of the last ``run_scheduler`` (key -> {"k", "v"})
+        #: the per-layer decode state of the last paged ``generate`` or
+        #: ``run_scheduler`` (key ``b{j}s{sb}`` -> {"k", "v"} pools, or an
+        #: SSM layer's {"h", "conv"})
         self.last_pools: dict | None = None
 
     # -- configuration -----------------------------------------------------
@@ -184,8 +189,11 @@ class ServeEngine:
         return out, {"k": kp, "v": vp}
 
     def _paged_step(self, params, tok, pools, pages, pos: int):
-        """One full-model decode step at position ``pos`` over the page
-        pools (updated in place).  Returns (logits, pools, pages)."""
+        """One full-model decode step at position ``pos`` over the
+        per-layer decode state ``pools`` (key ``b{j}s{sb}``: an attention
+        layer's K/V page pools, updated in place, or an SSM layer's
+        {"h", "conv"}, replaced by the step's new state).  Returns (logits,
+        pools, pages)."""
         cfg, rc = self.cfg, self.rc
         dtype = getattr(torch, rc.compute_dtype)
         need = (pages.seq_lens % self.kv_cfg.page_len) == 0
@@ -206,8 +214,11 @@ class ServeEngine:
 
     def _ingest_prefill(self, cache, plen: int, batch: int):
         """Allocate every prompt page and scatter the prefill K/V into the
-        per-layer pools (one banked_scatter_pair call per layer); after this
-        no dense KV state survives.  Returns (pools, pages)."""
+        per-layer pools (one banked_scatter_pair call per attention layer);
+        after this no dense KV state survives.  An SSM layer's prefill
+        state ({"h", "conv"}, one superblock's slice) is its entry as it
+        is: it has no pages.  Returns (pools, pages): the per-layer decode
+        state ``_paged_step`` carries, and the page table."""
         kv = self.kv_cfg
         n_pref = -(-plen // kv.page_len)
         pages = KV.fill_prompt_pages(kv, batch, self.max_seq, plen,
@@ -226,6 +237,10 @@ class ServeEngine:
         for j, (kind, _) in enumerate(self.cfg.block_pattern()):
             bc = cache["blocks"][f"b{j}"]
             for sb in range(self.cfg.n_superblocks):
+                if kind != "attn":
+                    pools[f"b{j}s{sb}"] = {name: leaf[sb]
+                                           for name, leaf in bc.items()}
+                    continue
                 k_rows, v_rows = rows_of(bc["k"][sb]), rows_of(bc["v"][sb])
                 k_pool, v_pool = KV.scatter_pages_pair(
                     kv, k_rows.new_zeros((kv.n_pages, kv.row_width)),
@@ -690,10 +705,14 @@ class ServeEngine:
     # -- dense reference path ----------------------------------------------
 
     def _pad_cache(self, cache, prompt_len: int):
-        """Grow prefill caches (len = prompt) to the decode buffer
-        (max_seq); ring (SWA) caches at window size stay as they are."""
-        def grow(x):
-            if x.shape[2] != prompt_len:
+        """Grow prefill attention caches (len = prompt) to the decode
+        buffer (max_seq); ring (SWA) caches at window size stay as they
+        are.  Only leaves named ``k`` / ``v`` are padded, as the reference
+        picks them by path: SSM state (``h`` (n_superblocks, B, Di, N),
+        ``conv`` (n_superblocks, B, K-1, Di)) is length-free, whatever its
+        axis 2 happens to equal."""
+        def grow(name, x):
+            if name not in ("k", "v") or x.shape[2] != prompt_len:
                 return x
             win = self.cfg.sliding_window
             if win and prompt_len == win:
@@ -701,7 +720,8 @@ class ServeEngine:
             pad = x.new_zeros(x.shape[:2] + (self.max_seq - prompt_len,)
                               + x.shape[3:])
             return torch.cat([x, pad], dim=2)
-        return {"blocks": {key: {h: grow(c[h]) for h in ("k", "v")}
+        return {"blocks": {key: {name: grow(name, x)
+                                 for name, x in c.items()}
                            for key, c in cache["blocks"].items()}}
 
     # -- generation --------------------------------------------------------
@@ -746,7 +766,7 @@ class ServeEngine:
                 tok = self._sample(logits[:, -1], temperature, gen)
                 out.append(tok)
             if paged:
-                self.last_pages = pages
+                self.last_pages, self.last_pools = pages, pools
             tokens_out = torch.cat(out, dim=1).cpu().numpy()
         return GenerationResult(tokens=tokens_out, prompt_len=plen,
                                 steps=max_new_tokens)

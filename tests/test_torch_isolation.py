@@ -1,6 +1,7 @@
 """repro_torch stands alone: no module of the port (nor chip_smoke.py)
 imports JAX, the reference package ``repro`` or the reference's
-``benchmarks``, and a CPU smoke generation (through the serving CLI), the
+``benchmarks``, and a CPU smoke generation (through the serving CLI; a
+hybrid model's too), the
 Table I, Table II and Fig 9 CLI sections, the kernel micro-bench CLI, the
 autotune CLI, the cost bench, a scheduled serving day (``serve
 --schedule``), a faulted one (bank loss, page recovery, transient
@@ -200,6 +201,39 @@ def test_cpu_serving_runs_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
     assert "16B" in out.stdout and "4R-2W" in out.stdout
+
+
+def test_cpu_hybrid_generate_runs_with_jax_and_repro_blocked():
+    """A CPU jamba smoke ``ServeEngine.generate`` (Mamba, attention and MoE
+    layers; paged and dense) and ``serve --arch jamba-v0.1-52b --smoke
+    --cost`` with JAX, ``repro`` and ``benchmarks`` blocked: the two modes'
+    tokens agree, and the one attention layer's traffic prices as the
+    reference CLI's."""
+    out = _run_blocked(
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.configs.base import RunConfig\n"
+        "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.serving.engine import ServeEngine\n"
+        "cfg = get_smoke_config('jamba-v0.1-52b')\n"
+        "params = init_tree(model_specs(cfg), torch.Generator()"
+        ".manual_seed(0), device='cpu')\n"
+        "prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,"
+        " (2, 8))\n"
+        "toks = [ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense',"
+        " compute_dtype='float32'), params, max_batch=2, max_seq=16,"
+        " kv_mode=m, device='cpu').generate(prompts, max_new_tokens=4)"
+        ".tokens for m in ('paged', 'dense')]\n"
+        "assert toks[0].shape == (2, 4) and (toks[0] == toks[1]).all()\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--arch', 'jamba-v0.1-52b', '--smoke', '--device',"
+        " 'cpu', '--cost', '--batch', '2', '--prompt-len', '16',"
+        " '--new-tokens', '4'])\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    assert "(1 KV layers, page_len=8): step 4 ops, generation 14 ops" in \
+        out.stdout
+    assert "16B               144       494     0.64" in out.stdout
 
 
 def test_cpu_scheduled_serving_runs_with_jax_and_repro_blocked():

@@ -127,12 +127,23 @@ def test_prefill_and_dense_decode_logits():
 
 
 def test_non_dense_families_name_their_slice():
+    """MoE and SSM configs now get their specs (serving runs them); the
+    training forward, the loss and the train state refuse them naming
+    ROADMAP item 21b, before any weight; frontends stay refused in
+    ``model_specs``."""
+    from repro_torch.train.step import init_train_state
     moe = dataclasses.replace(CFG, n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model_specs(moe)
     ssm = dataclasses.replace(CFG, family="ssm", n_heads=0, ssm_state=4)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        model_specs(ssm)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for cfg, what in ((moe, "MoE"), (ssm, "'ssm' mixer")):
+        assert count_params(model_specs(cfg)) > 0
+        for call in (lambda: PT.forward(cfg, PRC, {}, tokens),
+                     lambda: PT.hidden_states(cfg, PRC, {}, tokens),
+                     lambda: PT.loss_fn(cfg, PRC, {}, {"tokens": tokens}),
+                     lambda: init_train_state(cfg, PRC, None, "cpu")):
+            with pytest.raises(NotImplementedError, match="item 21b") as e:
+                call()
+            assert what in str(e.value)
     with pytest.raises(NotImplementedError, match="item 21"):
         model_specs(dataclasses.replace(CFG, frontend="audio_frames"))
 

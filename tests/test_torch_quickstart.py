@@ -8,9 +8,10 @@ functional ``Memory`` equal the reference's on the reference tests' inputs
 random ones; ``python -m repro_torch.examples.quickstart`` prints what
 ``examples/quickstart.py`` prints, both run in this process; the ten model
 configurations equal the reference's field for field, the serving CLI
-refuses the families the port's model code does not run before it makes
-any weight, and the other dense configurations it now builds give the
-reference's prefill logits."""
+refuses the modality frontends before it makes any weight, serves the
+SSM, hybrid and MoE families with the reference CLI's lines, and the
+other dense configurations it builds give the reference's prefill
+logits."""
 import dataclasses
 import runpy
 from pathlib import Path
@@ -239,9 +240,7 @@ def test_ten_configs_equal_the_reference_field_for_field():
         PCF.get_config("no-such-arch")
 
 
-REFUSED = {"jamba-v0.1-52b": "'ssm' mixer", "falcon-mamba-7b": "'ssm' mixer",
-           "phi3.5-moe-42b-a6.6b": "MoE FFN", "mixtral-8x22b": "MoE FFN",
-           "musicgen-medium": "modality frontends",
+REFUSED = {"musicgen-medium": "modality frontends",
            "phi-3-vision-4.2b": "modality frontends"}
 
 
@@ -249,8 +248,8 @@ REFUSED = {"jamba-v0.1-52b": "'ssm' mixer", "falcon-mamba-7b": "'ssm' mixer",
 def test_serve_refuses_unported_families_before_any_weight(arch,
                                                            monkeypatch):
     """``launch/serve.py`` on a smoke config of a family the port's model
-    code does not run: the refusal names ROADMAP item 21 and comes before
-    ``init_tree`` makes a weight."""
+    code does not run (the modality frontends): the refusal names ROADMAP
+    item 21 (21b) and comes before ``init_tree`` makes a weight."""
     from repro_torch.launch import serve
     made = []
     monkeypatch.setattr(serve, "init_tree",
@@ -259,6 +258,62 @@ def test_serve_refuses_unported_families_before_any_weight(arch,
         serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     assert "ROADMAP item 21" in str(e.value)
     assert not made
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "mixtral-8x22b", "phi3.5-moe-42b-a6.6b"])
+def test_serve_families_equal_the_reference(arch, capsys):
+    """``serve --arch <id> --smoke --cost --device cpu`` for the SSM,
+    hybrid and MoE families: on the reference's weights (``from_jax``) in
+    float32 compute, the batch's ``run_batch`` prints the reference CLI's
+    lines, tokens and cost table, line for line; the CLI's own run (its
+    seeded weights, bfloat16 compute) prints the same cost table and four
+    requests of 32 tokens in the vocabulary.  (Its tokens are not held to
+    the reference's in bfloat16: the two backends' bfloat16 layers differ
+    by an ulp, which moves a routing or a later argmax within a few dozen
+    tokens.)"""
+    import argparse
+
+    import jax
+
+    from repro.configs.base import RunConfig as RRun
+    from repro.launch import serve as r_serve
+    from repro.launch.sharding import NO_AXES
+    from repro.models import init_tree as r_init
+    from repro.models import model_specs as r_specs
+    from repro.serving.engine import ServeEngine as RServe
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import from_jax, model_specs
+    from repro_torch.serving.engine import ServeEngine
+    serve.main(["--arch", arch, "--smoke", "--cost", "--device", "cpu"])
+    cli = capsys.readouterr().out.splitlines()
+
+    cfg, rcfg = PCF.get_smoke_config(arch), RCF.get_smoke_config(arch)
+    r_params = r_init(r_specs(rcfg), jax.random.PRNGKey(0))
+    params = from_jax(model_specs(cfg), jax.tree.map(np.asarray, r_params),
+                      device="cpu")
+    args = argparse.Namespace(batch=4, prompt_len=16, new_tokens=32,
+                              page_len=8, cost=True, seed=0)
+    kw = dict(max_batch=4, max_seq=16 + 32 + 4)
+    serve.run_batch(args, ServeEngine(
+        cfg, RunConfig(remat="none", attn_impl="dense",
+                       compute_dtype="float32"), params, device="cpu", **kw),
+        cfg)
+    got = capsys.readouterr().out.splitlines()
+    r_serve.run_batch(args, RServe(
+        rcfg, RRun(remat="none", attn_impl="dense", compute_dtype="float32"),
+        r_params, NO_AXES, **kw), rcfg)
+    want = capsys.readouterr().out.splitlines()
+    assert got == want
+    assert cli[4:] == want[4:]             # the traffic line and cost table
+    assert [ln.split(":")[0] for ln in cli[:4]] == [f"req{b}"
+                                                    for b in range(4)]
+    for ln in cli[:4]:
+        toks = [int(t) for t in ln.split("[")[1].rstrip("]").split(",")]
+        assert len(toks) == 32 and 0 <= min(toks) <= max(toks) < (
+            cfg.vocab_size)
+    assert [ln.split()[0] for ln in cli[-6:]] == list(serve.COST_MEMORIES)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "minicpm-2b",
