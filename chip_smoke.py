@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card: the quickest proof that the port builds, serves (dense, MoE,
-SSM and hybrid models), trains and reproduces the paper's Tables II and
-III, dispatches MoE requests and runs the kernel micro-bench on the GPU.
+SSM and hybrid models), trains (those and the audio and vision models)
+and reproduces the paper's Tables II and III, dispatches MoE requests and
+runs the kernel micro-bench on the GPU.
 
     python3 chip_smoke.py
 
@@ -234,7 +235,29 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                through the dispatch kernel, bit-equal to the registry's
                ``ref``; the four families' smoke configs in float32, card
                against host: tokens equal, logits within 1e-5 of the
-               largest.
+               largest;
+ 15. train_families — training the MoE, SSM, hybrid and frontend
+               families, after every earlier model is freed (and freeing
+               its own): the train CLI (``main``) at full width of
+               phi3.5-moe-42b-a6.6b cut to 2 of 32 layers (remat none),
+               falcon-mamba-7b cut to 24 of 64 (remat "full": its scan
+               keeps about 7.4 GB a layer for the backward) and
+               musicgen-medium whole (256 audio frames ahead of 64
+               tokens), 4 steps of 16 x 64 each, the first apart and the
+               last under ``torch.profiler``: finite losses, gradient
+               norms above 0, the aux above 0 exactly for the MoE point,
+               no kernel of the seven launched on the path; each step's
+               time, tokens/s, 6·N_active·positions as a share of the
+               bf16 peak and the peak device memory beside the card's
+               name and power limit; the six non-dense smoke configs'
+               float32 step, card against host (loss rtol 1e-5, aux 1e-6,
+               grad_norm rtol 1e-4, parameters and moments rtol 1e-4 /
+               atol 1e-6); falcon's layer 0 in float32, the gradients to
+               ``in_proj`` and ``A_log`` through the scan against 64
+               recurrent steps (within 1e-4 of the largest), and the
+               bytes one layer keeps for its backward; phi3.5-moe's first
+               MoE layer's router stream in a training forward through
+               the dispatch kernel, bit-equal to the registry's ``ref``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -3006,13 +3029,13 @@ def _profiled(fn) -> tuple:
                  "top_device": sorted(kernels, key=lambda r: -r[2])[:12]}
 
 
-def _log_profile(tag: str, prof: dict, smi: str) -> None:
-    log(f"[train] {tag} under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
-        f"device busy {prof['device_ms']:.1f} ms = "
+def _log_profile(tag: str, prof: dict, smi: str, phase="train") -> None:
+    log(f"[{phase}] {tag} under torch.profiler: wall {prof['wall_ms']:.1f} "
+        f"ms, device busy {prof['device_ms']:.1f} ms = "
         f"{100 * prof['busy_share']:.1f} %, {prof['launches']} kernel "
         f"launches ({smi})")
     for key, count, ms in prof["top_device"][:8]:
-        log(f"[train]   device {ms:9.3f} ms  x{count:<6} {key[:80]}")
+        log(f"[{phase}]   device {ms:9.3f} ms  x{count:<6} {key[:80]}")
 
 
 def _recorded_steps(TR, steps: list, profile_at=None):
@@ -3031,22 +3054,61 @@ def _recorded_steps(TR, steps: list, profile_at=None):
             return state, {k: float(v) for k, v in met.items()}
 
         def timed(state, batch):
+            sizes = {"tokens": batch["tokens"].numel(),
+                     "positions": batch["tokens"].numel() + (
+                         batch["frontend"].shape[:2].numel()
+                         if "frontend" in batch else 0)}
             if len(steps) == profile_at:
                 (state, met), prof = _profiled(lambda: run(state, batch))
-                steps.append({**met, "s": prof["wall_ms"] / 1e3,
-                              "tokens": batch["tokens"].numel(),
+                steps.append({**met, "s": prof["wall_ms"] / 1e3, **sizes,
                               "profile": prof})
                 return state, met
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, met = run(state, batch)
             torch.cuda.synchronize()
-            steps.append({**met, "s": time.perf_counter() - t0,
-                          "tokens": batch["tokens"].numel()})
+            steps.append({**met, "s": time.perf_counter() - t0, **sizes})
             return state, met
         return timed
     TR.make_train_step = make
     return original
+
+
+def _run_steps(phase: str, tag: str, fn, n_active: int, smi: str,
+               profile_at=None) -> tuple:
+    """``fn()`` (a run of the trainer) with each train step timed and its
+    metrics kept (``_recorded_steps``) and the peak device memory from
+    zero; logs each step's time, tokens/s and model-FLOPs rate, 6 x
+    ``n_active`` parameters x positions a second (frontend positions
+    included), as a share of the bf16 peak.  Returns (fn's result, the
+    steps, the peak in GB)."""
+    import torch
+
+    from repro_torch.train import trainer as TR
+    steps = []
+    original = _recorded_steps(TR, steps, profile_at)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = fn()
+    finally:
+        TR.make_train_step = original
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, s in enumerate(steps):
+        s["model_tflops"] = 6 * n_active * s["positions"] / s["s"] / 1e12
+        log(f"[{phase}] {tag} step {i}: loss {s['loss']:.6g}, aux "
+            f"{s['aux']:.6g}, lr {s['lr']:.6g}, grad_norm "
+            f"{s['grad_norm']:.6g}, {s['s']:.4f} s = "
+            f"{s['tokens'] / s['s']:.1f} tokens/s"
+            f"{'' if s['positions'] == s['tokens'] else ' (%.1f positions/s)' % (s['positions'] / s['s'])}, "
+            f"6·N·positions {s['model_tflops']:.2f} TFLOP/s = "
+            f"{100 * s['model_tflops'] / BF16_PEAK_TFLOPS:.2f} % of "
+            f"the bf16 peak ({smi})"
+            f"{' (profiled)' if 'profile' in s else ''}")
+        if "profile" in s:
+            _log_profile(f"{tag} step {i}", s["profile"], smi, phase)
+    log(f"[{phase}] {tag}: peak device memory {peak:.3f} GB "
+        f"(torch.cuda.max_memory_allocated, {smi})")
+    return out, steps, peak
 
 
 def _moments_filled(state, seed: int):
@@ -3063,6 +3125,47 @@ def _moments_filled(state, seed: int):
         t.shape, generator=g))).to(t.device), state.opt.v)
     return state._replace(step=torch.full_like(state.step, 5),
                           opt=state.opt._replace(m=m, v=v))
+
+
+def _card_vs_host_step(cfg, rc, ds) -> tuple:
+    """One train step of ``cfg`` (a smoke config) on the card and the same
+    step on the host, from one host state (parameters from a generator
+    seeded 4, moments as a running job's) and ``ds``'s batch 0: returns
+    the two steps' metrics and {"loss_rel", "aux_abs", "grad_norm_rel",
+    "excess"}, the last the largest |card - host| - 1e-4 |host| over the
+    updated parameters and moments."""
+    import torch
+
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    host = _moments_filled(init_train_state(
+        cfg, rc, torch.Generator().manual_seed(4), device="cpu"), 4)
+
+    def to_card(tree):
+        return None if tree is None else tree_map(
+            lambda t: t.to("cuda", copy=True), tree)
+    card = host._replace(step=to_card(host.step),
+                         params=to_card(host.params),
+                         opt=type(host.opt)(*map(to_card, host.opt)))
+    fstep = make_train_step(cfg, rc)
+    card, met_c = fstep(card, ds.batch(0, device="cuda"))
+    host, met_h = fstep(host, ds.batch(0, device="cpu"))
+    worst = 0.0
+    for got, want in ((card.params, host.params), (card.opt.m, host.opt.m),
+                      (card.opt.v, host.opt.v)):
+        for g_, w_ in zip(leaves(got), leaves(want)):
+            if w_.numel():
+                excess = ((g_.cpu() - w_).abs() - 1e-4 * w_.abs()).max()
+                worst = max(worst, excess.item())
+
+    def rel(k):
+        return abs(float(met_c[k]) - float(met_h[k])) / abs(float(met_h[k]))
+    return met_c, met_h, {
+        "loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
+        "aux_abs": abs(float(met_c["aux"]) - float(met_h["aux"])),
+        "excess": worst}
 
 
 def phase_train(smi: str) -> dict:
@@ -3096,9 +3199,7 @@ def phase_train(smi: str) -> dict:
     from repro_torch.models import count_params
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import leaves, tree_map
-    from repro_torch.train import Trainer, TrainerConfig, init_train_state
-    from repro_torch.train import trainer as TR
+    from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train.step import make_train_step
 
     t_phase = time.perf_counter()
@@ -3114,29 +3215,7 @@ def phase_train(smi: str) -> dict:
         f"TF32 matmuls {torch.backends.cuda.matmul.allow_tf32}")
 
     def run_steps(tag, fn, profile_at=None):
-        steps = []
-        original = _recorded_steps(TR, steps, profile_at)
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            out = fn()
-        finally:
-            TR.make_train_step = original
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        for i, s in enumerate(steps):
-            # the model-FLOPs rate: 6 x parameters x tokens a second
-            s["model_tflops"] = 6 * n_params * s["tokens"] / s["s"] / 1e12
-            log(f"[train] {tag} step {i}: loss {s['loss']:.6g}, lr "
-                f"{s['lr']:.6g}, grad_norm {s['grad_norm']:.6g}, "
-                f"{s['s']:.4f} s = {s['tokens'] / s['s']:.1f} tokens/s, "
-                f"6·N·tokens {s['model_tflops']:.2f} TFLOP/s = "
-                f"{100 * s['model_tflops'] / BF16_PEAK_TFLOPS:.2f} % of "
-                f"the bf16 peak ({smi})"
-                f"{' (profiled)' if 'profile' in s else ''}")
-            if "profile" in s:
-                _log_profile(f"{tag} step {i}", s["profile"], smi)
-        log(f"[train] {tag}: peak device memory {peak:.3f} GB "
-            f"(torch.cuda.max_memory_allocated, {smi})")
-        return out, steps, peak
+        return _run_steps("train", tag, fn, n_params, smi, profile_at)
 
     # (a) the CLI's default step at full width and depth
     text = io.StringIO()
@@ -3201,8 +3280,8 @@ def phase_train(smi: str) -> dict:
     tokens = ds.batch(3, device="cuda")
     with torch.no_grad():
         p0 = T.superblock_params(params, 0, 0)
-        x = L.rmsnorm(p0["ln1"], T._embed(cfg, params, tokens["tokens"],
-                                          torch.bfloat16), cfg.norm_eps)
+        x = L.rmsnorm(p0["ln1"], T._embed_tokens(
+            cfg, params, tokens["tokens"], torch.bfloat16), cfg.norm_eps)
         outs = {impl: L.attention(cfg, RunConfig(attn_impl=impl), p0[
             "mixer"], x).float() for impl in ("flash", "dense")}
         attn_err = (outs["flash"] - outs["dense"]).abs().max().item()
@@ -3268,32 +3347,15 @@ def phase_train(smi: str) -> dict:
     # (e) one float32 step on the card against the same step on the host
     rc_f = RunConfig(remat="none", attn_impl="dense", compute_dtype="float32",
                      warmup_steps=2, learning_rate=3e-3)
-    host = _moments_filled(init_train_state(
-        smoke, rc_f, torch.Generator().manual_seed(4), device="cpu"), 4)
-    def to_card(tree):
-        return None if tree is None else tree_map(
-            lambda t: t.to("cuda", copy=True), tree)
-    card = host._replace(step=to_card(host.step),
-                         params=to_card(host.params),
-                         opt=type(host.opt)(*map(to_card, host.opt)))
-    fstep = make_train_step(smoke, rc_f)
-    card, met_c = fstep(card, ds_s.batch(0, device="cuda"))
-    host, met_h = fstep(host, ds_s.batch(0, device="cpu"))
-    worst = 0.0
-    for got, want in ((card.params, host.params), (card.opt.m, host.opt.m),
-                      (card.opt.v, host.opt.v)):
-        for g_, w_ in zip(leaves(got), leaves(want)):
-            excess = ((g_.cpu() - w_).abs() - 1e-4 * w_.abs()).max().item()
-            worst = max(worst, excess)
-    loss_rel = abs(float(met_c["loss"]) - float(met_h["loss"])) / abs(
-        float(met_h["loss"]))
+    met_c, met_h, cmp = _card_vs_host_step(smoke, rc_f, ds_s)
     log(f"[train] (e) float32 smoke step, card vs host: loss "
         f"{float(met_c['loss']):.9g} vs {float(met_h['loss']):.9g} (rel "
-        f"{loss_rel:.3g}, rtol 1e-5); params, m, v: max(|diff| - 1e-4 "
-        f"|host|) {worst:.3g} (atol 1e-6)")
+        f"{cmp['loss_rel']:.3g}, rtol 1e-5); params, m, v: max(|diff| - 1e-4 "
+        f"|host|) {cmp['excess']:.3g} (atol 1e-6)")
     checks["(e) card step == host step (f32)"] = (
-        loss_rel <= 1e-5 and worst <= 1e-6)
-    record["card_vs_host"] = {"loss_rel": loss_rel, "excess": worst}
+        cmp["loss_rel"] <= 1e-5 and cmp["excess"] <= 1e-6)
+    record["card_vs_host"] = {"loss_rel": cmp["loss_rel"],
+                              "excess": cmp["excess"]}
 
     launches = {name: e.launches for name, e in entries.items()}
     checks["no kernel launched"] = not any(launches.values())
@@ -3652,6 +3714,335 @@ def phase_families(smi: str) -> dict:
             "max_abs_err": 0.0}
 
 
+#: the full-width training points: (arch, layers kept, remat), each the
+#: train CLI's traffic (global batch 16 x seq 64, synthetic data), random
+#: f32 weights from seed 0, bf16 compute, f32 AdamW state.  phi3.5-moe
+#: keeps 2 of its 32 layers (2.865 G parameters, 45.8 GB of training
+#: state); falcon-mamba-7b 24 of 64 (3.060 G, 49.0 GB), under remat "full"
+#: because its scan keeps about 7.6 GB a layer for the backward;
+#: musicgen-medium all 48 (1.818 G, 29.1 GB), its 256 audio frames ahead of
+#: the 64 text tokens
+TRAIN_POINTS = (("phi3.5-moe-42b-a6.6b", 2, "none"),
+                ("falcon-mamba-7b", 24, "full"),
+                ("musicgen-medium", 48, "none"))
+#: the non-dense smoke configs, one float32 train step card against host
+TRAIN_SMOKES = ("jamba-v0.1-52b", "falcon-mamba-7b", "mixtral-8x22b",
+                "phi3.5-moe-42b-a6.6b", "musicgen-medium",
+                "phi-3-vision-4.2b")
+#: float32 tolerance of (c): each gradient of falcon's layer 0 through
+#: the chunked scan against the same through the recurrent steps, within
+#: this share of the gradient's largest magnitude (the two sum the same
+#: terms in other orders: the doubling scan pairs the products as a
+#: tree, the steps in a chain)
+SCAN_GRAD_TOL = 1e-4
+
+
+def _live_cuda_tensors(n: int = 6) -> list:
+    """The ``n`` largest CUDA tensors that Python's gc tracks, as (bytes
+    of their storage, shape, dtype): what holds device memory after a
+    point is freed."""
+    import torch
+    found = [(o.untyped_storage().nbytes(), tuple(o.shape), str(o.dtype))
+             for o in gc.get_objects()
+             if isinstance(o, torch.Tensor) and o.is_cuda]
+    return sorted(found, reverse=True)[:n]
+
+
+def _train_point(arch: str, n_layers: int, remat: str, smi: str,
+                 keep=None) -> tuple:
+    """One full-width point through the train CLI (``main``), 4 steps,
+    the last under ``torch.profiler``, with ``get_config`` cut to
+    ``n_layers`` and every kernel's launch count from 0.  ``keep(cfg,
+    state)``, if given, runs on the trained state before it is freed.
+    Returns the point's record and keep's result."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import count_params, model_specs
+
+    full = train_cli.get_config
+
+    def cut(name):
+        return dataclasses.replace(full(name), n_layers=n_layers)
+    cfg = cut(arch)
+    counts = cfg.param_counts()
+    n_params = count_params(model_specs(cfg))
+    state_gb = 4 * 4 * n_params / 1e9
+    log(f"[train_families] {arch} at full width, {n_layers} of "
+        f"{full(arch).n_layers} layers, remat {remat!r}: {n_params:,} "
+        f"parameters ({counts['active']:,} active a token), f32 parameters, "
+        f"gradients and two moments {state_gb:.2f} GB; device memory held "
+        f"before: {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    text = io.StringIO()
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    train_cli.get_config = cut
+    try:
+        def cli():
+            with contextlib.redirect_stdout(text):
+                return train_cli.main(["--arch", arch, "--steps", "4",
+                                       "--remat", remat])
+        out, steps, peak = _run_steps("train_families", arch, cli,
+                                      counts["active"], smi, profile_at=3)
+    finally:
+        train_cli.get_config = full
+    # the path's launches, read before a check launches a kernel
+    launches = {name: e.launches for name, e in entries.items()}
+    kept = keep(cfg, out["state"]) if keep is not None else None
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = steps[1:3]
+    record = {"n_layers": n_layers, "remat": remat, "n_params": n_params,
+              "n_active": counts["active"], "state_gb": state_gb,
+              "steps": steps, "peak_gb": peak, "path_launches": launches,
+              "step_s": [s["s"] for s in timed],
+              "tokens_per_s": [s["tokens"] / s["s"] for s in timed],
+              "model_flops_share": [s["model_tflops"] / BF16_PEAK_TFLOPS
+                                    for s in timed],
+              "profile": steps[3]["profile"],
+              "final_printed": text.getvalue().startswith("final: {")}
+    return record, kept
+
+
+def _router_stream_check(cfg, state) -> dict:
+    """(d): phi3.5-moe's first layer's router stream in a training
+    forward of the point's trained weights (the CLI's next batch, one
+    group of 1024 tokens) through the CUDA dispatch kernel against the
+    registry's ``ref``, bit-equal."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.moe_dispatch import ops as D
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64, global_batch=16,
+                     seed=0)
+    streams, arbiter = [], M.arbiter_positions
+
+    def record(top_e, n_experts):
+        streams.append(top_e)
+        return arbiter(top_e, n_experts)
+    M.arbiter_positions = record
+    try:
+        with torch.no_grad():
+            T.loss_fn(cfg, RunConfig(remat="none", attn_impl="dense"),
+                      state.params, ds.batch(4, device="cuda"))
+    finally:
+        M.arbiter_positions = arbiter
+    top_e = streams[0]
+    g, s_len, k = top_e.shape
+    req = top_e.permute(0, 2, 1).reshape(g, k * s_len)
+    cap = M.capacity(cfg, s_len)
+    want_pos, want_kept = registry.get("moe_dispatch").ref(
+        None, req, cfg.n_experts, capacity=cap)
+    D.DISPATCH.launches = 0
+    pos_k, kept_k = D.moe_dispatch_positions(req[0], cfg.n_experts, cap)
+    torch.cuda.synchronize()
+    n_launch = D.DISPATCH.launches
+    same = (torch.equal(pos_k, want_pos[0])
+            and torch.equal(kept_k, want_kept[0]))
+    err = (pos_k.long() - want_pos[0].long()).abs().max().item()
+    log(f"[train_families] (d) {cfg.name} first MoE layer's router stream "
+        f"in a training forward ({g} group of {s_len} tokens x top-{k} = "
+        f"{k * s_len} requests over {cfg.n_experts} experts, capacity {cap}, "
+        f"{int((~want_kept[0]).sum())} dropped): moe_dispatch_positions "
+        f"({n_launch} launch) against the registry's ref: positions and "
+        f"kept equal {same}, max |diff| {err}")
+    if g != 1 or not same or n_launch != 1:
+        raise AssertionError("[train_families] (d) the dispatch kernel "
+                             "disagrees with the training router's ref")
+    return {"requests": k * s_len, "capacity": cap, "launches": n_launch,
+            "dropped": int((~want_kept[0]).sum()), "max_abs_err": err}
+
+
+def _falcon_scan_grad_check(cfg, state) -> dict:
+    """(c): falcon's layer 0 (the point's trained weights) at full width
+    in float32 on the card over PROMPT tokens: the gradient of sum(y * w)
+    with respect to ``in_proj`` and ``A_log`` through ``mamba_prefill``
+    (one chunk) against the same through PROMPT ``mamba_decode`` steps,
+    each within SCAN_GRAD_TOL of its largest magnitude; and the bytes one
+    layer's forward keeps for the backward at the CLI's 16 x 64 (every
+    saved tensor's storage once)."""
+    import torch
+
+    from repro_torch.models import ssm as SS
+    from repro_torch.models import transformer as T
+
+    p = {k: v.detach().clone() for k, v in
+         T.superblock_params(state.params, 0, 0)["mixer"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = 0.1 * torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen,
+                          device="cuda")
+    w = torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen,
+                    device="cuda")
+    names = ("in_proj", "A_log")
+
+    def grads(run):
+        q = {k: (v.requires_grad_(True) if k in names else v)
+             for k, v in ((k, v.clone()) for k, v in p.items())}
+        y = run(q)
+        return torch.autograd.grad((y * w).sum(), [q[k] for k in names])
+
+    def recurrent(q):
+        cache = {"h": torch.zeros((BATCH, cfg.d_inner, cfg.ssm_state),
+                                  device="cuda"),
+                 "conv": torch.zeros((BATCH, cfg.ssm_conv - 1, cfg.d_inner),
+                                     device="cuda")}
+        ys = []
+        for t in range(PROMPT):
+            y, cache = SS.mamba_decode(cfg, q, x[:, t:t + 1], cache)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+    with _fp32_matmuls():
+        scan = grads(lambda q: SS.mamba_prefill(cfg, q, x)[0])
+        steps = grads(recurrent)
+    out = {}
+    for name, a, b in zip(names, scan, steps):
+        diff, scale = (a - b).abs().max().item(), b.abs().max().item()
+        out[name] = {"max_abs": diff, "scale": scale}
+        if not diff <= SCAN_GRAD_TOL * scale or not scale > 0:
+            raise AssertionError(f"[train_families] (c) d/d {name} through "
+                                 f"the scan is off the recurrence: max "
+                                 f"|diff| {diff:.3g} of {scale:.3g}")
+
+    # the bytes a layer keeps for its backward, at the CLI's batch, bf16
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = max(seen.get(st.data_ptr(), 0), st.nbytes())
+        # a detached alias: the graph holding ``t`` itself (an op's saved
+        # output) would be a reference cycle gc cannot free
+        return t.detach()
+    xb = torch.randn((16, 64, cfg.d_model), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    q = {k: v.requires_grad_(True) for k, v in p.items()}
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, _ = SS.mamba_prefill(cfg, q, xb)
+    saved_gb = sum(seen.values()) / 1e9
+    del y, q, seen
+    log(f"[train_families] (c) falcon-mamba-7b layer 0 at full width, "
+        f"float32 on the card, {BATCH} x {PROMPT} tokens: d sum(y*w) / d "
+        + ", ".join(f"{k} max |diff| {v['max_abs']:.3g} of {v['scale']:.3g}"
+                    for k, v in out.items())
+        + f" through the scan against {PROMPT} recurrent steps (tolerance "
+        f"{SCAN_GRAD_TOL} of the largest); one Mamba mixer's forward at 16 x "
+        f"64 keeps {saved_gb:.3f} GB for its backward (bf16 compute)")
+    out["saved_gb_a_layer_16x64"] = saved_gb
+    return out
+
+
+def _train_smokes() -> dict:
+    """(b): each non-dense smoke config's float32 train step on the card
+    against the same step on the host (TF32 off): loss rtol 1e-5, aux
+    within 1e-6, grad_norm rtol 1e-4, the updated parameters and moments
+    within rtol 1e-4 / atol 1e-6."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+
+    rc = RunConfig(remat="none", attn_impl="dense", compute_dtype="float32",
+                   warmup_steps=2, learning_rate=3e-3)
+    out = {}
+    with _fp32_matmuls():
+        for arch in TRAIN_SMOKES:
+            cfg = get_smoke_config(arch)
+            ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32,
+                             global_batch=4, seed=3, branching=2,
+                             frontend_tokens=cfg.n_frontend_tokens
+                             if cfg.frontend else 0, d_model=cfg.d_model)
+            met_c, met_h, cmp = _card_vs_host_step(cfg, rc, ds)
+            log(f"[train_families] (b) {cfg.name} float32 step, card vs "
+                f"host: loss {float(met_c['loss']):.9g} vs "
+                f"{float(met_h['loss']):.9g} (rel {cmp['loss_rel']:.3g}), "
+                f"aux {float(met_c['aux']):.9g} vs {float(met_h['aux']):.9g}"
+                f", grad_norm rel {cmp['grad_norm_rel']:.3g}; params, m, "
+                f"v: max(|diff| - 1e-4 |host|) {cmp['excess']:.3g}")
+            if not (cmp["loss_rel"] <= 1e-5 and cmp["aux_abs"] <= 1e-6
+                    and cmp["grad_norm_rel"] <= 1e-4
+                    and cmp["excess"] <= 1e-6):
+                raise AssertionError(f"[train_families] (b) {cfg.name}: the "
+                                     f"card's step differs from the host's")
+            out[arch] = cmp
+    return out
+
+
+def phase_train_families(smi: str) -> dict:
+    """Training and scoring the MoE, SSM, hybrid and frontend families on
+    the card (slice 5b), after every earlier model is freed: (a) the train
+    CLI at full width of phi3.5-moe (2 layers), falcon-mamba-7b (24
+    layers, remat "full") and musicgen-medium (48 layers, 256 audio
+    frames ahead of 64 tokens), 4 steps each, the first apart and the
+    last profiled: finite losses and gradient norms above 0; (b) the six
+    non-dense smoke configs' float32 step, card against host; (c)
+    falcon's layer 0, the scan's gradient against the recurrence's; (d)
+    phi3.5-moe's training router stream through the dispatch kernel.  No
+    kernel of the seven is on the path (its launches are counted)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"[train_families] device memory held before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; TF32 matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    keeps = {"phi3.5-moe-42b-a6.6b": _router_stream_check,
+             "falcon-mamba-7b": _falcon_scan_grad_check}
+    points, checks = {}, {}
+    for arch, n_layers, remat in TRAIN_POINTS:
+        held = torch.cuda.memory_allocated()
+        rec, kept = _train_point(arch, n_layers, remat, smi, keeps.get(arch))
+        left = torch.cuda.memory_allocated() - held
+        rec["left_allocated_gb"] = left / 1e9
+        if left > 1e8:
+            log(f"[train_families] {arch} left {left / 1e9:.3f} GB "
+                f"allocated; the largest CUDA tensors gc can see: "
+                f"{_live_cuda_tensors()}")
+        if arch in keeps:
+            rec["check"] = kept
+        points[arch] = rec
+        steps = rec["steps"]
+        checks[f"(a) {arch}: 4 steps, finite loss and grad_norm > 0"] = (
+            len(steps) == 4 and all(
+                np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                and s["grad_norm"] > 0 for s in steps))
+        checks[f"(a) {arch}: aux > 0 exactly with experts"] = all(
+            np.isfinite(s["aux"]) and (s["aux"] > 0) == (arch.startswith(
+                "phi3.5")) for s in steps)
+        checks[f"(a) {arch}: final printed"] = rec["final_printed"]
+        checks[f"(a) {arch}: no kernel on the path"] = not any(
+            rec["path_launches"].values())
+        log(f"[train_families] {arch}: steps 1-2 "
+            + ", ".join(f"{t:.4f} s" for t in rec["step_s"])
+            + "; tokens/s " + ", ".join(f"{t:.1f}" for t in
+                                        rec["tokens_per_s"])
+            + "; 6·N_active·positions " + ", ".join(
+                f"{100 * m:.2f} %" for m in rec["model_flops_share"])
+            + f" of the bf16 peak; peak {rec['peak_gb']:.3f} GB; profiled "
+            f"step busy {100 * rec['profile']['busy_share']:.1f} % ({smi})")
+    smokes = _train_smokes()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[train_families] phase wall {wall:.2f} s; device memory held "
+        f"after: {torch.cuda.memory_allocated() / 1e9:.3f} GB ({smi}); "
+        f"checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"train_families checks failed: {checks}")
+    router = points["phi3.5-moe-42b-a6.6b"]["check"]
+    return {"points": points, "smokes": smokes, "checks": checks,
+            "wall_s": wall, "router_dispatch": router,
+            "router_launches": router["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3706,6 +4097,9 @@ def main() -> int:
     # the families' full-width points need the card's memory: the train
     # phase freed its models
     record["families"] = phase_families(smi)
+    # the training points need the card's memory: the families phase
+    # freed its models
+    record["train_families"] = phase_train_families(smi)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda
@@ -3810,17 +4204,22 @@ def main() -> int:
         "source": "src/repro_torch/csrc/moe_dispatch.cu",
         "replaces": replaces["moe_dispatch"],
         "launches": record["bench"]["launches"]["moe_dispatch"],
-        # the bench CLI's launches are the path's; the families phase's
-        # one launch on jamba's router stream is held to the router's ref
+        # the bench CLI's launches are the path's; the families and
+        # train_families phases' one launch each on jamba's serving and
+        # phi3.5-moe's training router stream is held to the router's ref
         "launches_by_path": {
             "bench": record["bench"]["launches"]["moe_dispatch"],
             "families_router_check":
-                record["families"]["router_dispatch"]["launches"]},
+                record["families"]["router_dispatch"]["launches"],
+            "train_families_router_check":
+                record["train_families"]["router_launches"]},
         "max_abs_err": max(record["dispatch"]["max_abs_err"]["moe_dispatch"],
                            record["dispatch_times"]["max_abs_err"][
                                "moe_dispatch"],
                            bench_err["moe_dispatch"],
                            record["families"]["router_dispatch"][
+                               "max_abs_err"],
+                           record["train_families"]["router_dispatch"][
                                "max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})

@@ -1,7 +1,8 @@
 """MusicGen-medium — decoder-only over EnCodec tokens [arXiv:2306.05284].
 Backbone only: the EnCodec frontend is a stub of precomputed frame
-embeddings, which the port's model code does not run yet (it refuses
-modality frontends before any weight is made)."""
+embeddings, an input that comes before the tokens in training and
+scoring (``SyntheticLM`` makes them); the serving path passes none, so
+the serve CLI refuses this config."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

@@ -1,7 +1,8 @@
 """Phi-3-vision 4.2B — phi3-mini backbone + CLIP frontend
 [hf:microsoft/Phi-3-vision-128k-instruct].  Backbone only: the vision tower is
-a stub of precomputed patch embeddings, which the port's model code does not
-run yet (it refuses modality frontends before any weight is made)."""
+a stub of precomputed patch embeddings, an input that comes before the
+tokens in training and scoring (``SyntheticLM`` makes them); the serving
+path passes none, so the serve CLI refuses this config."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.launch.serve import no_frontend_message
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving.engine import ServeEngine
 
@@ -42,7 +43,7 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch)
     if cfg.frontend:
-        raise SystemExit("serving example targets text-only archs")
+        ap.error(no_frontend_message(cfg))
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = init_tree(model_specs(cfg), gen, device=args.device)

@@ -8,9 +8,9 @@ Presets:
                     drops visibly toward the chain entropy.
   100m            — ~100M-param model, sized for the card.
 
-``--arch <id> --smoke`` trains that architecture's reduced config (the
-dense families; training the MoE, SSM, hybrid and modality families is
-ROADMAP item 21b and refused before any weight is made).
+``--arch <id> --smoke`` trains that architecture's reduced config, any of
+the ten: dense, MoE, SSM, hybrid, and the audio and vision configs, whose
+frontend embeddings ``SyntheticLM`` makes.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm [--preset tiny]
           [--arch llama3.2-1b --smoke] [--steps 200] [--ckpt DIR]

@@ -30,7 +30,9 @@ healthy one.
 Every text family serves: dense, MoE (mixtral, phi3.5-moe), SSM
 (falcon-mamba: no attention layer, so no KV pool and a 0-cycle KV trace)
 and hybrid (jamba: Mamba and attention layers, MoE FFNs).  The audio and
-vision frontends are refused before any weight is made (ROADMAP item 21b).
+vision configs are refused before any weight is made: the serving path
+passes no frontend embeddings, and their models need them ahead of the
+tokens (the reference's ``_embed`` asserts as much).
 
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --cost
 
@@ -77,6 +79,12 @@ def run_batch(args, engine, cfg):
         for a, s, f in zip(archs, cs, cf):
             print(f"{a.name:<12}{s.total_cycles:>9}{f.total_cycles:>10}"
                   f"{f.time_us(a.fmax_mhz):>9.2f}")
+
+
+def no_frontend_message(cfg) -> str:
+    return (f"--arch {cfg.name}: the serving path passes no frontend "
+            f"embeddings, and this model needs {cfg.n_frontend_tokens} "
+            f"({cfg.frontend}) before its tokens; serve a text-only config")
 
 
 def _cost_table(trace, extra_line: str, device):
@@ -180,6 +188,8 @@ def main(argv=None):
                  "lives on the banked page pool)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend:
+        ap.error(no_frontend_message(cfg))
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_tree(model_specs(cfg), gen, device=args.device)

@@ -5,9 +5,15 @@ data on the CUDA card (port of ``repro.launch.train``).
   python -m repro_torch.launch.train --arch llama3.2-1b --smoke --steps 3 \
       --device cpu
 
-The flags are the reference's.  ``--device cpu`` trains on the host (the
-tests do); without it the run needs the card and fails where there is none.
-``--mesh`` (multi-device training) is ROADMAP item 27 and is refused.
+Every config trains: dense, MoE (its aux loss in the total), SSM, hybrid,
+and the audio and vision configs on ``SyntheticLM``'s frontend
+embeddings.  The flags are the reference's.  ``--device cpu`` trains on
+the host (the tests do); without it the run needs the card and fails
+where there is none.  ``--mesh`` (multi-device training) is ROADMAP item
+27 and is refused.
+
+  python -m repro_torch.launch.train --arch falcon-mamba-7b --smoke \
+      --steps 2 --device cpu
 """
 from __future__ import annotations
 

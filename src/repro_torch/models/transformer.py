@@ -1,19 +1,20 @@
 """Model assembly (port of ``repro.models.transformer``): parameter specs
-for every block kind (attention or Mamba mixer, dense or MoE FFN);
-prefill, single-token decode and the block-level decode with its
-``attn_fn`` hook (where the serving engine plugs in the banked paged-KV
-attention) for the dense, MoE, SSM and hybrid families; the training
-forward (``apply_block``, ``hidden_states``, ``forward``) with its remat
-policies and the loss (``loss_fn``, both cross-entropy forms) for the
-dense family.
+for every block kind (attention or Mamba mixer, dense or MoE FFN); the
+training forward (``apply_block``, ``hidden_states``, ``forward``) with its
+remat policies and the loss (``loss_fn``, both cross-entropy forms, the
+MoE aux term); prefill, single-token decode and the block-level decode
+with its ``attn_fn`` hook (where the serving engine plugs in the banked
+paged-KV attention), for the dense, MoE, SSM, hybrid, audio and vision
+families.
 
 The layer stack is ``n_superblocks`` repetitions of the config's
 ``block_pattern()``, with parameters stacked over superblocks as in the
 reference; the reference scans them, the port loops.  The training forward
 unbinds each stacked leaf once, so its gradient is one ``stack`` a leaf.
-Training an SSM mixer or a MoE FFN raises ``NotImplementedError``, and
-modality frontends are refused in ``model_specs``, before any weight is
-made: they are ROADMAP item 21b.
+A modality frontend (audio frames, vision patches) is an input, not a
+parameter: its (B, F, D) embeddings come before the token embeddings in
+the training forward and the prefill, and the loss scores the text region
+only.
 """
 from __future__ import annotations
 
@@ -30,34 +31,6 @@ from repro_torch.models.params import Leaf, fan_in_scale, stack_specs
 
 AUX_LOSS_COEF = 0.01
 
-_LATER = ("{what} are not ported yet: training and scoring the MoE, SSM "
-          "and hybrid families, and the audio and vision frontends, are "
-          "ROADMAP item 21b")
-
-
-def _no_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise NotImplementedError(_LATER.format(
-            what=f"{cfg.name}: modality frontends"))
-
-
-def train_dense_only(cfg: ModelConfig) -> None:
-    """Refuse to train a config with an SSM mixer or a MoE FFN (or a
-    frontend), before any weight is made."""
-    _no_frontend(cfg)
-    for kind, is_moe in cfg.block_pattern():
-        _dense_only(kind, is_moe)
-
-
-def _dense_only(kind: str, is_moe: bool) -> None:
-    if kind != "attn":
-        raise NotImplementedError(_LATER.format(
-            what=f"training through {kind!r} mixer blocks"))
-    if is_moe:
-        raise NotImplementedError(_LATER.format(
-            what="training through MoE FFN blocks"))
-
-
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
     p = {"ln1": L.rmsnorm_spec(cfg.d_model),
          "ln2": L.rmsnorm_spec(cfg.d_model),
@@ -70,7 +43,6 @@ def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    _no_frontend(cfg)
     vp, d = cfg.padded_vocab(), cfg.d_model
     specs = {
         "embed": Leaf((vp, d), scale=1.0),
@@ -102,16 +74,23 @@ def superblock_params(params: dict, j: int, sb: int) -> dict:
 
 def apply_block(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
                 kind: str, is_moe: bool, j: int, positions=None):
-    """Pre-norm residual block; returns (x, aux_loss)."""
-    _dense_only(kind, is_moe)
+    """Pre-norm residual block; returns (x, aux_loss).  An SSM mixer's
+    state cache is dropped; a MoE FFN's load-balance loss is the aux."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h = L.attention(cfg, rc, p["mixer"], h, window=_block_window(cfg, j),
-                    positions=positions)
+    if kind == "attn":
+        h = L.attention(cfg, rc, p["mixer"], h,
+                        window=_block_window(cfg, j), positions=positions)
+    else:
+        h, _ = S.mamba_prefill(cfg, p["mixer"], h)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
-    h = L.mlp(cfg, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if is_moe:
+        h, aux = M.moe(cfg, rc, p["ffn"], h)
+    else:
+        h = L.mlp(cfg, p["ffn"], h)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
     return x + h, aux
@@ -154,11 +133,12 @@ def _unbind_superblocks(tree, n: int) -> list:
 
 
 def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
-                  tokens: torch.Tensor):
-    """Shared trunk: final-norm'd hidden states (B, S, D) + MoE aux."""
-    train_dense_only(cfg)
+                  tokens: torch.Tensor, frontend=None):
+    """Shared trunk: final-norm'd hidden states (B, S, D) + MoE aux (the
+    sum over every block of every superblock).  S counts the frontend's
+    positions, which come first."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _embed(cfg, params, tokens, dtype)
+    x = _embed(cfg, params, tokens, frontend, dtype)
     pattern = cfg.block_pattern()
     positions = torch.arange(x.shape[1], device=x.device)
 
@@ -182,9 +162,9 @@ def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
 
 
 def forward(cfg: ModelConfig, rc: RunConfig, params: dict,
-            tokens: torch.Tensor):
+            tokens: torch.Tensor, frontend=None):
     """Training/scoring forward pass -> (logits (B, S, Vp), aux_loss)."""
-    x, aux = hidden_states(cfg, rc, params, tokens)
+    x, aux = hidden_states(cfg, rc, params, tokens, frontend)
     return _unembed(cfg, params, x), aux
 
 
@@ -214,16 +194,22 @@ def _sharded_ce(cfg: ModelConfig, params: dict, h: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
-    """Next-token cross-entropy (+ MoE aux); returns (loss + aux term,
-    {"loss", "aux"})."""
+    """Next-token cross-entropy (+ MoE aux) over the text region; returns
+    (loss + aux term, {"loss", "aux"}).  With a frontend of F positions
+    the prediction at position F - 1 + t scores text token t, the first
+    one included."""
     tokens = batch["tokens"]
-    target = tokens[:, 1:]
+    f = cfg.n_frontend_tokens if cfg.frontend else 0
+    target = tokens if f else tokens[:, 1:]
     if rc.ce_impl == "sharded":
-        h, aux = hidden_states(cfg, rc, params, tokens)
-        loss = _sharded_ce(cfg, params, h[:, :-1], target)
+        h, aux = hidden_states(cfg, rc, params, tokens,
+                               batch.get("frontend"))
+        loss = _sharded_ce(cfg, params, h[:, f - 1:-1] if f else h[:, :-1],
+                           target)
     else:
-        logits, aux = forward(cfg, rc, params, tokens)
-        logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+        logits, aux = forward(cfg, rc, params, tokens, batch.get("frontend"))
+        pred = logits[:, f - 1:-1] if f else logits[:, :-1]
+        logp = F.log_softmax(pred.float(), dim=-1)
         loss = -torch.gather(logp, -1, target[..., None])[..., 0].mean()
     return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux": aux}
 
@@ -259,12 +245,30 @@ def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
     return x + h, new_cache
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-           dtype) -> torch.Tensor:
-    _no_frontend(cfg)
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """The token rows of the embedding in ``dtype`` (scaled where the
+    config says): a decode step's input, which no frontend precedes."""
     # rows of the cast table == cast rows of the table: gather first, so
     # the whole embedding is never cast per call
     x = params["embed"][tokens].to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    return x
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
+           dtype) -> torch.Tensor:
+    """A sequence's input (B, F + S, D): a frontend config's (B, F, D)
+    ``frontend`` embeddings, then the tokens' rows, the whole scaled where
+    the config says.  A frontend config refuses ``frontend=None``, as the
+    reference's assert does."""
+    if not cfg.frontend:
+        return _embed_tokens(cfg, params, tokens, dtype)
+    if frontend is None:
+        raise ValueError(f"{cfg.name} needs frontend embeddings")
+    x = torch.cat([frontend.to(dtype), params["embed"][tokens].to(dtype)],
+                  dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return x
@@ -293,14 +297,15 @@ def _stack_caches(parts: dict) -> dict:
 
 
 def prefill(cfg: ModelConfig, rc: RunConfig, params: dict,
-            tokens: torch.Tensor):
+            tokens: torch.Tensor, frontend=None):
     """Inference prefill: returns (last-position logits (B, 1, Vp), decode
     cache ``{"blocks": {"b{j}": ...}}``), each leaf stacked over
     superblocks: an attention block's {"k", "v"} (n_superblocks, B, t, KV,
     HD), t = S or the window; an SSM block's {"h" (n_superblocks, B, Di,
-    N) float32, "conv" (n_superblocks, B, K-1, Di)}."""
+    N) float32, "conv" (n_superblocks, B, K-1, Di)}.  S counts a frontend
+    config's ``frontend`` positions, which come first."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _embed(cfg, params, tokens, dtype)
+    x = _embed(cfg, params, tokens, frontend, dtype)
     pattern = cfg.block_pattern()
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
@@ -339,7 +344,7 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, params: dict,
     ``cache`` as ``prefill`` returns it (attention caches padded to the
     decode buffer).  Returns (logits (B, 1, Vp), new cache)."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _embed(cfg, params, token, dtype)
+    x = _embed_tokens(cfg, params, token, dtype)
     pattern = cfg.block_pattern()
     new = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):

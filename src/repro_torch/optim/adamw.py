@@ -13,7 +13,11 @@ storage with a leaf of ``v``.
 
 There is no ZeRO-1 here (the reference's ``zero1`` retags logical
 sharding axes): the port trains on one device, and its specs carry no
-axes.
+axes.  A leaf above ``UPDATE_SLICE`` elements is updated in slices along
+its first axis (without int8 EF, whose scale is the whole leaf's): the
+same elementwise arithmetic, with one slice's temporaries, about four of
+its size, where the whole leaf's would not fit beside the state (a
+stacked Mamba ``in_proj`` of 24 layers at full width is 6.4 GB).
 """
 from __future__ import annotations
 
@@ -22,6 +26,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models.params import Leaf, leaves, tree_map
+
+
+#: the largest leaf, in elements, that the update takes in one piece
+UPDATE_SLICE = 1 << 28
 
 
 class OptState(NamedTuple):
@@ -69,6 +77,15 @@ def adamw_update(params, grads, opt: OptState, step, *, lr, beta1=0.9,
     bc2 = 1.0 - torch.pow(beta2, stepf)
 
     def upd(p, g, m, v, e):
+        n = min(-(-p.numel() // UPDATE_SLICE), p.shape[0] if p.dim() else 1)
+        if n > 1 and e is None:
+            for part in zip(*(t.tensor_split(n) for t in (p, g, m, v))):
+                upd_piece(*part, None)
+        else:
+            upd_piece(p, g, m, v, e)
+        return p
+
+    def upd_piece(p, g, m, v, e):
         g = g.float() * clip
         if e is not None:
             g, residual = _quantize_int8_ef(g, e)
@@ -78,7 +95,6 @@ def adamw_update(params, grads, opt: OptState, step, *, lr, beta1=0.9,
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         update = update + weight_decay * p.float()
         p.copy_(p.float() - lr * update)
-        return p
 
     if compression == "int8_ef":
         tree_map(upd, params, grads, opt.m, opt.v, opt.ef)

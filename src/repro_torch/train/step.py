@@ -29,10 +29,8 @@ class TrainState(NamedTuple):
 
 
 def train_state_specs(cfg: ModelConfig, rc: RunConfig) -> TrainState:
-    """Leaf-spec tree for the whole TrainState (init + checkpoint).
-    Configs with SSM mixers or MoE FFNs are refused here, before any
-    weight is made (ROADMAP item 21b)."""
-    T.train_dense_only(cfg)
+    """Leaf-spec tree for the whole TrainState (init + checkpoint), for
+    every block kind; a frontend's embeddings are inputs, not leaves."""
     pspecs = T.model_specs(cfg)
     return TrainState(
         step=Leaf((), init="zeros"),

@@ -8,7 +8,8 @@ autotune CLI, the cost bench, a scheduled serving day (``serve
 retries; ``serve --fault-bank``), the serving bench's ``--check`` and
 ``--chaos --check``, a preempted and resumed day, the model-traffic
 bench's ``--smoke --check``, the quickstart, and training (the train CLI
-and the train example) run with all three blocked from import."""
+and the train example; a hybrid model's train step) run with all three
+blocked from import."""
 import ast
 import os
 import subprocess
@@ -378,6 +379,26 @@ def test_training_runs_with_the_reference_blocked(module, argv, tail):
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
     assert any(ln.startswith(tail) for ln in out.stdout.splitlines())
+
+
+def test_cpu_hybrid_train_step_runs_with_jax_and_repro_blocked():
+    """One train step of the jamba smoke config (Mamba, attention and MoE
+    layers: the backward through the scan and the dispatch) on the host,
+    through the train CLI, with JAX, ``repro`` and ``benchmarks``
+    blocked: its loss and grad_norm are finite and its aux above 0."""
+    out = _run_blocked(
+        "import math\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # see _torch_train_parity.one_torch_thread\n"
+        "from repro_torch.launch import train\n"
+        "final = train.main(['--arch', 'jamba-v0.1-52b', '--smoke',"
+        " '--steps', '1', '--global-batch', '2', '--seq', '32',"
+        " '--device', 'cpu'])['final']\n"
+        "assert all(math.isfinite(final[k]) for k in ('loss',"
+        " 'grad_norm')), final\n"
+        "assert final['aux'] > 0 and final['grad_norm'] > 0, final\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
 
 
 def test_default_device_is_the_card():

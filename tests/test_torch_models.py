@@ -127,25 +127,46 @@ def test_prefill_and_dense_decode_logits():
 
 
 def test_non_dense_families_name_their_slice():
-    """MoE and SSM configs now get their specs (serving runs them); the
-    training forward, the loss and the train state refuse them naming
-    ROADMAP item 21b, before any weight; frontends stay refused in
-    ``model_specs``."""
+    """MoE, SSM and frontend configs now train and score (ROADMAP item
+    21b is done): ``forward``, ``hidden_states``, ``loss_fn`` and
+    ``init_train_state`` run on them; a frontend config given no frontend
+    raises with the reference's message, as the reference's assert does,
+    and the serve path's token-only decode needs none."""
     from repro_torch.train.step import init_train_state
     moe = dataclasses.replace(CFG, n_experts=4, experts_per_token=2)
     ssm = dataclasses.replace(CFG, family="ssm", n_heads=0, ssm_state=4)
+    audio = dataclasses.replace(CFG, frontend="audio_frames",
+                                n_frontend_tokens=3)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    for cfg, what in ((moe, "MoE"), (ssm, "'ssm' mixer")):
-        assert count_params(model_specs(cfg)) > 0
-        for call in (lambda: PT.forward(cfg, PRC, {}, tokens),
-                     lambda: PT.hidden_states(cfg, PRC, {}, tokens),
-                     lambda: PT.loss_fn(cfg, PRC, {}, {"tokens": tokens}),
-                     lambda: init_train_state(cfg, PRC, None, "cpu")):
-            with pytest.raises(NotImplementedError, match="item 21b") as e:
-                call()
-            assert what in str(e.value)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        model_specs(dataclasses.replace(CFG, frontend="audio_frames"))
+    frontend = torch.ones((1, 3, CFG.d_model))
+    for cfg in (moe, ssm, audio):
+        state = init_train_state(cfg, PRC, torch.Generator().manual_seed(0),
+                                 "cpu")
+        fe = frontend if cfg.frontend else None
+        logits, aux = PT.forward(cfg, PRC, state.params, tokens, fe)
+        s = 7 if cfg.frontend else 4
+        assert logits.shape == (1, s, cfg.padded_vocab())
+        h, aux_h = PT.hidden_states(cfg, PRC, state.params, tokens, fe)
+        assert h.shape == (1, s, cfg.d_model) and float(aux_h) == float(aux)
+        assert (float(aux) > 0) == bool(cfg.n_experts)
+        batch = {"tokens": tokens, **({"frontend": fe} if cfg.frontend
+                                      else {})}
+        total, met = PT.loss_fn(cfg, PRC, state.params, batch)
+        assert torch.isfinite(total) and float(met["aux"]) == float(aux)
+    r_audio = dataclasses.replace(RCFG, frontend="audio_frames",
+                                  n_frontend_tokens=3)
+    with pytest.raises(AssertionError) as want:
+        RT.forward(r_audio, RRC, R_PARAMS, jnp.zeros((1, 4), jnp.int32),
+                   NO_AXES)
+    with pytest.raises(ValueError) as got:
+        PT.forward(audio, PRC, PARAMS, tokens)
+    assert str(got.value) == str(want.value) == (
+        f"{audio.name} needs frontend embeddings")
+    logits, _ = PT.decode_step(audio, PRC, PARAMS, tokens[:, :1], {
+        "blocks": {"b0": {h: torch.zeros((CFG.n_superblocks, 1, 4,
+                                          CFG.n_kv_heads, CFG.hd))
+                          for h in ("k", "v")}}}, torch.tensor(0))
+    assert logits.shape == (1, 1, CFG.padded_vocab())
 
 
 #: the reference layer tests' flash cases (``tests/test_layers.py``):

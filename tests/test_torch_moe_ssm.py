@@ -10,7 +10,10 @@ outputs within 2e-5 and the aux loss within rtol 1e-6 (float32 einsums
 summed in another order); the Mamba scan within rtol 2e-4 / atol 2e-5 and
 the conv window within rtol 1e-5 / atol 1e-6, the reference test's own
 tolerances (the doubling scan and XLA's associative scan pair the
-products in other orders)."""
+products in other orders).  Gradients (the MoE layers with capacity
+drops, the zero router's ties, the Mamba prefill at three chunk sizes)
+against ``jax.grad`` of the reference's within rtol 1e-4 and 1e-6 of each
+gradient's largest magnitude."""
 import dataclasses
 
 import jax
@@ -282,3 +285,99 @@ def test_mamba_prefill_cache_holds_no_chunk_states():
         assert leaf.is_contiguous()
         assert leaf.untyped_storage().nbytes() == (leaf.numel()
                                                    * leaf.element_size())
+
+
+# -- gradients against jax.grad ---------------------------------------------
+
+def _grads_close(got: dict, want: dict, atol_share=1e-6) -> None:
+    """Every gradient within rtol 1e-4 and ``atol_share`` of its largest
+    reference magnitude."""
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = np.asarray(want[name])
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=atol_share * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def _port_grads(fn, params: dict, x: np.ndarray) -> dict:
+    """d fn(params, x) / d (every parameter and x), on the port."""
+    leaves_ = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xt = torch.tensor(x, requires_grad=True)
+    total = fn(leaves_, xt)
+    names = sorted(leaves_)
+    grads = torch.autograd.grad(total, [leaves_[k] for k in names] + [xt])
+    return dict(zip(names + ["x"], grads))
+
+
+def _ref_grads(fn, params: dict, x: np.ndarray) -> dict:
+    g_p, g_x = jax.grad(fn, argnums=(0, 1))(params, jnp.asarray(x))
+    return {**g_p, "x": g_x}
+
+
+@pytest.mark.parametrize("impl", ["gshard", "scatter"])
+def test_moe_layer_grads_equal_the_reference(impl):
+    """The gradient of sum(y * w) + aux through ``moe_gshard`` /
+    ``moe_scatter`` with capacity drops (factor 0.5), to the router (by
+    the top-k weights and the load-balance loss), every expert and the
+    input, against ``jax.grad`` of the reference's layer."""
+    cfg = dataclasses.replace(CFG, capacity_factor=0.5)
+    rcfg = dataclasses.replace(RCFG, capacity_factor=0.5)
+    x = _x((2, 64, CFG.d_model), 8)
+    w = _x((2, 64, CFG.d_model), 9)
+    fn_p = PM.moe_gshard if impl == "gshard" else PM.moe_scatter
+    fn_r = RM.moe_gshard if impl == "gshard" else RM.moe_scatter
+
+    def port(p, xt):
+        y, aux = fn_p(cfg, p, xt)
+        return (y * torch.tensor(w)).sum() + aux
+
+    def ref(p, xj):
+        y, aux = fn_r(rcfg, p, xj, NO_AXES)
+        return (y * w).sum() + aux
+    kept = PM.arbiter_positions(PM._router(cfg, P_MOE, torch.tensor(
+        x).reshape(1, 128, -1))[0], cfg.n_experts) < PM.capacity(cfg, 128)
+    assert not kept.all()
+    _grads_close(_port_grads(port, P_MOE, x), _ref_grads(ref, R_MOE, x))
+
+
+def test_zero_router_tie_grads_equal_the_reference():
+    """A zero router ties every expert: the stable sort passes the
+    gradient to the k lowest ids' probabilities only, as ``jax.lax.top_k``
+    does, so the router's and the input's gradients equal the
+    reference's."""
+    p = dict(P_MOE, router=torch.zeros_like(P_MOE["router"]))
+    rp = dict(R_MOE, router=R_MOE["router"] * 0.0)
+    x = _x((1, 32, CFG.d_model), 3)
+    w = _x((1, 32, CFG.d_model), 10)
+
+    def port(q, xt):
+        y, aux = PM.moe_gshard(CFG, q, xt)
+        return (y * torch.tensor(w)).sum() + aux
+
+    def ref(q, xj):
+        y, aux = RM.moe_gshard(RCFG, q, xj, NO_AXES)
+        return (y * w).sum() + aux
+    got = _port_grads(port, p, x)
+    assert float(got["router"].abs().max()) > 0
+    _grads_close(got, _ref_grads(ref, rp, x))
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 32])
+def test_mamba_prefill_grads_equal_the_reference(chunk):
+    """The gradient of sum(y * w) + sum(h * v) through ``mamba_prefill``
+    (the doubling scan, the chunk loop, the causal conv, the SSM inputs)
+    to every SSM parameter and the input, against ``jax.grad`` of the
+    reference's at the same chunk."""
+    w = _x((2, 32, SSM_CFG.d_model), 11)
+    v = _x((2, SSM_CFG.d_inner, SSM_CFG.ssm_state), 12)
+
+    def port(p, xt):
+        y, c = PS.mamba_prefill(SSM_CFG, p, xt, chunk=chunk)
+        return (y * torch.tensor(w)).sum() + (c["h"] * torch.tensor(v)).sum()
+
+    def ref(p, xj):
+        y, c = RS.mamba_prefill(SSM_RCFG, p, xj, NO_AXES, chunk=chunk)
+        return (y * w).sum() + (c["h"] * v).sum()
+    _grads_close(_port_grads(port, P_SSM, X_SSM), _ref_grads(ref, R_SSM,
+                                                             X_SSM))

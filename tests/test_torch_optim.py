@@ -133,6 +133,46 @@ def test_adamw_updates_in_place_and_clips():
     assert float((1 - p2["w"]).abs().max()) <= 0.1 + 1e-6
 
 
+@pytest.mark.parametrize("compression", ["none", "int8_ef"])
+def test_adamw_updates_large_leaves_in_slices_bit_for_bit(monkeypatch,
+                                                          compression):
+    """A leaf above ``UPDATE_SLICE`` elements is updated in slices along
+    its first axis, giving the whole leaf's numbers bit for bit (a leaf
+    with int8 EF stays whole: its scale is the leaf's)."""
+    rng = np.random.default_rng(7)
+    shapes = {"w": (6, 5, 4), "b": (7,), "s": ()}
+
+    def run(slice_elems):
+        monkeypatch.setattr(PA, "UPDATE_SLICE", slice_elems)
+        p = {k: torch.tensor(rng_p[k]) for k in shapes}
+        g = {k: torch.tensor(rng_g[k]) for k in shapes}
+        opt = PA.OptState({k: torch.tensor(rng_m[k]) for k in shapes},
+                          {k: torch.tensor(rng_v[k]) for k in shapes},
+                          {k: torch.zeros(shapes[k]) for k in shapes}
+                          if compression == "int8_ef" else None)
+        seen = []
+        piece = torch.Tensor.tensor_split
+        monkeypatch.setattr(torch.Tensor, "tensor_split", lambda t, n: (
+            seen.append(n), piece(t, n))[1])
+        out = PA.adamw_update(p, g, opt, 3, lr=1e-2, grad_clip=1.0,
+                              compression=compression)
+        monkeypatch.undo()
+        return out, seen
+
+    rng_p, rng_g, rng_m = ({k: rng.standard_normal(s).astype(np.float32)
+                            for k, s in shapes.items()} for _ in range(3))
+    rng_v = {k: rng.uniform(0.5, 1.5, s).astype(np.float32) * 1e-4
+             for k, s in shapes.items()}
+    whole, seen = run(1 << 28)
+    assert seen == []
+    sliced, seen = run(8)
+    # "w" (120 elements) in one slice per row: p, g, m and v split six ways
+    assert seen == ([] if compression == "int8_ef" else [6] * 4)
+    for a, b in zip(jax.tree.leaves((whole[0], whole[1].m, whole[1].v)),
+                    jax.tree.leaves((sliced[0], sliced[1].m, sliced[1].v))):
+        assert torch.equal(a, b)
+
+
 def test_int8_ef_residual_conserves_gradient():
     g = np.array([0.001, -3.0, 2.5, 0.0], np.float32)
     e = np.array([0.01, 0.0, -0.02, 0.5], np.float32)

@@ -8,7 +8,7 @@ functional ``Memory`` equal the reference's on the reference tests' inputs
 random ones; ``python -m repro_torch.examples.quickstart`` prints what
 ``examples/quickstart.py`` prints, both run in this process; the ten model
 configurations equal the reference's field for field, the serving CLI
-refuses the modality frontends before it makes any weight, serves the
+and example refuse the modality frontends before they make any weight, serves the
 SSM, hybrid and MoE families with the reference CLI's lines, and the
 other dense configurations it builds give the reference's prefill
 logits."""
@@ -240,23 +240,30 @@ def test_ten_configs_equal_the_reference_field_for_field():
         PCF.get_config("no-such-arch")
 
 
-REFUSED = {"musicgen-medium": "modality frontends",
-           "phi-3-vision-4.2b": "modality frontends"}
+REFUSED = {"musicgen-medium": "16 (audio_frames)",
+           "phi-3-vision-4.2b": "16 (vision_patches)"}
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_serve_refuses_unported_families_before_any_weight(arch,
-                                                           monkeypatch):
-    """``launch/serve.py`` on a smoke config of a family the port's model
-    code does not run (the modality frontends): the refusal names ROADMAP
-    item 21 (21b) and comes before ``init_tree`` makes a weight."""
+                                                           monkeypatch,
+                                                           capsys):
+    """``launch/serve.py`` and ``examples/serve_lm.py`` on a smoke config
+    with a modality frontend: the serving path passes no frontend
+    embeddings (the reference's ``_embed`` asserts them), so both refuse,
+    saying so, before ``init_tree`` makes a weight."""
+    from repro_torch.examples import serve_lm
     from repro_torch.launch import serve
     made = []
-    monkeypatch.setattr(serve, "init_tree",
-                        lambda *a, **kw: made.append(a) or {})
-    with pytest.raises(NotImplementedError, match=REFUSED[arch]) as e:
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
-    assert "ROADMAP item 21" in str(e.value)
+    for module in (serve, serve_lm):
+        monkeypatch.setattr(module, "init_tree",
+                            lambda *a, **kw: made.append(a) or {})
+    for main, argv in ((serve.main, ["--smoke"]), (serve_lm.main, [])):
+        with pytest.raises(SystemExit):
+            main(["--arch", arch, "--device", "cpu"] + argv)
+        err = capsys.readouterr().err
+        assert "the serving path passes no frontend embeddings" in err
+        assert f"needs {REFUSED[arch]} before its tokens" in err
     assert not made
 
 

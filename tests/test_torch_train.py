@@ -6,7 +6,9 @@ rtol 1e-5, every leaf's gradient rtol 1e-4 / atol 1e-6), one
 ``make_train_step`` from the same ``TrainState`` at microbatches 1 and 2
 under each remat policy (rtol 1e-4 / atol 1e-6, as
 ``tests/test_runtime.py``), the trainer's learning, resume and int8-EF
-runs, and ``TrainState`` checkpoints across the packages."""
+runs, ``TrainState`` checkpoints across the packages, and the CLI's
+metrics on the six non-dense smoke configs against the reference CLI's
+(bfloat16 tolerances, ``CLI_RTOL``)."""
 import dataclasses
 import functools
 import os
@@ -292,15 +294,50 @@ def test_elastic_restore(tmp_path):
     assert not torch.equal(template.params["embed"], first.params["embed"])
 
 
+#: the CLI's metrics computed in bfloat16: 8 significant bits, an ulp of
+#: 2^-8 = 3.9e-3 relative.  The loss and the aux are means over many
+#: positions and hold within rtol 2e-3; the gradient norm after one
+#: update within 1e-2 (a routing near a tie can flip in bfloat16)
+CLI_RTOL = {"loss": 2e-3, "aux": 2e-3, "grad_norm": 1e-2}
+
+
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
                                   if get_config(a).family != "dense"])
-def test_non_dense_smoke_archs_name_item_21(arch):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        train_cli.main(["--arch", arch, "--smoke", "--steps", "1",
-                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        train_lm.main(["--arch", arch, "--smoke", "--steps", "1",
-                       "--device", "cpu"])
+def test_non_dense_smoke_archs_train_as_the_reference(arch, monkeypatch,
+                                                      capsys):
+    """``python -m repro_torch.launch.train --arch <id> --smoke --steps 2
+    --device cpu`` from the reference CLI's initial state (its
+    ``init_train_state`` from ``PRNGKey(0)``, carried across): the final
+    loss, aux and grad_norm against the reference CLI's (``CLI_RTOL``);
+    then ``examples/train_lm.py --arch <id> --smoke`` trains 25 steps on
+    its own weights and its loss falls."""
+    import ast
+    import sys
+
+    from _torch_train_parity import one_torch_thread
+    from repro.launch import train as r_cli
+    from repro_torch.train import trainer as TR
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--smoke",
+                                      "--steps", "2"])
+    r_cli.main()
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("final:")][-1]
+    want = ast.literal_eval(line[len("final:"):].strip())
+    start = jax.tree.map(np.asarray, r_init_state(
+        r_smoke(arch), RRun(), jax.random.PRNGKey(0)))
+    monkeypatch.setattr(TR, "init_train_state", lambda cfg, rc, gen, device:
+                        train_state_from_jax(cfg, rc, start, device))
+    with one_torch_thread():
+        got = train_cli.main(["--arch", arch, "--smoke", "--steps", "2",
+                              "--device", "cpu"])["final"]
+    for k, rtol in CLI_RTOL.items():
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+    monkeypatch.undo()
+    with one_torch_thread():
+        out = train_lm.main(["--arch", arch, "--smoke", "--steps", "25",
+                             "--batch", "4", "--seq", "32", "--device",
+                             "cpu"])
+    assert out["history"][-1]["loss"] < out["history"][0]["loss"]
 
 
 def test_cli_refuses_mesh_and_needs_the_card_by_default(capsys):
