@@ -202,7 +202,30 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                the kernels line;
  12. profile — ``torch.profiler`` over a short generation: device busy
                share and the ops that take the time;
- 13. train   — training (``repro_torch.launch.train``, the ``Trainer``),
+ 13. analysis — the analysis layer and its neighbours on the serving
+               engine: one more generation of the ``serve`` point through
+               the paired row kernels (the ``serve`` phase's launches and
+               tokens), its recorded stream valid under the trace
+               contract on 16B; each decode step's ``step_trace`` through
+               ``tune.online(engine, window=8)`` on the card and through
+               a host tuner (``device="cpu"``), the ``recommend()`` dicts
+               equal at every step and the last step's full rebuild equal
+               to its incremental re-price; the symbolic prover against
+               the card's ``cost_many`` (``cross_check``) over the
+               analysis CLI's 13 memories on whole decode steps of
+               llama3.2-1b and jamba-v0.1-52b at full width (batch 4,
+               prompt 64) and on Tables II and III (transpose 32, 64,
+               128; FFT 4096 at radix 4, 8, 16), the two headline facts
+               re-proved; the analysis CLI with no arguments (lint of
+               ``src``, prove and check on the card); and the paged
+               cache's plain-torch oracle (``append_token`` /
+               ``gather_kv``) against ``gather_pages`` / ``scatter_pages``
+               on llama3.2-1b's KV shape, bit-equal (those check launches
+               stand apart from the path's in the kernels line); gemma2's
+               smoke config with ``embed_scale`` served in float32 on the
+               card and the host, paged and dense, tokens equal; host and
+               card times of each beside the card's name and power limit;
+ 14. train   — training (``repro_torch.launch.train``, the ``Trainer``),
                after the serving engine is freed: the CLI's default run at
                full width and depth (llama3.2-1b, 4 steps of 16 x 64,
                dense attention; finite losses, the WSD warmup's lr, the
@@ -217,7 +240,7 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                one float32 step on the card against the host; each step's
                time, tokens/s and peak device memory beside the card's
                name and power limit; no kernel of the seven launched;
- 14. families — serving the MoE, SSM and hybrid families, after every
+ 15. families — serving the MoE, SSM and hybrid families, after every
                earlier model is freed: jamba-v0.1-52b at full width cut to
                one superblock (8 layers: 7 Mamba, 1 attention, MoE on 4)
                and falcon-mamba-7b at full width and depth (64 Mamba
@@ -236,7 +259,7 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                ``ref``; the four families' smoke configs in float32, card
                against host: tokens equal, logits within 1e-5 of the
                largest;
- 15. train_families — training the MoE, SSM, hybrid and frontend
+ 16. train_families — training the MoE, SSM, hybrid and frontend
                families, after every earlier model is freed (and freeing
                its own): the train CLI (``main``) at full width of
                phi3.5-moe-42b-a6.6b cut to 2 of 32 layers (remat none),
@@ -288,7 +311,8 @@ def log(msg: str) -> None:
 
 
 #: the serving paths past ``serve`` that run the row kernels
-ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench", "families")
+ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench", "analysis",
+             "families")
 
 LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
              "moe_dispatch")
@@ -566,6 +590,7 @@ def phase_serve() -> dict:
     if not same:
         raise AssertionError("live trace != simulated trace")
     return {"engine": engine, "launches": launches, "entries": entries,
+            "tokens": tokens.tolist(),
             "tokens_per_s": BATCH * NEW / secs, "generate_s": secs,
             "logit_err": logit_err, "logit_scale": scale,
             "wrong_page_logit_change": wrong,
@@ -2995,6 +3020,319 @@ def phase_profile(engine) -> dict:
             "top_host": sorted(rows, key=lambda r: -r[3])[:25]}
 
 
+#: the whole decode steps the prover holds to the card's engine: batch 4,
+#: prompt 64, the full configs (jamba runs all three traffic kernels)
+ANALYSIS_MODELS = ("llama3.2-1b", "jamba-v0.1-52b")
+#: Tables II and III at the paper's sizes
+ANALYSIS_TRANSPOSES = (32, 64, 128)
+ANALYSIS_FFTS = ((4096, 4), (4096, 8), (4096, 16))
+
+
+def _timed(fn):
+    """(result, host seconds to the end of the device work)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _analysis_oracle() -> dict:
+    """The paged cache's plain-torch oracle (``append_token`` /
+    ``gather_kv``) on the card against the single-table row kernels
+    (``gather_pages`` / ``scatter_pages``): llama3.2-1b's KV shape (8 heads
+    x 64, bf16) on a 16B pool of 8-token pages, 4 sequences of 80 tokens.
+    Returns the kernels' launches (counted from 0 here) and the largest
+    difference (tolerance 0)."""
+    import torch
+
+    from repro_torch.kernels.banked_gather import ops as G
+    from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.serving.kvcache import (PagedKVConfig, append_token,
+                                             gather_kv, gather_pages,
+                                             init_state, pool_pages,
+                                             pool_rows, scatter_pages)
+
+    n_seq, n_tok = BATCH, PROMPT + NEW
+    cfg = PagedKVConfig.from_arch(
+        "16B", n_pages=pool_pages(16, n_seq, n_tok, PAGE_LEN),
+        page_len=PAGE_LEN, kv_heads=8, head_dim=64)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kv = torch.randn((2, n_tok, n_seq, 8, 64), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    state = init_state(cfg, n_seq, n_tok, device="cuda")
+    for t in range(n_tok):
+        state = append_token(cfg, state, kv[0, t], kv[1, t])
+    k, v, valid = gather_kv(cfg, state, n_tok)
+    n_pages = -(-n_tok // PAGE_LEN)
+    ids = state.pages.page_table[:, :n_pages].reshape(-1).contiguous()
+    G.GATHERS.launches = S.SCATTERS.launches = 0
+    shape = (n_seq, n_tok, 8, 64)
+    got = [gather_pages("16B", cfg, pool_rows(pool), ids).reshape(shape)
+           for pool in (state.k_pool, state.v_pool)]
+    back = [scatter_pages("16B", cfg, torch.zeros_like(pool_rows(pool)),
+                          ids, pool_rows(pool)[cfg.layout.physical_row(
+                              ids, cfg.n_pages)])
+            for pool in (state.k_pool, state.v_pool)]
+    torch.cuda.synchronize()
+    launches = {"banked_gather": G.GATHERS.launches,
+                "banked_scatter": S.SCATTERS.launches}
+    entries = {"banked_gather": G.GATHERS.by_entry(),
+               "banked_scatter": S.SCATTERS.by_entry()}
+    want_k = kv[0].transpose(0, 1)
+    err = max(
+        (got[0].float() - k.float()).abs().max().item(),
+        (got[1].float() - v.float()).abs().max().item(),
+        (k.float() - want_k.float()).abs().max().item(),
+        (v.float() - kv[1].transpose(0, 1).float()).abs().max().item(),
+        (back[0].float() - pool_rows(state.k_pool).float()).abs().max()
+        .item(),
+        (back[1].float() - pool_rows(state.v_pool).float()).abs().max()
+        .item())
+    ok = (bool(valid.all()) and err == 0 and (ids >= 0).all().item()
+          and launches == {"banked_gather": 2, "banked_scatter": 2})
+    log(f"[analysis] oracle: {n_seq} x {n_tok} tokens of 8 x 64 bf16 K/V "
+        f"appended by append_token on a 16B pool of {cfg.n_pages} "
+        f"{PAGE_LEN}-token pages; gather_kv == gather_pages and scattered "
+        f"lines == the oracle's pool: max |diff| {err} (tolerance 0); "
+        f"launches {launches}, by entry {entries}")
+    if not ok:
+        raise AssertionError(f"the paged oracle disagrees with the row "
+                             f"kernels: err {err}, launches {launches}")
+    return {"launches": launches, "entries": entries, "max_abs_err": err}
+
+
+def _analysis_scaled_embedding() -> dict:
+    """gemma2's smoke config with ``embed_scale`` on, served in float32 on
+    the card and on the host from the same seeded weights, paged and
+    dense: the decode steps embed the token unscaled as the reference's
+    do, and the card's tokens must equal the host's (argmaxes of float32
+    logits; TF32 off for the run)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("gemma2-9b"),
+                              embed_scale=True)
+    rc = RunConfig(remat="none", attn_impl="dense", compute_dtype="float32")
+    host = init_tree(model_specs(cfg), torch.Generator().manual_seed(3),
+                     device="cpu")
+    card = tree_map(lambda x: x.to("cuda"), host)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (3, 10))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tokens = {
+            (mode, dev): ServeEngine(
+                cfg, rc, params, kv_mode=mode, max_batch=3, max_seq=24,
+                page_len=8, device=dev).generate(
+                    prompts, max_new_tokens=6).tokens.tolist()
+            for mode in ("paged", "dense")
+            for dev, params in (("cuda", card), ("cpu", host))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    same = all(tokens[(m, "cuda")] == tokens[(m, "cpu")]
+               for m in ("paged", "dense"))
+    log(f"[analysis] gemma2-9b smoke with embed_scale=True, float32, 3 x 10 "
+        f"prompt + 6 tokens: card tokens == host tokens, paged and dense: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"gemma2's scaled-embedding generation differs "
+                             f"between the card and the host: {tokens}")
+    return {"same_tokens": same, "tokens": tokens[("paged", "cuda")]}
+
+
+def phase_analysis(engine, serve: dict, smi: str) -> dict:
+    """The analysis layer and the online tuner on the serving engine, the
+    prover against the card's engine at full width, the analysis CLI, and
+    the paged cache's oracle against the row kernels (see the module
+    docstring)."""
+    import importlib
+
+    from repro_torch.analysis import validate
+    from repro_torch.core import cost_engine as CE
+
+    t_phase = time.perf_counter()
+
+    # (1) the serving point once more through the paired row kernels
+    prompts = np.random.default_rng(0).integers(0, engine.cfg.vocab_size,
+                                                (BATCH, PROMPT))
+    n_kv, steps = engine.n_kv_layers, NEW - 1
+    res, gen_s, launches, entries = _counted_path(
+        "analysis", lambda: engine.generate(prompts, max_new_tokens=NEW),
+        lambda _: {"banked_gather": n_kv * steps,
+                   "banked_scatter": n_kv * steps + n_kv})
+    same_tokens = res.tokens.tolist() == serve["tokens"]
+    rep = validate(engine.serving_stream(include_prefill=True), "16B")
+    log(f"[analysis] generation: {gen_s:.3f} s, tokens equal to the serve "
+        f"phase's: {same_tokens}; serving_stream valid on 16B: "
+        f"{rep.n_blocks} blocks, {rep.n_ops} ops, {rep.n_instructions} "
+        f"instructions")
+    if not same_tokens:
+        raise AssertionError("the generation's tokens differ from serve's")
+
+    # every ``cost_many`` call of sections (2)-(4) is counted and timed:
+    # the tuners call it by module attribute, the prover's cross_check
+    # imports it when called (``repro_torch.tune.online`` is the module; the
+    # package's attribute of that name is the function)
+    TO = importlib.import_module("repro_torch.tune.online")
+    calls = {"cost_many": 0, "cost_many_s": []}
+
+    def counted(*args, **kw):
+        calls["cost_many"] += 1
+        out, secs = _timed(lambda: real(*args, **kw))
+        calls["cost_many_s"].append(secs)
+        return out
+    real, CE.cost_many, TO.cost_many = CE.cost_many, counted, counted
+    try:
+        return _analysis_sections(engine, launches, entries, gen_s, steps,
+                                  calls, t_phase, smi)
+    finally:
+        CE.cost_many = TO.cost_many = real
+
+
+def _analysis_sections(engine, launches, entries, gen_s, steps, calls,
+                       t_phase, smi) -> dict:
+    """Sections (2)-(5) of the ``analysis`` phase."""
+    import io
+    import os
+
+    from repro_torch import tune
+    from repro_torch.analysis import __main__ as CLI
+    from repro_torch.analysis.symbolic import cross_check, prove
+    from repro_torch.core import arch as A
+    from repro_torch.core.trace import AddressTrace
+    from repro_torch.isa.programs import fft as fft_prog
+    from repro_torch.isa.programs import transpose as tr_prog
+    from repro_torch.models.trace import (model_step_symbolic,
+                                          model_step_trace)
+
+    # (2) the online tuner over the decode steps, card against host
+    card = tune.online(engine, window=8, device="cuda")
+    host = tune.online(engine, window=8, device="cpu")
+    step_s, host_s, hit_rate = [], [], []
+    for i in range(steps):
+        trace = engine.step_trace(i)
+        before = dict(card.cache.stats)
+        rec, secs = _timed(lambda: card.step(trace))
+        step_s.append(secs)
+        t0 = time.perf_counter()
+        want = host.step(trace)
+        host_s.append(time.perf_counter() - t0)
+        if rec != want:
+            raise AssertionError(f"step {i}: the card tuner recommends "
+                                 f"{rec}, the host tuner {want}")
+        d_hits = card.cache.stats["hits"] - before["hits"]
+        d_miss = card.cache.stats["misses"] - before["misses"]
+        hit_rate.append(d_hits / max(1, d_hits + d_miss))
+    full = card.reprice(full_rebuild=True)
+    inc = card.reprice()
+    if full != inc:
+        raise AssertionError("full rebuild != incremental re-price")
+    tuner_calls = calls["cost_many"]
+    log(f"[analysis] tune.online(engine, window=8) over PAPER_SPACE "
+        f"({len(card.archs)} memories), {steps} decode steps: recommend() "
+        f"equal to the host tuner's at every step (winner {rec['winner']}, "
+        f"current {rec['current']}, swap {rec['swap']}, streak "
+        f"{rec['streak']}, cache {rec['cache']}); full rebuild == "
+        f"incremental: True; tuner.step() host time cold "
+        f"{1e3 * step_s[0]:.3f} ms, warm median "
+        f"{1e3 * float(np.median(step_s[1:])):.3f} ms (host tuner cold "
+        f"{1e3 * host_s[0]:.3f} ms, warm median "
+        f"{1e3 * float(np.median(host_s[1:])):.3f} ms); cache hit rate from "
+        f"step 2 on {np.mean(hit_rate[1:]):.4f}; {tuner_calls} cost_many "
+        f"calls, {smi}")
+
+    # (3) the prover against the card's engine under ``cross_check``, whole
+    # decode steps at full width and the paper's tables; the prover's host
+    # time is cross_check's less its one ``cost_many`` call's
+    archs = [A.get(n) for n in CLI.PROVE_ARCHS]
+    points = {}
+
+    def held(label, sym, trace):
+        first = len(calls["cost_many_s"])
+        _, secs = _timed(lambda: cross_check(archs, sym, trace,
+                                             device="cuda"))
+        (cost_s,) = calls["cost_many_s"][first:]
+        prove_s = secs - cost_s
+        points[label] = {"prove_s": prove_s, "cost_many_s": cost_s,
+                         "n_ops": sym.n_ops, "families": len(sym.families)}
+        log(f"[analysis] {label}: cross_check passed on {len(archs)} archs "
+            f"(bit-exact, engine on the card); {sym.n_ops} ops in "
+            f"{len(sym.families)} families; prover (host) "
+            f"{1e3 * prove_s:.3f} ms, cost_many on the card "
+            f"{1e3 * cost_s:.3f} ms")
+
+    for name in ANALYSIS_MODELS:
+        held(f"model_step {name} b{BATCH} p{PROMPT}",
+             model_step_symbolic(name, "16B", batch=BATCH,
+                                 prompt_len=PROMPT, device="cuda"),
+             model_step_trace(name, "16B", batch=BATCH, prompt_len=PROMPT,
+                              device="cuda"))
+    for n in ANALYSIS_TRANSPOSES:
+        held(f"transpose {n}x{n}", tr_prog.symbolic_trace(n),
+             AddressTrace.from_program(tr_prog.transpose_program(n)))
+    for n, r in ANALYSIS_FFTS:
+        held(f"fft {n} radix {r}", fft_prog.symbolic_trace(n, r),
+             AddressTrace.from_program(fft_prog.fft_program(n, r)))
+    sym64 = tr_prog.symbolic_trace(64)
+    xor = prove(A.get("16B-xor"), sym64).family("transpose64 row loads")
+    lsb = prove(A.get("16B"), sym64).family("transpose64 column stores")
+    log(f"[analysis] facts: 16B-xor transpose loads conflict-free "
+        f"{xor.conflict_free}; 16B lsb column stores "
+        f"{lsb.max_cycles}-way serialized")
+    if not xor.conflict_free or lsb.max_cycles != 16:
+        raise AssertionError("a headline fact failed")
+
+    # (4) the CLI with no arguments: lint of src, prove and check on cuda
+    cwd = Path.cwd()
+    text = io.StringIO()
+    try:
+        os.chdir(ROOT)
+        with contextlib.redirect_stdout(text):
+            rc, cli_s = _timed(lambda: CLI.main([]))
+    finally:
+        os.chdir(cwd)
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        log(f"[analysis] cli | {line}")
+    log(f"[analysis] python -m repro_torch.analysis (no arguments): exit "
+        f"{rc} in {cli_s:.3f} s")
+    if rc != 0 or lines[-1:] != ["analysis: OK"]:
+        raise AssertionError(f"the analysis CLI failed: {lines[-1:]}")
+
+    # (5) the paged cache's oracle against the single-table row kernels,
+    # and (6) gemma2's scaled embedding served on the card against the host
+    oracle = _analysis_oracle()
+    scaled = _analysis_scaled_embedding()
+
+    wall = time.perf_counter() - t_phase
+    log(f"[analysis] phase wall time {wall:.3f} s, {calls['cost_many']} "
+        f"cost_many calls ({smi})")
+    # the path's launches are the generation's; the oracle's check launches
+    # are kept beside them, out of the path's count
+    return {"launches": launches, "entries": entries,
+            "oracle_launches": oracle["launches"],
+            "oracle_entries": oracle["entries"],
+            "max_abs_err": oracle["max_abs_err"], "scaled_embedding": scaled,
+            "generate_s": gen_s,
+            "tuner": {"steps": steps, "step_s": step_s,
+                      "host_step_s": host_s, "hit_rate": hit_rate,
+                      "cost_many_calls": tuner_calls,
+                      "last": {k: rec[k] for k in ("winner", "current",
+                                                   "swap", "streak",
+                                                   "cache")}},
+            "points": points, "cli_s": cli_s, "cli_lines": lines,
+            "cost_many_calls": calls["cost_many"], "wall_s": wall}
+
+
 #: an H100 SXM's dense bf16 peak (NVIDIA's data sheet, at 700 W)
 BF16_PEAK_TFLOPS = 989.0
 #: the long training step: ``train_4k``'s sequence (4096), its global batch
@@ -3280,8 +3618,8 @@ def phase_train(smi: str) -> dict:
     tokens = ds.batch(3, device="cuda")
     with torch.no_grad():
         p0 = T.superblock_params(params, 0, 0)
-        x = L.rmsnorm(p0["ln1"], T._embed_tokens(
-            cfg, params, tokens["tokens"], torch.bfloat16), cfg.norm_eps)
+        x = L.rmsnorm(p0["ln1"], T._embed(
+            cfg, params, tokens["tokens"], None, torch.bfloat16), cfg.norm_eps)
         outs = {impl: L.attention(cfg, RunConfig(attn_impl=impl), p0[
             "mixer"], x).float() for impl in ("flash", "dense")}
         attn_err = (outs["flash"] - outs["dense"]).abs().max().item()
@@ -4089,6 +4427,7 @@ def main() -> int:
     # both of its opening markers
     record["quickstart"] = phase_quickstart(smi)
     record["profile"] = phase_profile(engine)
+    record["analysis"] = phase_analysis(engine, serve, smi)
     # training needs the card's memory: the serving engine goes first
     del engine
     gc.collect()
@@ -4128,13 +4467,19 @@ def main() -> int:
             "launches": serve["launches"][name] + sum(
                 record[p]["launches"][name] for p in ROW_PATHS + (
                     "quickstart",)),
+            # the paged oracle's check launches in the analysis phase are
+            # held to the oracle, not the path's: out of the sum
             "launches_by_path": {
                 "serve": serve["launches"][name],
                 **{p: record[p]["launches"][name]
-                   for p in ROW_PATHS + ("quickstart",)}},
+                   for p in ROW_PATHS + ("quickstart",)},
+                "analysis_oracle_check":
+                    record["analysis"]["oracle_launches"][name]},
             "entries": {"serve": serve["entries"][name],
                         **{p: record[p]["entries"][name]
-                           for p in ROW_PATHS}},
+                           for p in ROW_PATHS},
+                        "analysis_oracle_check":
+                            record["analysis"]["oracle_entries"][name]},
             "max_abs_err": max(record["kernels"]["max_abs_err"][name],
                                record["path_kernels"]["max_abs_err"][name],
                                record["schedule"]["max_abs_err"],
@@ -4144,6 +4489,7 @@ def main() -> int:
                                record["figures"]["max_abs_err"].get(name,
                                                                     0.0),
                                record["families"]["max_abs_err"],
+                               record["analysis"]["max_abs_err"],
                                record["quickstart"]["max_abs_err"].get(
                                    name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -1,6 +1,6 @@
 """Cooley-Tukey FFT benchmark programs (paper Table III); port of
-``repro.isa.programs.fft`` without the symbolic-prover hook, which comes
-with the analysis slice.
+``repro.isa.programs.fft``, its symbolic-prover hook (``symbolic_trace``)
+included.
 
 Standard in-place DIF Cooley-Tukey, radix R ∈ {4, 8, 16}, N = 4096 points,
 complex data **interleaved** I/Q at word addresses (2k, 2k+1) — the layout the
@@ -149,6 +149,98 @@ def iter_fft_instrs(n: int = 4096, radix: int = 4,
                                blocking=True)
 
     return gen()
+
+
+def symbolic_trace(n: int = 4096, radix: int = 4,
+                   tw_base: int | None = None):
+    """Closed-form description of this program's traffic for the symbolic
+    conflict prover (``repro_torch.analysis.symbolic``).
+
+    Per pass p (m = n/R^p, sub = m/R, T = n/R threads, one op = 16
+    consecutive threads × one I/Q word w ∈ {0, 1}):
+
+      * data accesses (loads AND stores — index k/i plays the same role):
+        ``2·(j_t·m + q + k·sub) + w`` with thread t → j_t = t//sub,
+        q = t%sub.  When 16 | sub, a 16-lane op splits t as
+        (j_t, g mod sub/16, j): terms (2sub·k, 2m·j_t, 32·g, w), lane
+        offsets 2j.  When sub | 16, j_t/q vary WITHIN the op: lane offsets
+        2·(m·(j//sub) + j%sub), terms (2sub·k, (32m/sub)·g, w).
+      * twiddle loads (pass < last, i = 1..R-1, step = R^p):
+        ``tw_base + 2·((q·i·step) mod n) + w`` — the mod-n index is the
+        prover's inner-mod part (modulus n, stride 2); q decomposes per the
+        same sub≥16 / sub<16 split.
+
+    Every family is exact (not a bound): the proved ``TraceCost`` matches
+    the engine bit-exactly on the whole Table III workload.  Requires
+    16 | T (true for all paper/smoke sizes: n ≥ 16·R).
+    """
+    from repro_torch.analysis.symbolic import AffineFamily, SymbolicTrace
+    L = int(round(np.log(n) / np.log(radix)))
+    if radix ** L != n:
+        raise ValueError(f"n={n} is not a power of radix={radix}")
+    T = n // radix
+    if T % 16:
+        raise NotImplementedError(
+            f"symbolic FFT model needs 16 | n/radix, got T={T}")
+    tw_base = 2 * n if tw_base is None else tw_base
+
+    lanes = np.arange(16)
+    families = []
+    compute_cycles = 0
+    op_counts: dict = {}
+    for p in range(L):
+        m = n // radix ** p
+        sub = m // radix
+        step = radix ** p
+        last = (p == L - 1)
+
+        per = max(1, T // 16)
+        fp = (radix - 1) * 6 + DFT_FP[radix]
+        compute_cycles += (IMM_PER_PASS[radix] + INT_PER_PASS[radix]
+                           + fp) * per + OTHER_SCALAR_PER_PASS[radix]
+        for key, val in (("imm", IMM_PER_PASS[radix] * per),
+                         ("int", INT_PER_PASS[radix] * per),
+                         ("fp", fp * per),
+                         ("other", OTHER_SCALAR_PER_PASS[radix])):
+            op_counts[key] = op_counts.get(key, 0) + val
+
+        # data loads + stores share one address equation (k ↔ i)
+        if sub >= 16:
+            data_terms = ((2 * sub, radix), (2 * m, T // sub),
+                          (32, sub // 16), (1, 2))
+            data_offsets = tuple(2 * j for j in lanes)
+        else:
+            data_terms = ((2 * sub, radix), (2 * m * 16 // sub, T // 16),
+                          (1, 2))
+            data_offsets = tuple(2 * (m * (j // sub) + j % sub)
+                                 for j in lanes)
+        for kind, tag in (("load", "loads"), ("store", "stores")):
+            families.append(AffineFamily(
+                name=f"fft{n}r{radix} p{p} data {tag}", kind=kind,
+                const=0, terms=data_terms, offsets=data_offsets,
+                n_instructions=radix))
+
+        if last:
+            continue
+        for i in range(1, radix):
+            if sub >= 16:
+                mod_terms = ((16 * i * step, sub // 16),)
+                mod_offsets = tuple(i * step * j for j in lanes)
+                outer = ((0, T // sub), (1, 2))
+            else:
+                mod_terms = ()
+                mod_offsets = tuple(i * step * (j % sub) for j in lanes)
+                outer = ((0, T // 16), (1, 2))
+            families.append(AffineFamily(
+                name=f"fft{n}r{radix} p{p} tw{i}", kind="tw",
+                const=tw_base, terms=outer, offsets=(0,) * 16,
+                modulus=n, mod_terms=mod_terms, mod_offsets=mod_offsets,
+                stride=2, n_instructions=1))
+
+    return SymbolicTrace(
+        families=tuple(families), compute_cycles=compute_cycles,
+        op_counts=op_counts,
+        meta={"program": f"fft{n}r{radix}", "n": n, "radix": radix})
 
 
 def fft_program(n: int = 4096, radix: int = 4, tw_base: int | None = None) -> Program:

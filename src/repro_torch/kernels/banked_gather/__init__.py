@@ -1,6 +1,7 @@
 from repro_torch.kernels.banked_gather.ops import (banked_gather,
                                                    banked_gather_pair,
                                                    banked_gather_plain,
+                                                   banked_gather_symbolic,
                                                    banked_gather_trace,
                                                    banked_gather_trace_blocks)
 from repro_torch.kernels.banked_gather.ref import banked_gather_ref
@@ -29,6 +30,7 @@ register(Kernel(
     ref=lambda arch, table, idx, **_: banked_gather_ref(table, idx),
     trace=banked_gather_trace,
     blocks=banked_gather_trace_blocks,
+    symbolic=banked_gather_symbolic,
     description="bank-major row gather (paged KV read path)",
 ))
 

@@ -210,6 +210,18 @@ def banked_gather_trace(arch, table, idx, mask=None, **_):
     return row_stream_trace(idx, kind="load", mask=mask)
 
 
+def banked_gather_symbolic(arch, table, idx, mask=None, **_):
+    """The gather's traffic for the symbolic conflict prover: an
+    arithmetic-progression index stream proves in closed form (a
+    unit-stride gather is conflict-free on any map), anything
+    data-dependent is enumerated exactly (see
+    ``repro_torch.analysis.symbolic.affine_from_indices``)."""
+    from repro_torch.analysis.symbolic import (SymbolicTrace,
+                                               affine_from_indices)
+    fam = affine_from_indices(idx, "load", "gather rows", mask=mask)
+    return SymbolicTrace(families=(fam,), meta={"kernel": "banked_gather"})
+
+
 def banked_gather_trace_blocks(arch, table, idx, mask=None, block_ops=None,
                                **_):
     """Streaming counterpart of ``banked_gather_trace`` (bit-equal cost)."""

@@ -1,6 +1,7 @@
 from repro_torch.kernels.banked_scatter.ops import (
     banked_scatter, banked_scatter_pair, banked_scatter_plain,
-    banked_scatter_trace, banked_scatter_trace_blocks)
+    banked_scatter_symbolic, banked_scatter_trace,
+    banked_scatter_trace_blocks)
 from repro_torch.kernels.banked_scatter.ref import banked_scatter_ref
 from repro_torch.kernels.registry import Kernel, register
 
@@ -33,6 +34,7 @@ register(Kernel(
         table, idx, updates),
     trace=banked_scatter_trace,
     blocks=banked_scatter_trace_blocks,
+    symbolic=banked_scatter_symbolic,
     description="bank-major row scatter (paged KV write path)",
 ))
 

@@ -180,6 +180,16 @@ def banked_scatter_trace(arch, table, idx, updates=None, mask=None, **_):
     return row_stream_trace(idx, kind="store", mask=mask)
 
 
+def banked_scatter_symbolic(arch, table, idx, updates=None, mask=None, **_):
+    """The scatter's traffic for the symbolic conflict prover (one store
+    family; closed-form when the index stream is an arithmetic
+    progression, exact enumeration otherwise)."""
+    from repro_torch.analysis.symbolic import (SymbolicTrace,
+                                               affine_from_indices)
+    fam = affine_from_indices(idx, "store", "scatter rows", mask=mask)
+    return SymbolicTrace(families=(fam,), meta={"kernel": "banked_scatter"})
+
+
 def banked_scatter_trace_blocks(arch, table, idx, updates=None, mask=None,
                                 block_ops=None, **_):
     """Streaming counterpart of ``banked_scatter_trace`` (bit-equal cost)."""

@@ -1,5 +1,6 @@
 from repro_torch.kernels.banked_transpose.ops import (
-    banked_transpose, banked_transpose_trace, banked_transpose_trace_blocks)
+    banked_transpose, banked_transpose_symbolic, banked_transpose_trace,
+    banked_transpose_trace_blocks)
 from repro_torch.kernels.banked_transpose.ref import banked_transpose_ref
 from repro_torch.kernels.registry import Kernel, register
 
@@ -12,6 +13,7 @@ register(Kernel(
     ref=lambda arch, x, **_: banked_transpose_ref(x),
     trace=banked_transpose_trace,
     blocks=banked_transpose_trace_blocks,
+    symbolic=banked_transpose_symbolic,
     description="shared-memory tiled matrix transpose (paper Table II "
                 "workload)",
 ))

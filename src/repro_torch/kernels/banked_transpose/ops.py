@@ -87,6 +87,15 @@ def banked_transpose_trace(arch, x, **_):
     return AddressTrace.from_program(transpose_program(n))
 
 
+def banked_transpose_symbolic(arch, x, **_):
+    """The Table II transpose traffic as closed-form lane families for the
+    symbolic conflict prover (the SIMT program's own ``symbolic_trace``:
+    the proved ``TraceCost`` equals ``cost_many`` on
+    ``banked_transpose_trace``)."""
+    from repro_torch.isa.programs.transpose import symbolic_trace
+    return symbolic_trace(_transpose_n(x))
+
+
 def banked_transpose_trace_blocks(arch, x, block_ops=None, **_):
     """Streaming counterpart of ``banked_transpose_trace``: the Table II
     program stream emitted block-by-block from the lazy macro-op iterator,

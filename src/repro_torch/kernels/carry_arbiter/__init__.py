@@ -1,5 +1,6 @@
 from repro_torch.kernels.carry_arbiter.ops import (carry_arbiter,
                                                    carry_arbiter_plain,
+                                                   carry_arbiter_symbolic,
                                                    carry_arbiter_trace,
                                                    carry_arbiter_trace_blocks)
 from repro_torch.kernels.carry_arbiter.ref import carry_arbiter_ref
@@ -11,6 +12,7 @@ register(Kernel(
     ref=lambda arch, requests, **_: carry_arbiter_ref(requests),
     trace=carry_arbiter_trace,
     blocks=carry_arbiter_trace_blocks,
+    symbolic=carry_arbiter_symbolic,
     description="carry-chain arbiter grant-schedule generator (paper Fig 4)",
 ))
 

@@ -140,6 +140,18 @@ def carry_arbiter_trace(arch, requests, **_):
     return AddressTrace.from_ops(addrs, kind="load", mask=mask)
 
 
+def carry_arbiter_symbolic(arch, requests, **_):
+    """The arbiter's lane→bank stream for the symbolic conflict prover:
+    request words are data-dependent, so the family is the exact unpacked
+    (ops, LANES) matrix and its active mask, proved through the
+    independent bincount conflict algorithm."""
+    from repro_torch.analysis.symbolic import DataFamily, SymbolicTrace
+    addrs, mask = _request_ops(_words(requests))
+    fam = DataFamily(name="arbiter requests", kind="load",
+                     addrs=addrs, mask=mask)
+    return SymbolicTrace(families=(fam,), meta={"kernel": "carry_arbiter"})
+
+
 def carry_arbiter_trace_blocks(arch, requests, block_ops=None, **_):
     """Streaming counterpart of ``carry_arbiter_trace``: the request words
     are unpacked chunk by chunk (the (ops, LANES, B) bit tensor exists only

@@ -1,6 +1,6 @@
 from repro_torch.kernels.conflict_popcount.ops import (
-    conflict_popcount, conflict_popcount_plain, conflict_popcount_trace,
-    conflict_popcount_trace_blocks)
+    conflict_popcount, conflict_popcount_plain, conflict_popcount_symbolic,
+    conflict_popcount_trace, conflict_popcount_trace_blocks)
 from repro_torch.kernels.conflict_popcount.ref import conflict_popcount_ref
 from repro_torch.kernels.registry import Kernel, register
 
@@ -25,6 +25,7 @@ register(Kernel(
         banks, _n_banks(arch, n_banks)),
     trace=conflict_popcount_trace,
     blocks=conflict_popcount_trace_blocks,
+    symbolic=conflict_popcount_symbolic,
     description="issue-controller conflict counting (one-hot popcount + max)",
 ))
 

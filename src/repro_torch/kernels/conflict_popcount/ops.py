@@ -91,6 +91,18 @@ def conflict_popcount_trace(arch, banks, n_banks=None, **_):
     return AddressTrace.from_ops(host_array(banks), kind="load")
 
 
+def conflict_popcount_symbolic(arch, banks, n_banks=None, **_):
+    """The controller's bank-id matrix for the symbolic conflict prover
+    (bank ids double as word addresses, as in ``conflict_popcount_trace``):
+    an exact ``DataFamily`` enumeration."""
+    from repro_torch.analysis.symbolic import DataFamily, SymbolicTrace
+    from repro_torch.core.trace import as_ops
+    fam = DataFamily(name="lane bank ids", kind="load",
+                     addrs=as_ops(host_array(banks)))
+    return SymbolicTrace(families=(fam,),
+                         meta={"kernel": "conflict_popcount"})
+
+
 def conflict_popcount_trace_blocks(arch, banks, n_banks=None, block_ops=None,
                                    **_):
     """Streaming counterpart of ``conflict_popcount_trace``: the bank-id

@@ -2,8 +2,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.fft_stage.ops import (fft4096_radix4, fft_stage,
-                                               fft_stage_radix4, fft_trace,
-                                               fft_trace_blocks)
+                                               fft_stage_radix4, fft_symbolic,
+                                               fft_trace, fft_trace_blocks)
 from repro_torch.kernels.fft_stage.ref import (fft_oracle_digit_reversed,
                                                fft_radix4_ref, fft_stage_ref)
 from repro_torch.kernels.registry import Kernel, register
@@ -25,6 +25,7 @@ register(Kernel(
     ref=_ref,
     trace=fft_trace,
     blocks=fft_trace_blocks,
+    symbolic=fft_symbolic,
     description="radix-4 DIF FFT passes (paper Table III workload)",
 ))
 

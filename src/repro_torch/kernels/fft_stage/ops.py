@@ -231,6 +231,17 @@ def fft_trace(arch, x, **_):
     return AddressTrace.from_program(prog)
 
 
+def fft_symbolic(arch, x, **_):
+    """The Table III FFT traffic as closed-form lane families for the
+    symbolic conflict prover (the SIMT program's own ``symbolic_trace``,
+    radix 4 like the kernel path)."""
+    from repro_torch.isa.programs.fft import symbolic_trace
+    try:
+        return symbolic_trace(x.shape[-1], 4)
+    except ValueError as e:
+        raise NotImplementedError(str(e)) from None
+
+
 def fft_trace_blocks(arch, x, block_ops=None, **_):
     """Streaming counterpart of ``fft_trace``: the Table III program stream
     emitted block-by-block from the lazy pass-by-pass macro-op iterator;

@@ -1,5 +1,6 @@
 from repro_torch.kernels.moe_dispatch.ops import (moe_dispatch_plain,
                                                   moe_dispatch_positions,
+                                                  moe_dispatch_symbolic,
                                                   moe_dispatch_trace,
                                                   moe_dispatch_trace_blocks)
 from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
@@ -13,6 +14,7 @@ register(Kernel(
         experts, n_experts, capacity),
     trace=moe_dispatch_trace,
     blocks=moe_dispatch_trace_blocks,
+    symbolic=moe_dispatch_symbolic,
     description="running-count MoE token dispatch (arbiter math at scale)",
 ))
 

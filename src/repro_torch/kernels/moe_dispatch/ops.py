@@ -189,6 +189,16 @@ def moe_dispatch_trace(arch, experts, n_experts, capacity, **_):
     return row_stream_trace(experts, kind="store")
 
 
+def moe_dispatch_symbolic(arch, experts, n_experts, capacity, **_):
+    """The dispatch's traffic for the symbolic conflict prover: the
+    expert-id store stream (data-dependent in any real routing, so exact
+    enumeration; closed-form for synthetic striped assignments)."""
+    from repro_torch.analysis.symbolic import (SymbolicTrace,
+                                               affine_from_indices)
+    fam = affine_from_indices(experts, "store", "expert dispatch")
+    return SymbolicTrace(families=(fam,), meta={"kernel": "moe_dispatch"})
+
+
 def moe_dispatch_trace_blocks(arch, experts, n_experts, capacity,
                               block_ops=None, **_):
     """Streaming counterpart of ``moe_dispatch_trace``: the expert-id

@@ -12,7 +12,10 @@ whose first argument is a ``MemoryArchitecture`` (or a name
   * ``blocks(arch, *args, block_ops=…)`` — the same request stream as
     ``TraceStream`` source blocks, built in O(block) memory;
   * ``cost(arch, *args)`` — an opaque cycle count, for a kernel with no
-    trace; ``cost_cycles`` prices the trace when there is one.
+    trace; ``cost_cycles`` prices the trace when there is one;
+  * ``symbolic(arch, *args)`` — the call's address stream as closed-form
+    lane families (a ``repro_torch.analysis.symbolic.SymbolicTrace``), the
+    input of the conflict prover.
 
 New kernels are one decorator away::
 
@@ -39,6 +42,7 @@ class Kernel:
     trace: Callable | None = None
     blocks: Callable | None = None
     cost: Callable | None = None
+    symbolic: Callable | None = None
     description: str = ""
 
     def run(self, arch, *args, **kwargs):
@@ -70,6 +74,17 @@ class Kernel:
                 meta={**meta, "streamed": True})
         t = self.address_trace(a, *args, **kwargs)
         return TraceStream(functools.partial(t.blocks, block_ops), meta=meta)
+
+    def symbolic_trace(self, arch, *args, **kwargs):
+        """The kernel's address stream as a ``SymbolicTrace`` (closed-form
+        lane families; see ``repro_torch.analysis.symbolic``): ``prove``
+        derives per-instruction max-conflict bounds and a full
+        ``TraceCost`` from it on the host, bit-equal to
+        ``cost_many`` on ``address_trace``."""
+        if self.symbolic is None:
+            raise NotImplementedError(
+                f"kernel {self.name!r} has no symbolic trace description")
+        return self.symbolic(_arch.resolve(arch), *args, **kwargs)
 
     def cost_cycles(self, arch, *args, device="cuda", **kwargs):
         """Cycles this operation costs under ``arch``'s timing model
@@ -107,12 +122,13 @@ def register_kernel(name: str, *, ref: Callable,
                     trace: Callable | None = None,
                     blocks: Callable | None = None,
                     cost: Callable | None = None,
+                    symbolic: Callable | None = None,
                     description: str = "") -> Callable:
     """Decorator form: registers the decorated function as the kernel
     entry point of a new Kernel and returns the Kernel."""
     def deco(cuda: Callable) -> Kernel:
         return register(Kernel(name=name, cuda=cuda, ref=ref, trace=trace,
-                               blocks=blocks, cost=cost,
+                               blocks=blocks, cost=cost, symbolic=symbolic,
                                description=description))
     return deco
 

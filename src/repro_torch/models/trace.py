@@ -33,12 +33,13 @@ module):
 Each kernel's ``cuda`` entry is its host ``_run`` (the reference puts the
 same function in its ``pallas`` field): these kernels price memory
 traffic, they compute nothing on the card.  Every kernel is built from
-one list of ``StreamSpec`` request streams, from which the dense ``trace``
-and the O(block) ``blocks`` generator are both derived, so the two are
-bit-equal by construction.  The reference's ``symbolic`` entries and
-``model_step_symbolic`` feed its conflict prover
-(``analysis/symbolic.py``), which the port does not have yet; they are
-absent here.
+one list of ``StreamSpec`` request streams, from which the dense
+``trace``, the O(block) ``blocks`` generator and the ``symbolic`` families
+of the conflict prover (``repro_torch.analysis.symbolic``) are all
+derived, so the three entry points are bit-equal by construction and
+``analysis.symbolic.cross_check`` holds on data-dependent (page table,
+expert routing) and closed-form (weight rows, strided state) streams
+alike; ``model_step_symbolic`` is the whole decode step's families.
 
 ``model_step_trace(config, arch, ...)`` stitches the per-layer streams of a
 whole decode step (attention/SSM mixer, then MoE or dense FFN, following
@@ -61,8 +62,8 @@ import torch
 from repro_torch.kernels.registry import Kernel, register
 
 __all__ = ["StreamSpec", "attn_decode_specs", "moe_a2a_specs",
-           "ssm_scan_specs", "model_step_trace", "resolve_model_config",
-           "MODEL_TRACE_KERNELS"]
+           "ssm_scan_specs", "model_step_trace", "model_step_symbolic",
+           "resolve_model_config", "MODEL_TRACE_KERNELS"]
 
 #: the kernel names this module registers (for discovery and docs; the
 #: registry keys on the registered set)
@@ -73,8 +74,9 @@ MODEL_TRACE_KERNELS = ("attn_decode", "moe_a2a", "ssm_scan")
 class StreamSpec:
     """One memory instruction of model traffic: a named row-index request
     stream (rows are the banked unit throughout the repo).  The single
-    source both kernel entry points are derived from: ``trace`` (dense)
-    and ``blocks`` (O(block) streaming)."""
+    source all three kernel entry points are derived from: ``trace``
+    (dense), ``blocks`` (O(block) streaming) and ``symbolic`` (prover
+    families)."""
     name: str
     kind: str                        # "load" | "store" | "tw"
     idx: np.ndarray                  # flat row-index request stream
@@ -101,6 +103,18 @@ def _specs_blocks(arch, specs: Sequence[StreamSpec],
     for s in specs:
         yield from iter_op_chunks(s.idx, s.kind, mask=s.mask,
                                   block_ops=block_ops)
+
+
+def _specs_symbolic(arch, specs: Sequence[StreamSpec],
+                    meta: dict | None = None):
+    """The specs as a ``SymbolicTrace``: arithmetic-progression streams
+    (weight rows, strided state) prove in closed form; data-dependent ones
+    (page tables, expert routing) enumerate exactly."""
+    from repro_torch.analysis.symbolic import (SymbolicTrace,
+                                               affine_from_indices)
+    fams = tuple(affine_from_indices(s.idx, s.kind, s.name, mask=s.mask)
+                 for s in specs)
+    return SymbolicTrace(families=fams, meta=dict(meta or {}))
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +182,14 @@ def attn_decode_blocks(arch, page_table, positions, d_model: int = 64,
     yield from _specs_blocks(arch, attn_decode_specs(page_table, positions,
                                                      d_model, n_heads,
                                                      page_len), block_ops)
+
+
+def attn_decode_symbolic(arch, page_table, positions, d_model: int = 64,
+                         n_heads: int = 4, page_len: int = 8, **_):
+    return _specs_symbolic(arch, attn_decode_specs(page_table, positions,
+                                                   d_model, n_heads,
+                                                   page_len),
+                           meta={"kernel": "attn_decode"})
 
 
 def _attn_decode_run(arch, page_table, positions, d_model: int = 64,
@@ -240,6 +262,13 @@ def moe_a2a_blocks(arch, experts, n_experts, capacity, d_model: int = 0,
                              block_ops)
 
 
+def moe_a2a_symbolic(arch, experts, n_experts, capacity, d_model: int = 0,
+                     **_):
+    return _specs_symbolic(arch, moe_a2a_specs(experts, n_experts, capacity,
+                                               d_model),
+                           meta={"kernel": "moe_a2a"})
+
+
 def _moe_a2a_run(arch, experts, n_experts, capacity, d_model: int = 0, **_):
     """Host-side reference: (send-buffer slot per request, kept mask) under
     the arbiter's grant order and the capacity budget."""
@@ -290,6 +319,13 @@ def ssm_scan_blocks(arch, batch, d_inner, ssm_state, ssm_conv: int = 4,
                                                   ssm_conv), block_ops)
 
 
+def ssm_scan_symbolic(arch, batch, d_inner, ssm_state, ssm_conv: int = 4,
+                      **_):
+    return _specs_symbolic(arch, ssm_scan_specs(batch, d_inner, ssm_state,
+                                                ssm_conv),
+                           meta={"kernel": "ssm_scan"})
+
+
 def _ssm_scan_run(arch, batch, d_inner, ssm_state, ssm_conv: int = 4, **_):
     """Host-side reference: the stride-N state row stream the recurrence
     touches."""
@@ -303,20 +339,21 @@ def _ssm_scan_run(arch, batch, d_inner, ssm_state, ssm_conv: int = 4, **_):
 register(Kernel(
     name="attn_decode", cuda=_attn_decode_run, ref=_attn_decode_run,
     trace=attn_decode_trace, blocks=attn_decode_blocks,
+    symbolic=attn_decode_symbolic,
     description="transformer decode-step attention traffic (QKV/O weight "
                 "rows, RoPE gather, paged-KV page gathers + appends)",
 ))
 
 register(Kernel(
     name="moe_a2a", cuda=_moe_a2a_run, ref=_moe_a2a_run,
-    trace=moe_a2a_trace, blocks=moe_a2a_blocks,
+    trace=moe_a2a_trace, blocks=moe_a2a_blocks, symbolic=moe_a2a_symbolic,
     description="MoE all-to-all dispatch traffic (expert-id store + "
                 "arbiter-granted send/combine slot streams)",
 ))
 
 register(Kernel(
     name="ssm_scan", cuda=_ssm_scan_run, ref=_ssm_scan_run,
-    trace=ssm_scan_trace, blocks=ssm_scan_blocks,
+    trace=ssm_scan_trace, blocks=ssm_scan_blocks, symbolic=ssm_scan_symbolic,
     description="SSM decode-step state update traffic (stride-N state "
                 "read-modify-write + conv window rows)",
 ))
@@ -449,3 +486,19 @@ def model_step_trace(config, arch, batch: int = 4, prompt_len: int = 32,
         "what": "model_step", "model": cfg.name, "arch": a.name,
         "batch": batch, "prompt_len": prompt_len, "page_len": page_len,
         "n_layers": cfg.n_layers, "n_tokens": batch, "seed": seed})
+
+
+def model_step_symbolic(config, arch, batch: int = 4, prompt_len: int = 32,
+                        page_len: int = 8, seed: int = 0, device="cuda"):
+    """The same decode step as a ``SymbolicTrace`` for the conflict prover:
+    one family per instruction, derived from the very ``StreamSpec``s the
+    trace is built from (pages allocated on ``device``, as
+    ``model_step_trace`` allocates them), so
+    ``analysis.symbolic.cross_check`` against ``model_step_trace`` is
+    bit-exact by construction."""
+    cfg, a, kv_cfg, page_table, positions = _decode_point(
+        config, arch, batch, prompt_len, page_len, device)
+    specs = tuple(_model_step_specs(cfg, kv_cfg, page_table, positions,
+                                    batch, seed))
+    return _specs_symbolic(a, specs, meta={
+        "what": "model_step", "model": cfg.name, "arch": a.name})

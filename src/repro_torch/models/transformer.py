@@ -245,16 +245,14 @@ def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
     return x + h, new_cache
 
 
-def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                  dtype) -> torch.Tensor:
-    """The token rows of the embedding in ``dtype`` (scaled where the
-    config says): a decode step's input, which no frontend precedes."""
+def _token_rows(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The token rows of the embedding in ``dtype``, unscaled: a decode
+    step's input.  The reference's ``decode_step`` and serving steps embed
+    the decode token without ``embed_scale`` (its prefill scales), and the
+    port follows it."""
     # rows of the cast table == cast rows of the table: gather first, so
     # the whole embedding is never cast per call
-    x = params["embed"][tokens].to(dtype)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-    return x
+    return params["embed"][tokens].to(dtype)
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
@@ -263,12 +261,11 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
     ``frontend`` embeddings, then the tokens' rows, the whole scaled where
     the config says.  A frontend config refuses ``frontend=None``, as the
     reference's assert does."""
-    if not cfg.frontend:
-        return _embed_tokens(cfg, params, tokens, dtype)
-    if frontend is None:
-        raise ValueError(f"{cfg.name} needs frontend embeddings")
-    x = torch.cat([frontend.to(dtype), params["embed"][tokens].to(dtype)],
-                  dim=1)
+    x = _token_rows(params, tokens, dtype)
+    if cfg.frontend:
+        if frontend is None:
+            raise ValueError(f"{cfg.name} needs frontend embeddings")
+        x = torch.cat([frontend.to(dtype), x], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return x
@@ -344,7 +341,7 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, params: dict,
     ``cache`` as ``prefill`` returns it (attention caches padded to the
     decode buffer).  Returns (logits (B, 1, Vp), new cache)."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _embed_tokens(cfg, params, token, dtype)
+    x = _token_rows(params, token, dtype)
     pattern = cfg.block_pattern()
     new = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):

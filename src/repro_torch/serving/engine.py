@@ -198,7 +198,7 @@ class ServeEngine:
         dtype = getattr(torch, rc.compute_dtype)
         need = (pages.seq_lens % self.kv_cfg.page_len) == 0
         pages, _ = KV.allocate_pages(self.kv_cfg, pages, need)
-        x = T._embed_tokens(cfg, params, tok, dtype)
+        x = T._token_rows(params, tok, dtype)
         attn_fn = functools.partial(self._paged_attention_decode, pages=pages,
                                     step_pos=pos)
         pos = torch.tensor(pos, device=self.device)
@@ -341,7 +341,7 @@ class ServeEngine:
         cfg, rc = self.cfg, self.rc
         dtype = getattr(torch, rc.compute_dtype)
         step, tok = self._ragged_step(page_table, pos, active, scratch, tok)
-        x = T._embed_tokens(cfg, params, tok, dtype)
+        x = T._token_rows(params, tok, dtype)
         attn_fn = functools.partial(self._paged_attention_decode_ragged,
                                     step=step)
         for sb in range(cfg.n_superblocks):

@@ -13,9 +13,17 @@ inverse bank map, so that
     in.
 
 Allocation is the carry-chain arbiter at page granularity
-(``allocate_pages``); the trace path (``decode_step_trace``,
-``prefill_trace``, ``simulate_serving_stream``) lowers the same request
-streams to ``AddressTrace``s for ``cost_many``.
+(``allocate_pages``).  Three access paths share the layout:
+
+  * kernel path (the serving hot path): ``gather_pages`` /
+    ``scatter_pages`` (and their paired forms) run the row kernels on a
+    persistent bank-major 2-D pool;
+  * reference path: ``append_token`` / ``gather_kv`` are the plain-torch
+    oracle on a 4-D pool (``PagedKVState``), which pins the kernel path
+    row for row; the engine never calls it;
+  * trace path: ``decode_step_trace``, ``prefill_trace`` and
+    ``simulate_serving_stream`` lower the same request streams to
+    ``AddressTrace``s for ``cost_many``.
 """
 from __future__ import annotations
 
@@ -31,8 +39,9 @@ from repro_torch.kernels.banked_gather.ops import banked_gather_pair
 from repro_torch.kernels.banked_scatter.ops import banked_scatter_pair
 
 __all__ = [
-    "PagedKVConfig", "PageTableState", "pool_pages", "init_pages",
-    "allocate_pages", "bank_load_stats", "gather_pages",
+    "PagedKVConfig", "PageTableState", "PagedKVState", "pool_pages",
+    "init_pages", "init_state", "allocate_pages", "append_token",
+    "gather_kv", "bank_load_stats", "pool_rows", "gather_pages",
     "scatter_pages", "gather_pages_pair", "scatter_pages_pair",
     "kv_read_stream", "decode_step_trace", "prefill_trace",
     "simulate_serving_trace", "simulate_serving_stream", "ALLOC_POLICIES",
@@ -194,12 +203,78 @@ def allocate_pages(cfg: PagedKVConfig, state: PageTableState,
     return PageTableState(pt, state.seq_lens, new_used), page_id
 
 
+class PagedKVState(NamedTuple):
+    """Reference-path cache state: dense 4-D pools + the page table."""
+    k_pool: torch.Tensor       # (n_pages, page_len, KV, HD) bank-major
+    v_pool: torch.Tensor
+    pages: PageTableState
+
+
+def init_state(cfg: PagedKVConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device="cuda") -> PagedKVState:
+    shape = (cfg.n_pages, cfg.page_len, cfg.kv_heads, cfg.head_dim)
+    return PagedKVState(
+        k_pool=torch.zeros(shape, dtype=dtype, device=device),
+        v_pool=torch.zeros(shape, dtype=dtype, device=device),
+        pages=init_pages(cfg, batch, max_seq, device))
+
+
+def _physical(cfg: PagedKVConfig, page_id: torch.Tensor) -> torch.Tensor:
+    """Logical pool page id -> bank-major physical page (storage row)."""
+    return cfg.layout.physical_row(page_id, cfg.n_pages)
+
+
+# --------------------------------------------------------------------------
+# reference path (plain torch; the oracle the kernel path is pinned to)
+# --------------------------------------------------------------------------
+
+def append_token(cfg: PagedKVConfig, state: PagedKVState, k: torch.Tensor,
+                 v: torch.Tensor) -> PagedKVState:
+    """Write one token's (B, KV, HD) K/V at each sequence's current
+    position, allocating pages on page boundaries (reference write path;
+    the pools are copied, not updated in place)."""
+    pages = state.pages
+    lanes = torch.arange(k.shape[0], device=k.device)
+    need = (pages.seq_lens % cfg.page_len) == 0
+    pages, _ = allocate_pages(cfg, pages, need)
+    page_id = pages.page_table[lanes, pages.seq_lens // cfg.page_len]
+    phys = _physical(cfg, page_id)
+    off = pages.seq_lens % cfg.page_len
+    k_pool, v_pool = state.k_pool.clone(), state.v_pool.clone()
+    k_pool[phys, off] = k.to(k_pool.dtype)
+    v_pool[phys, off] = v.to(v_pool.dtype)
+    return PagedKVState(k_pool, v_pool,
+                        pages._replace(seq_lens=pages.seq_lens + 1))
+
+
+def gather_kv(cfg: PagedKVConfig, state: PagedKVState, max_seq: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Materialize (B, max_seq, KV, HD) K/V + validity mask from the pool
+    (the reference path; ``gather_pages`` is the kernel path for the same
+    physical layout)."""
+    pages = state.pages
+    bsz = pages.page_table.shape[0]
+    n_pages_needed = -(-max_seq // cfg.page_len)
+    pt = pages.page_table[:, :n_pages_needed]          # (B, P) logical ids
+    phys = _physical(cfg, pt.clamp(min=0))
+    shape = (bsz, n_pages_needed * cfg.page_len, cfg.kv_heads, cfg.head_dim)
+    k = state.k_pool[phys].reshape(shape)[:, :max_seq]  # (B, P·L, KV, HD)
+    v = state.v_pool[phys].reshape(shape)[:, :max_seq]
+    idx = torch.arange(max_seq, device=pt.device)
+    valid = idx[None, :] < pages.seq_lens[:, None]
+    mapped = (pt >= 0).repeat_interleave(cfg.page_len, dim=1)[:, :max_seq]
+    return k, v, valid & mapped
+
+
 def bank_load_stats(state) -> dict:
     """Paper-style bank efficiency of the allocation plus occupancy skew:
     ``max`` / ``min`` / ``mean`` occupancy, ``serialization`` (max/mean),
     ``max_min_ratio`` (min clamped to 1 page) and ``mad`` (mean absolute
-    deviation).  Accepts a ``PageTableState`` or a per-bank vector."""
-    used = getattr(state, "bank_used", state)
+    deviation).  Accepts a ``PageTableState``, anything carrying
+    ``.pages`` (a ``PagedKVState``), anything with ``.bank_used`` or a
+    per-bank vector."""
+    pages = getattr(state, "pages", state)
+    used = getattr(pages, "bank_used", pages)
     used = torch.as_tensor(used).float()
     mean = used.mean()
     return {"max": used.max(), "min": used.min(), "mean": mean,
@@ -211,6 +286,12 @@ def bank_load_stats(state) -> dict:
 # --------------------------------------------------------------------------
 # kernel path (the serving hot path: registry kernels on a bank-major pool)
 # --------------------------------------------------------------------------
+
+def pool_rows(pool: torch.Tensor) -> torch.Tensor:
+    """(n_pages, L, KV, HD) pool -> (n_pages, L·KV·HD) kernel view (one
+    page = one bank-major table row; a view, no copy)."""
+    return pool.reshape(pool.shape[0], -1)
+
 
 def gather_pages(arch, cfg: PagedKVConfig, pool2d: torch.Tensor,
                  page_ids: torch.Tensor) -> torch.Tensor:

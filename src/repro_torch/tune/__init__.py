@@ -11,12 +11,15 @@ paged-KV traffic), or any registry kernel plus its call args.  Strategies:
 ``"cycles"`` / ``"area_time"`` (Fig 9; pass ``capacity_kb``) /
 ``"us_per_token"``.  See search.py.
 
-The reference's live counterpart, ``OnlineTuner`` / ``online`` (a
-rolling-window re-pricer over ``engine.step_trace()`` blocks), is not
-ported yet: it comes with the complete cost engine (``BlockCostCache``).
+``tune.online(engine, window=...)`` is the live counterpart: a
+rolling-window re-pricer over ``engine.step_trace()`` blocks that re-ranks
+the lattice incrementally (``BlockCostCache``: only new blocks reach the
+card, or the host with ``device="cpu"``) and recommends hot-swapping the
+winning arch when traffic shifts.  See online.py.
 """
+from repro_torch.tune.online import OnlineTuner, online
 from repro_torch.tune.search import (EXTENDED_SPACE, PAPER_SPACE, ArchSpace,
                                      TuneResult, search)
 
 __all__ = ["ArchSpace", "TuneResult", "search", "PAPER_SPACE",
-           "EXTENDED_SPACE"]
+           "EXTENDED_SPACE", "OnlineTuner", "online"]

@@ -3,14 +3,14 @@ fault plans (``repro_torch.runtime``), the degraded ``!d`` memories and
 their pricing (``core.arch``, ``core.cost_engine``), the scheduler's bank
 loss, ECC page recovery and transient faults, the watchdog and the retry
 primitive, and the live engine's chaos day.  A counterpart of every case of
-``tests/test_faults.py`` that does not need the symbolic prover, each
-compared with the reference's own result on the same inputs
-(numpy seeds; the model weights converted with ``from_jax``), plus 64
-degraded memories priced against the reference, 12 synthesized chaos days
-event for event, the serving bench's chaos pins, the ``serve
---fault-bank`` CLI, and preemption: days checkpointed by a ``preempt``
-event or a tripped guard and resumed, in the port and across the two
-packages.
+``tests/test_faults.py`` (the symbolic prover's refusal of degraded
+memories included), each compared with the reference's own result on the
+same inputs (numpy seeds; the model weights converted with
+``from_jax``), plus 64 degraded memories priced against the reference, 12
+synthesized chaos days event for event, the serving bench's chaos pins,
+the ``serve --fault-bank`` CLI, and preemption: days checkpointed by a
+``preempt`` event or a tripped guard and resumed, in the port and across
+the two packages.
 
 Integers (page ids, traces, cycles, ticks, tokens) are compared exactly.
 The live engines run float32 compute, where the port's greedy tokens equal
@@ -347,6 +347,21 @@ def test_degraded_lattice_prices_equal_the_reference(masked):
     assert _totals(healthy) == _totals(RCE.cost_many(bases, r_tr))
     for b, d in zip(healthy, cold):
         assert d.total_cycles >= b.total_cycles
+
+
+def test_symbolic_prover_rejects_degraded_specs():
+    """The prover refuses a degraded memory, as the reference's does, with
+    the reference's message."""
+    from repro.analysis.symbolic import prove as r_prove
+    from repro.isa.programs import transpose as r_tr_prog
+    from repro_torch.analysis.symbolic import prove
+    from repro_torch.isa.programs import transpose as tr_prog
+    with pytest.raises(NotImplementedError, match="degraded") as got:
+        prove(PA.get("16B-xor").degrade((3,)), tr_prog.symbolic_trace(64))
+    with pytest.raises(NotImplementedError) as want:
+        r_prove(RA.get("16B-xor").degrade((3,)),
+                r_tr_prog.symbolic_trace(64))
+    assert str(got.value) == str(want.value)
 
 
 def test_serving_bench_chaos_pins_hold():

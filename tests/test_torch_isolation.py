@@ -7,9 +7,10 @@ autotune CLI, the cost bench, a scheduled serving day (``serve
 --schedule``), a faulted one (bank loss, page recovery, transient
 retries; ``serve --fault-bank``), the serving bench's ``--check`` and
 ``--chaos --check``, a preempted and resumed day, the model-traffic
-bench's ``--smoke --check``, the quickstart, and training (the train CLI
-and the train example; a hybrid model's train step) run with all three
-blocked from import."""
+bench's ``--smoke --check``, the quickstart, training (the train CLI
+and the train example; a hybrid model's train step), the analysis CLI
+(lint, prove and check on the host) and an online tuner over a smoke
+generation run with all three blocked from import."""
 import ast
 import os
 import subprocess
@@ -373,6 +374,8 @@ def test_training_runs_with_the_reference_blocked(module, argv, tail):
     blocked."""
     out = _run_blocked(
         "import runpy\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # see _torch_train_parity.one_torch_thread\n"
         f"sys.argv = {[module] + argv + ['--device', 'cpu']!r}\n"
         f"runpy.run_module({module!r}, run_name='__main__',"
         " alter_sys=True)\n")
@@ -399,6 +402,82 @@ def test_cpu_hybrid_train_step_runs_with_jax_and_repro_blocked():
         "assert final['aux'] > 0 and final['grad_norm'] > 0, final\n")
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
+
+
+def test_analysis_cli_runs_with_the_reference_blocked():
+    """``python -m repro_torch.analysis --device cpu``, run as ``-m`` runs
+    it, from the repo root (the lint's default path is ``src``)."""
+    script = (
+        "import runpy\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # see _torch_train_parity.one_torch_thread\n"
+        "sys.argv = ['analysis', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.analysis', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n")
+    cwd = os.getcwd()
+    os.chdir(SRC.parent)
+    try:
+        out = _run_blocked(script)
+    finally:
+        os.chdir(cwd)
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+    lines = out.stdout.splitlines()
+    assert lines[0] == "lint: 0 finding(s) over src"
+    assert "prove: facts hold — 16B-xor transpose loads conflict-free; " \
+        "16B lsb column stores 16-way serialized" in lines
+    assert "check: ServeEngine recorded serving_stream: ok (4 blocks, " \
+        "28 ops, 28 instructions)" in lines
+    assert "analysis: OK" in lines
+
+
+def test_online_tuner_over_a_generation_runs_with_the_reference_blocked():
+    out = _run_blocked(
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)  # see _torch_train_parity.one_torch_thread\n"
+        "from repro_torch import tune\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.configs.base import RunConfig\n"
+        "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.serving.engine import ServeEngine\n"
+        "cfg = get_smoke_config('llama3.2-1b')\n"
+        "params = init_tree(model_specs(cfg), torch.Generator()"
+        ".manual_seed(0), device='cpu')\n"
+        "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
+        " params, max_batch=2, max_seq=24, device='cpu')\n"
+        "eng.generate(np.random.default_rng(0).integers(0, cfg.vocab_size,"
+        " (2, 10)), max_new_tokens=6)\n"
+        "tuner = tune.online(eng, window=3, device='cpu')\n"
+        "recs = [tuner.step(eng.step_trace(i)) for i in range(5)]\n"
+        "assert [r['window_blocks'] for r in recs] == [1, 2, 3, 3, 3]\n"
+        "assert tuner.cache.stats['hits'] > 0\n"
+        "assert tuner.reprice(full_rebuild=True) == tuner.reprice()\n"
+        "print('winner', recs[-1]['winner'])\n")
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout and "winner " in out.stdout
+
+
+def test_new_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.analysis.symbolic import cross_check
+    from repro_torch.models.trace import model_step_symbolic
+    from repro_torch.serving.kvcache import init_state
+    from repro_torch.tune.online import OnlineTuner
+    for fn in (cross_check, OnlineTuner.__init__, init_state,
+               model_step_symbolic):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    import pytest
+    import torch
+
+    from repro_torch.analysis.__main__ import main
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            main(["--prove"])
+        assert e.value.code == 2
 
 
 def test_default_device_is_the_card():
