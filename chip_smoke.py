@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card: the quickest proof that the port builds, serves (dense, MoE,
-SSM and hybrid models), trains (those and the audio and vision models)
-and reproduces the paper's Tables II and III, dispatches MoE requests and
+SSM and hybrid models), trains (those and the audio and vision models,
+on one device and on a mesh) and reproduces the paper's Tables II and III, dispatches MoE requests and
 runs the kernel micro-bench on the GPU.
 
     python3 chip_smoke.py
@@ -280,7 +280,17 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                recurrent steps (within 1e-4 of the largest), and the
                bytes one layer keeps for its backward; phi3.5-moe's first
                MoE layer's router stream in a training forward through
-               the dispatch kernel, bit-equal to the registry's ``ref``.
+               the dispatch kernel, bit-equal to the registry's ``ref``;
+ 17. mesh    — meshes and collectives on a one-rank NCCL group:
+               ``make_current_mesh()`` is (1, 1); the ``Trainer`` on it
+               trains llama3.2-1b at full width, 3 steps of 16 x 64, with
+               the one-device ``Trainer``'s losses; the smoke config
+               checkpointed on the mesh and restored by
+               ``elastic_restore`` onto a fresh (1, 1) mesh; ``moe_a2a``
+               at full width of phi3.5-moe against ``moe_gshard``; a
+               one-stage ``pipelined`` against its serial stage; step
+               times, peak memory and the wall time beside the card's
+               name and power limit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -4381,6 +4391,246 @@ def phase_train_families(smi: str) -> dict:
             "router_launches": router["launches"]}
 
 
+#: the mesh phase: the train CLI's shapes (global batch x seq), steps
+MESH_TRAIN = (16, 64, 3)
+#: moe_a2a at full width of phi3.5-moe: (batch, seq) of one data rank's
+#: rows, 1024 tokens (one gshard group, so both dispatches cap alike)
+MESH_MOE_ROWS = (2, 512)
+#: the one-stage pipeline: microbatches, rows a microbatch, width
+MESH_PIPE = (8, 16, 4096)
+
+
+def phase_mesh(smi: str) -> dict:
+    """Meshes and collectives (slice 7b) on the card, on a one-rank NCCL
+    group that the phase starts and ends: (a) ``make_current_mesh()`` is
+    (1, 1); (b) the ``Trainer`` on that mesh trains llama3.2-1b at full
+    width for 3 steps at the train CLI's shapes (16 x 64, dense
+    attention), its losses equal to the one-device ``Trainer``'s on the
+    same seed (every collective is the identity at one rank: the largest
+    relative difference printed, rtol 1e-5 gates it), two runs of each
+    in turns; (c) the smoke
+    config trained on the mesh for 4 steps and checkpointed (full arrays;
+    at full width a checkpoint is 15 GB of f32 state, more than the
+    phase needs to write), restored by ``elastic_restore`` onto a fresh
+    (1, 1) mesh at step 4, every leaf equal, and by the mesh ``Trainer``'s
+    own resume (leaf by leaf, each rank's block), every leaf equal; (d) ``moe_a2a`` at full
+    width of phi3.5-moe (d_model 4096, 16 experts, top-2, d_ff 6400, 5 GB
+    of f32 expert weights) called directly (``a2a_applicable`` is false
+    at tp = 1, as in the reference), ``y`` within 1e-4 of max |y| and
+    ``aux`` within 1e-4 of ``moe_gshard``'s; (e) ``pipelined`` with one
+    stage against the serial stage, within 1e-5.  Step times, peak device
+    memory and the phase's wall time are printed beside the card's name
+    and power limit; no kernel of the seven is launched."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import (compat_make_mesh, init_distributed,
+                                         mesh_shape)
+    from repro_torch.launch.sharding import make_axes, to_placements
+    from repro_torch.models import count_params
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe_a2a import a2a_applicable, moe_a2a
+    from repro_torch.models.params import init_tree, leaves, tree_map
+    from repro_torch.runtime.elastic import elastic_restore, make_current_mesh
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.pipeline import pipelined, stack_stage_params
+    from repro_torch.train.step import init_train_state, state_placements
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    t_phase = time.perf_counter()
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    checks, record = {}, {"nvidia_smi": smi}
+    if dist.is_initialized():
+        raise AssertionError("a process group is already running")
+    init_distributed("cuda")
+    try:
+        checks["NCCL one-rank group"] = (dist.get_backend() == "nccl"
+                                         and dist.get_world_size() == 1)
+        # (a)
+        mesh = make_current_mesh()
+        checks["(a) make_current_mesh() is (1, 1)"] = (
+            mesh_shape(mesh) == {"data": 1, "model": 1}
+            and mesh.device_type == "cuda")
+
+        # (b) one device, then the mesh, same seed and data
+        cfg = get_config("llama3.2-1b")
+        n_params = count_params(T.model_specs(cfg))
+        batch, seq, n_steps = MESH_TRAIN
+        rc = RunConfig(remat="none", attn_impl="dense", learning_rate=1e-3,
+                       warmup_steps=1)
+        ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch, seed=0)
+        # in turns, one device, mesh, mesh, one device; a run's result is
+        # dropped before the next starts, so each peak is its own
+        runs = {"one device": [], "mesh (1, 1)": []}
+        for tag in ("one device", "mesh (1, 1)", "mesh (1, 1)",
+                    "one device"):
+            on = mesh if tag.startswith("mesh") else None
+            steps, peak = _run_steps(
+                "mesh", f"(b) {tag}", lambda: Trainer(
+                    cfg, rc, TrainerConfig(total_steps=n_steps, log_every=1),
+                    ds, mesh=on, device="cuda").run(), n_params, smi)[1:]
+            runs[tag].append({"steps": steps, "peak_gb": peak})
+            gc.collect()
+            torch.cuda.empty_cache()
+        losses = {k: [[s["loss"] for s in r["steps"]] for r in v]
+                  for k, v in runs.items()}
+        one = losses["one device"][0]
+        loss_rel = max(abs(a - b) / abs(b) for run in
+                       losses["mesh (1, 1)"] + losses["one device"][1:]
+                       for a, b in zip(run, one))
+        times = {k: [s["s"] for r in v for s in r["steps"][1:]]
+                 for k, v in runs.items()}
+        peaks = {k: [r["peak_gb"] for r in v] for k, v in runs.items()}
+        ratio = float(np.median(times["mesh (1, 1)"]) /
+                      np.median(times["one device"]))
+        log(f"[mesh] (b) llama3.2-1b {batch} x {seq}, losses on the mesh "
+            f"{losses['mesh (1, 1)']} vs one device "
+            f"{losses['one device']}: largest relative difference "
+            f"{loss_rel:.3g}; steps 1-{n_steps - 1} of two runs each "
+            f"{times['mesh (1, 1)']} s vs {times['one device']} s, median "
+            f"ratio {ratio:.4f}; peaks {peaks['mesh (1, 1)']} vs "
+            f"{peaks['one device']} GB ({smi})")
+        checks["(b) 3 finite steps each"] = all(
+            len(r["steps"]) == n_steps and np.isfinite(
+                [s["loss"] for s in r["steps"]]).all()
+            for v in runs.values() for r in v)
+        checks["(b) mesh losses == one device's (rtol 1e-5)"] = (
+            loss_rel <= 1e-5)
+        record["train"] = {**runs, "loss_rel": loss_rel,
+                           "median_step_ratio": ratio}
+
+        # (c) checkpoint on the mesh, elastic restore onto a fresh (1, 1)
+        smoke = get_smoke_config("llama3.2-1b")
+        rc_s = RunConfig(remat="none", attn_impl="dense",
+                         learning_rate=3e-3, warmup_steps=2)
+        ds_s = SyntheticLM(vocab_size=smoke.vocab_size, seq_len=32,
+                           global_batch=8, seed=1, branching=2)
+        (ROOT / "build").mkdir(exist_ok=True)
+        ck = tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build")
+        try:
+            out = Trainer(smoke, rc_s, TrainerConfig(
+                total_steps=4, ckpt_dir=ck, ckpt_every=2, log_every=1),
+                ds_s, mesh=mesh, device="cuda").run()
+            # the mesh Trainer's own resume: each full array read on the
+            # host, this rank's block kept; at step 4 of 4 nothing trains
+            resumed = Trainer(smoke, rc_s, TrainerConfig(
+                total_steps=4, ckpt_dir=ck, ckpt_every=2, log_every=1),
+                ds_s, mesh=mesh, device="cuda").run()["state"]
+            fresh_mesh = make_current_mesh()
+            specs = state_placements(smoke, rc_s, make_axes(fresh_mesh,
+                                                            rc_s))
+            template = tree_map(lambda t, spec: distribute_tensor(
+                t, fresh_mesh, to_placements(spec, fresh_mesh)),
+                init_train_state(smoke, rc_s, torch.Generator(
+                    device="cuda").manual_seed(9), "cuda"), specs)
+            state, step = elastic_restore(ck, template)
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        same = leaves(tree_map(
+            lambda t, u: torch.equal(t.full_tensor(), u),
+            {"p": state.params, "m": state.opt.m, "v": state.opt.v},
+            {"p": out["state"].params, "m": out["state"].opt.m,
+             "v": out["state"].opt.v}))
+        checks["(c) restored at step 4 onto a fresh (1, 1) mesh"] = (
+            step == 4 and all(isinstance(t, DTensor)
+                              for t in leaves(state.params)))
+        checks["(c) every restored leaf == the trained one"] = all(same)
+        same_resumed = leaves(tree_map(
+            torch.equal, {"p": resumed.params, "m": resumed.opt.m,
+                          "v": resumed.opt.v},
+            {"p": out["state"].params, "m": out["state"].opt.m,
+             "v": out["state"].opt.v}))
+        checks["(c) the mesh Trainer resumes at step 4, every leaf =="] = (
+            int(resumed.step) == 4 and all(same_resumed))
+        record["elastic"] = {"step": step, "leaves": len(same),
+                             "trainer_resumed_step": int(resumed.step)}
+        del out, state, template, resumed
+
+        # (d) moe_a2a at full width of phi3.5-moe against moe_gshard
+        moe_cfg = get_config("phi3.5-moe-42b-a6.6b")
+        ax = make_axes(mesh, None)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_tree(M.moe_specs(moe_cfg), gen, torch.float32, "cuda")
+        x = torch.randn(*MESH_MOE_ROWS, moe_cfg.d_model, generator=gen,
+                        device="cuda")
+        def timed(fn):
+            """fn's result and the host time of a second, warm call."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        with torch.no_grad():
+            (y_ref, aux_ref), gshard_s = timed(
+                lambda: M.moe_gshard(moe_cfg, p, x))
+            (y, aux), a2a_s = timed(lambda: moe_a2a(moe_cfg, p, x, ax))
+        y_err = (y - y_ref).abs().max().item()
+        y_max = y_ref.abs().max().item()
+        aux_err = abs(aux.item() - aux_ref.item())
+        weights_gb = sum(t.numel() * 4 for t in p.values()) / 1e9
+        log(f"[mesh] (d) moe_a2a at full width of phi3.5-moe "
+            f"({MESH_MOE_ROWS[0]} x {MESH_MOE_ROWS[1]} tokens, "
+            f"{weights_gb:.3f} GB of f32 weights): max |y - gshard| "
+            f"{y_err:.6g} of max |y| {y_max:.6g} (tolerance 1e-4 of it), "
+            f"aux {aux.item():.9g} vs {aux_ref.item():.9g}; a warm call "
+            f"{a2a_s * 1e3:.2f} ms, gshard's {gshard_s * 1e3:.2f} ms "
+            f"({smi})")
+        checks["(d) a2a_applicable false at tp = 1"] = not a2a_applicable(
+            moe_cfg, ax, MESH_MOE_ROWS[1])
+        checks["(d) moe_a2a y == gshard (1e-4 of max |y|)"] = (
+            y_err <= 1e-4 * y_max)
+        checks["(d) moe_a2a aux == gshard (1e-4)"] = aux_err <= 1e-4
+        record["moe_a2a"] = {"y_err": y_err, "y_max": y_max,
+                             "aux_err": aux_err, "weights_gb": weights_gb,
+                             "call_ms": a2a_s * 1e3,
+                             "gshard_call_ms": gshard_s * 1e3}
+        del p, x, y, y_ref
+
+        # (e) a one-stage pipeline: the ring is a local copy
+        n_micro, rows, width = MESH_PIPE
+        stage_mesh = compat_make_mesh((1,), ("stage",))
+        w = torch.randn(width, width, generator=gen, device="cuda") * \
+            width ** -0.5
+        b = 0.1 * torch.randn(width, generator=gen, device="cuda")
+        xs = torch.randn(n_micro, rows, width, generator=gen, device="cuda")
+
+        def stage_fn(q, h):
+            return torch.tanh(h @ q["w"] + q["b"])
+        got = pipelined(stage_fn, stage_mesh, "stage")(
+            stack_stage_params([{"w": w, "b": b}]), xs)
+        serial = torch.stack([stage_fn({"w": w, "b": b}, x) for x in xs])
+        pipe_err = (got - serial).abs().max().item()
+        log(f"[mesh] (e) one-stage pipeline, {n_micro} microbatches of "
+            f"{rows} x {width}: max |ring - serial| {pipe_err:.3g} "
+            f"(tolerance 1e-5)")
+        checks["(e) one-stage pipeline == serial (1e-5)"] = pipe_err <= 1e-5
+        record["pipeline_err"] = pipe_err
+    finally:
+        dist.destroy_process_group()
+    launches = {name: e.launches for name, e in entries.items()}
+    checks["no kernel launched"] = not any(launches.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[mesh] phase wall {wall:.2f} s ({smi}); kernel launches "
+        f"{launches}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"mesh checks failed: {checks}")
+    return {**record, "checks": checks, "launches": launches,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4439,6 +4689,8 @@ def main() -> int:
     # the training points need the card's memory: the families phase
     # freed its models
     record["train_families"] = phase_train_families(smi)
+    # a one-rank NCCL group of its own, started and ended in the phase
+    record["mesh"] = phase_mesh(smi)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda

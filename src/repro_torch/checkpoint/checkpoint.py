@@ -203,16 +203,22 @@ def _stored_dtype_ok(arr: np.ndarray, name: str) -> bool:
     return True
 
 
-def restore_checkpoint(directory: str, step: int, like, device=None):
+def restore_checkpoint(directory: str, step: int, like, device=None,
+                       place=None):
     """Restore into the structure of ``like`` (a tree of tensors, of
     anything with ``.shape`` and ``.dtype``, or of Python scalars).  Each
     tensor lands on ``device``, else on its template leaf's device, else
-    the CPU."""
+    the CPU.  ``place``, a tree of callables of ``like``'s structure,
+    maps each array, read on the host, to what is kept of it (a mesh
+    rank's block) before it moves, so no more than one whole leaf is
+    held at a time."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "arrays.npz"))
     leaves_like = [leaf for _, leaf in _flatten_with_paths(like)]
+    keep = [f for _, f in _flatten_with_paths(place)] if place is not None \
+        else [None] * len(leaves_like)
     if len(leaves_like) != len(manifest["paths"]):
         raise ValueError(
             f"checkpoint step {step} in {directory} has "
@@ -244,7 +250,8 @@ def restore_checkpoint(directory: str, step: int, like, device=None):
                 f"config than the one checkpointed")
         where = device if device is not None else getattr(ref, "device",
                                                           "cpu")
-        out.append(_as_tensor(arr, saved_dtype).to(where))
+        host = _as_tensor(arr, saved_dtype)
+        out.append((host if keep[i] is None else keep[i](host)).to(where))
     return _unflatten(like, out)
 
 
@@ -276,9 +283,11 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, copy: bool = True) -> None:
+        """Write ``state`` at ``step`` on the worker thread.  ``copy=False``
+        takes a tree that is already a private host copy as it is."""
         self.wait()
-        snapshot = _snapshot(state)
+        snapshot = _snapshot(state) if copy else state
 
         def work():
             try:

@@ -79,6 +79,11 @@ def output_mux_controls(schedule: torch.Tensor,
     return delayed.transpose(-1, -2)
 
 
+def writeback_strobe(out_controls: torch.Tensor) -> torch.Tensor:
+    """Logical OR across a lane's bank column = the SP writeback enable."""
+    return (out_controls.sum(dim=-1) > 0).to(torch.int32)
+
+
 def grant_positions(banks: torch.Tensor, n_banks: int,
                     mask: torch.Tensor | None = None) -> torch.Tensor:
     """Analytic form of the grant schedule: the cycle on which each lane is

@@ -3,7 +3,9 @@ from repro_torch.kernels.banked_gather.ops import (banked_gather,
                                                    banked_gather_plain,
                                                    banked_gather_symbolic,
                                                    banked_gather_trace,
-                                                   banked_gather_trace_blocks)
+                                                   banked_gather_trace_blocks,
+                                                   from_banked_layout,
+                                                   to_banked_layout)
 from repro_torch.kernels.banked_gather.ref import banked_gather_ref
 from repro_torch.kernels.registry import Kernel, register
 
@@ -34,4 +36,5 @@ register(Kernel(
     description="bank-major row gather (paged KV read path)",
 ))
 
-__all__ = ["banked_gather", "banked_gather_pair", "banked_gather_plain"]
+__all__ = ["banked_gather", "banked_gather_pair", "banked_gather_plain",
+           "to_banked_layout", "from_banked_layout"]

@@ -25,6 +25,24 @@ import torch
 from repro_torch.core.arch import BankedLayout, physical_row_of
 from repro_torch.kernels.cuda_lib import CudaEntry, EntryGroup
 
+def physical_rows(v: int, n_banks: int, mapping: str,
+                  device="cuda") -> torch.Tensor:
+    """logical row -> physical (bank-major) row of a ``v``-row table, as
+    an int64 permutation on ``device``."""
+    return BankedLayout(n_banks, mapping).physical_rows(v, device)
+
+
+def to_banked_layout(table: torch.Tensor, n_banks: int,
+                     mapping: str = "lsb") -> torch.Tensor:
+    """Host-side relayout: scatter logical rows into bank-major order."""
+    return BankedLayout(n_banks, mapping).to_banked(table)
+
+
+def from_banked_layout(table_banked: torch.Tensor, n_banks: int,
+                       mapping: str = "lsb") -> torch.Tensor:
+    return BankedLayout(n_banks, mapping).from_banked(table_banked)
+
+
 #: map-name -> the kernel's MapKind code
 MAP_CODES = {"lsb": 0, "offset": 1, "xor": 2, "fold": 3}
 

@@ -9,8 +9,13 @@ Every config trains: dense, MoE (its aux loss in the total), SSM, hybrid,
 and the audio and vision configs on ``SyntheticLM``'s frontend
 embeddings.  The flags are the reference's.  ``--device cpu`` trains on
 the host (the tests do); without it the run needs the card and fails
-where there is none.  ``--mesh`` (multi-device training) is ROADMAP item
-27 and is refused.
+where there is none.  ``--mesh`` trains on ``make_current_mesh()`` over
+every rank of the launch: under ``torchrun`` it joins the launch's
+process group (NCCL on the card, gloo with ``--device cpu``), without it
+a one-rank group.
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch llama3.2-1b --steps 4 --mesh
 
   python -m repro_torch.launch.train --arch falcon-mamba-7b --smoke \
       --steps 2 --device cpu
@@ -21,10 +26,13 @@ import argparse
 import logging
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.runtime.elastic import make_current_mesh
 from repro_torch.train import Trainer, TrainerConfig
 
 
@@ -42,15 +50,10 @@ def main(argv=None) -> dict:
                     choices=["none", "dots", "full"])
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--mesh", action="store_true",
-                    help="build a mesh from visible devices (not ported: "
-                         "ROADMAP item 27)")
+                    help="train on a mesh of every rank of the launch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to train (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: multi-device training is not ported yet (ROADMAP "
-                 "item 27: meshes and collectives); the port trains on one "
-                 "device")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device; training runs on the card "
                          "(pass --device cpu to train on the host)")
@@ -66,8 +69,18 @@ def main(argv=None) -> dict:
                      if cfg.frontend else 0, d_model=cfg.d_model)
     tc = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
                        ckpt_every=max(args.steps // 4, 1))
-    out = Trainer(cfg, rc, tc, ds, device=args.device).run()
-    print("final:", out["final"])
+    started = args.mesh and not dist.is_initialized()
+    if args.mesh:
+        init_distributed(args.device)
+    try:
+        mesh = make_current_mesh() if args.mesh else None
+        out = Trainer(cfg, rc, tc, ds, mesh=mesh, device=args.device).run()
+        lead = not args.mesh or dist.get_rank() == 0
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if lead:              # every rank's metrics are the whole batch's
+        print("final:", out["final"])
     return out
 
 

@@ -23,7 +23,7 @@ NEG_INF = -2.0 ** 30
 
 
 def rmsnorm_spec(d: int) -> Leaf:
-    return Leaf((d,), init="ones")
+    return Leaf((d,), ("embed",), init="ones")
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -61,15 +61,16 @@ def attn_specs(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = fan_in_scale(d)
     p = {
-        "wq": Leaf((d, h, hd), scale=s),
-        "wk": Leaf((d, kv, hd), scale=s),
-        "wv": Leaf((d, kv, hd), scale=s),
-        "wo": Leaf((h, hd, d), scale=fan_in_scale(h * hd)),
+        "wq": Leaf((d, h, hd), ("embed", "heads", "head_dim"), scale=s),
+        "wk": Leaf((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=s),
+        "wv": Leaf((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=s),
+        "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed"),
+                   scale=fan_in_scale(h * hd)),
     }
     if cfg.qkv_bias:
-        p["bq"] = Leaf((h, hd), init="zeros")
-        p["bk"] = Leaf((kv, hd), init="zeros")
-        p["bv"] = Leaf((kv, hd), init="zeros")
+        p["bq"] = Leaf((h, hd), ("heads", "head_dim"), init="zeros")
+        p["bk"] = Leaf((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = Leaf((kv, hd), ("kv_heads", "head_dim"), init="zeros")
     return p
 
 
@@ -211,9 +212,9 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def mlp_specs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w1": Leaf((d, f), scale=fan_in_scale(d)),
-        "w3": Leaf((d, f), scale=fan_in_scale(d)),
-        "w2": Leaf((f, d), scale=fan_in_scale(f)),
+        "w1": Leaf((d, f), ("embed", "ffn"), scale=fan_in_scale(d)),
+        "w3": Leaf((d, f), ("embed", "ffn"), scale=fan_in_scale(d)),
+        "w2": Leaf((f, d), ("ffn", "embed"), scale=fan_in_scale(f)),
     }
 
 

@@ -26,15 +26,19 @@ def ssm_specs(cfg: ModelConfig) -> dict:
     d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
                       cfg.ssm_conv)
     return {
-        "in_proj": Leaf((d, 2 * di), scale=fan_in_scale(d)),
-        "conv_w": Leaf((k, di), scale=fan_in_scale(k)),
-        "conv_b": Leaf((di,), init="zeros"),
-        "x_proj": Leaf((di, r + 2 * n), scale=fan_in_scale(di)),
-        "dt_proj": Leaf((r, di), scale=fan_in_scale(r)),
-        "dt_bias": Leaf((di,), init="zeros"),
-        "A_log": Leaf((di, n), init="ones"),
-        "D_skip": Leaf((di,), init="ones"),
-        "out_proj": Leaf((di, d), scale=fan_in_scale(di)),
+        "in_proj": Leaf((d, 2 * di), ("embed", "dinner"),
+                        scale=fan_in_scale(d)),
+        "conv_w": Leaf((k, di), ("conv", "dinner"), scale=fan_in_scale(k)),
+        "conv_b": Leaf((di,), ("dinner",), init="zeros"),
+        "x_proj": Leaf((di, r + 2 * n), ("dinner", None),
+                       scale=fan_in_scale(di)),
+        "dt_proj": Leaf((r, di), ("dt_rank", "dinner"),
+                        scale=fan_in_scale(r)),
+        "dt_bias": Leaf((di,), ("dinner",), init="zeros"),
+        "A_log": Leaf((di, n), ("dinner", "state"), init="ones"),
+        "D_skip": Leaf((di,), ("dinner",), init="ones"),
+        "out_proj": Leaf((di, d), ("dinner", "embed"),
+                         scale=fan_in_scale(di)),
     }
 
 

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.launch.sharding import NO_AXES, Axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -45,7 +46,7 @@ def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
 def model_specs(cfg: ModelConfig) -> dict:
     vp, d = cfg.padded_vocab(), cfg.d_model
     specs = {
-        "embed": Leaf((vp, d), scale=1.0),
+        "embed": Leaf((vp, d), ("vocab", "embed"), scale=1.0),
         "final_norm": L.rmsnorm_spec(d),
         "blocks": {},
     }
@@ -53,7 +54,8 @@ def model_specs(cfg: ModelConfig) -> dict:
         specs["blocks"][f"b{j}"] = stack_specs(
             block_specs(cfg, kind, is_moe), cfg.n_superblocks)
     if not cfg.tie_embeddings:
-        specs["lm_head"] = Leaf((d, vp), scale=fan_in_scale(d))
+        specs["lm_head"] = Leaf((d, vp), ("embed", "vocab"),
+                                scale=fan_in_scale(d))
     return specs
 
 
@@ -73,9 +75,11 @@ def superblock_params(params: dict, j: int, sb: int) -> dict:
 
 
 def apply_block(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
-                kind: str, is_moe: bool, j: int, positions=None):
+                kind: str, is_moe: bool, j: int, positions=None, *,
+                ax: Axes = NO_AXES):
     """Pre-norm residual block; returns (x, aux_loss).  An SSM mixer's
-    state cache is dropped; a MoE FFN's load-balance loss is the aux."""
+    state cache is dropped; a MoE FFN's load-balance loss is the aux.
+    ``ax`` is the mesh the MoE FFN routes on (``NO_AXES``: one device)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
@@ -88,7 +92,7 @@ def apply_block(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
     x = x + h
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if is_moe:
-        h, aux = M.moe(cfg, rc, p["ffn"], h)
+        h, aux = M.moe(cfg, rc, p["ffn"], h, ax=ax)
     else:
         h = L.mlp(cfg, p["ffn"], h)
     if cfg.post_block_norms:
@@ -133,7 +137,8 @@ def _unbind_superblocks(tree, n: int) -> list:
 
 
 def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
-                  tokens: torch.Tensor, frontend=None):
+                  tokens: torch.Tensor, frontend=None, *,
+                  ax: Axes = NO_AXES):
     """Shared trunk: final-norm'd hidden states (B, S, D) + MoE aux (the
     sum over every block of every superblock).  S counts the frontend's
     positions, which come first."""
@@ -146,7 +151,7 @@ def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, (kind, is_moe) in enumerate(pattern):
             x, a = apply_block(cfg, rc, block_params[j], x, kind, is_moe, j,
-                               positions)
+                               positions, ax=ax)
             aux = aux + a
         return x, aux
 
@@ -162,9 +167,9 @@ def hidden_states(cfg: ModelConfig, rc: RunConfig, params: dict,
 
 
 def forward(cfg: ModelConfig, rc: RunConfig, params: dict,
-            tokens: torch.Tensor, frontend=None):
+            tokens: torch.Tensor, frontend=None, *, ax: Axes = NO_AXES):
     """Training/scoring forward pass -> (logits (B, S, Vp), aux_loss)."""
-    x, aux = hidden_states(cfg, rc, params, tokens, frontend)
+    x, aux = hidden_states(cfg, rc, params, tokens, frontend, ax=ax)
     return _unembed(cfg, params, x), aux
 
 
@@ -193,7 +198,8 @@ def _sharded_ce(cfg: ModelConfig, params: dict, h: torch.Tensor,
     return (lse - tl).mean()
 
 
-def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict, *,
+            ax: Axes = NO_AXES):
     """Next-token cross-entropy (+ MoE aux) over the text region; returns
     (loss + aux term, {"loss", "aux"}).  With a frontend of F positions
     the prediction at position F - 1 + t scores text token t, the first
@@ -203,11 +209,12 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
     target = tokens if f else tokens[:, 1:]
     if rc.ce_impl == "sharded":
         h, aux = hidden_states(cfg, rc, params, tokens,
-                               batch.get("frontend"))
+                               batch.get("frontend"), ax=ax)
         loss = _sharded_ce(cfg, params, h[:, f - 1:-1] if f else h[:, :-1],
                            target)
     else:
-        logits, aux = forward(cfg, rc, params, tokens, batch.get("frontend"))
+        logits, aux = forward(cfg, rc, params, tokens, batch.get("frontend"),
+                              ax=ax)
         pred = logits[:, f - 1:-1] if f else logits[:, :-1]
         logp = F.log_softmax(pred.float(), dim=-1)
         loss = -torch.gather(logp, -1, target[..., None])[..., 0].mean()

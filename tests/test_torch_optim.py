@@ -191,10 +191,11 @@ def test_global_norm_and_init_specs():
     np.testing.assert_allclose(float(PA.global_norm(_torch(t))),
                                float(RA.global_norm(
                                    jax.tree.map(jnp.asarray, t))), rtol=RTOL)
-    specs = {"a": Leaf((3, 2)), "b": {"c": Leaf((4,), init="ones")}}
-    none = PA.adamw_init_specs(specs, compression="none")
-    ef = PA.adamw_init_specs(specs, compression="int8_ef")
+    specs = {"a": Leaf((3, 2), ("embed", "ffn")),
+             "b": {"c": Leaf((4,), ("embed",), init="ones")}}
+    none = PA.adamw_init_specs(specs, zero1=False, compression="none")
+    ef = PA.adamw_init_specs(specs, zero1=False, compression="int8_ef")
     assert none.ef is None and none._fields == ("m", "v", "ef")
     for tree in (none.m, none.v, ef.ef):
-        assert tree == {"a": Leaf((3, 2), init="zeros"),
-                        "b": {"c": Leaf((4,), init="zeros")}}
+        assert tree == {"a": Leaf((3, 2), ("embed", "ffn"), init="zeros"),
+                        "b": {"c": Leaf((4,), ("embed",), init="zeros")}}

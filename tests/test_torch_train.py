@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.checkpoint.checkpoint import restore_checkpoint as r_restore
 from repro.checkpoint.checkpoint import save_checkpoint as r_save
@@ -37,7 +38,8 @@ from repro_torch.data import SyntheticLM
 from repro_torch.examples import train_lm
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as PT
-from repro_torch.runtime import elastic_restore
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.runtime import elastic_restore, make_current_mesh
 from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
                                make_train_step)
 from repro_torch.train.step import train_state_from_jax
@@ -244,9 +246,17 @@ def test_preemption_takes_a_checkpoint(tmp_path):
                                            ckpt_every=10**6, log_every=1),
                   DS, metrics_cb=cb, device="cpu").run()
     assert latest_step(ckdir) == 4 and out["final"]["loss"] > 0
-    with pytest.raises(NotImplementedError, match="item 27"):
-        Trainer(SMOKE, RC, TrainerConfig(total_steps=1), DS, mesh=object(),
+    # on a (one-rank) mesh the ranks agree to stop and gather the shards
+    init_distributed("cpu")
+    try:
+        ckdir = str(tmp_path / "ck_mesh")
+        Trainer(SMOKE, RC, TrainerConfig(total_steps=1000, ckpt_dir=ckdir,
+                                         ckpt_every=10**6, log_every=1),
+                DS, mesh=make_current_mesh(), metrics_cb=cb,
                 device="cpu").run()
+        assert latest_step(ckdir) == 4
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("compression", ["none", "int8_ef"])
@@ -341,10 +351,10 @@ def test_non_dense_smoke_archs_train_as_the_reference(arch, monkeypatch,
 
 
 def test_cli_refuses_mesh_and_needs_the_card_by_default(capsys):
-    with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "llama3.2-1b", "--smoke", "--mesh",
-                        "--device", "cpu"])
-    assert "item 27" in capsys.readouterr().err
+    # --mesh trains on a one-rank group it starts and ends
+    out = train_cli.main(["--arch", "llama3.2-1b", "--smoke", "--mesh",
+                          "--device", "cpu", "--steps", "1"])
+    assert out["final"]["loss"] > 0 and not dist.is_initialized()
     with pytest.raises(SystemExit):
         train_lm.main(["--arch", "llama3.2-1b", "--device", "cpu"])
     if not torch.cuda.is_available():
