@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card: the quickest proof that the port builds, serves (dense, MoE,
 SSM and hybrid models), trains (those and the audio and vision models,
-on one device and on a mesh) and reproduces the paper's Tables II and III, dispatches MoE requests and
-runs the kernel micro-bench on the GPU.
+on one device and on a mesh), reproduces the paper's Tables II and III,
+dispatches MoE requests, runs the kernel micro-bench and counts a step
+exactly against the dry run on the GPU.
 
     python3 chip_smoke.py
 
@@ -290,7 +291,23 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                at full width of phi3.5-moe against ``moe_gshard``; a
                one-stage ``pipelined`` against its serial stage; step
                times, peak memory and the wall time beside the card's
-               name and power limit.
+               name and power limit;
+ 18. dryrun  — the compile-only accounting: llama3.2-1b whole at the
+               train CLI's step (16 x 64, remat none) dry-run on a (1, 1)
+               stand-in and run for real on the card under the same
+               counting: FLOPs and bytes equal exactly, the argument
+               bytes equal the ``TrainState`` and batch's; the predicted
+               peak and the H100 roofline terms printed beside the
+               measured peak and step time; the reference's three
+               end-to-end cells at full config on the 256-card stand-in
+               through the dry-run CLI (three subprocesses, started with
+               the script so that their host work runs beside the other
+               phases), each cell's trace seconds and host cost per op,
+               FLOPs per device, memory, collectives by kind, dominant
+               term, whether it fits 80 GB, and whether its step is
+               modelled (inference on a mesh, which the port does not
+               serve); ``launch.summarize`` and the driver's ``table1``
+               and ``roofline`` sections over their artifacts.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -4631,6 +4648,291 @@ def phase_mesh(smi: str) -> dict:
             "wall_s": wall}
 
 
+#: (a): llama3.2-1b whole at the train CLI's step (batch, seq), remat none
+DRYRUN_STEP = (16, 64)
+#: (b): the reference's three end-to-end cells (tests/test_dryrun_e2e.py),
+#: full configs on the 256-card stand-in
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("jamba-v0.1-52b", "decode_32k"),
+                ("phi3.5-moe-42b-a6.6b", "prefill_32k"))
+#: (b)'s trace subprocesses may take this long from the script's start
+#: (phi3.5-moe's prefill at 32k tokens dispatches about 0.9 million ops)
+DRYRUN_TIMEOUT_S = 700
+
+
+def _tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a tree of dicts and (named) tuples."""
+    if isinstance(tree, dict):
+        return sum(map(_tensor_bytes, tree.values()))
+    if isinstance(tree, tuple):
+        return sum(map(_tensor_bytes, tree))
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def start_dryrun_cells() -> dict:
+    """(b)'s three cells, each through the dry-run CLI (``python -m
+    repro_torch.launch.dryrun``, fake CUDA tensors, no allocation) in a
+    subprocess of its own at a lower priority, all started together:
+    {(arch, shape): (the process, its log, its start time)}."""
+    import os
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        log_path = ROOT / "build" / f"dryrun_{arch}__{shape}.log"
+        with open(log_path, "w") as fh:
+            procs[(arch, shape)] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--device", "cuda",
+                 "--out", str(out_dir)], cwd=ROOT, env=env, stdout=fh,
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10)),
+                log_path, time.perf_counter())
+    return procs
+
+
+def stop_dryrun_cells(procs: dict) -> None:
+    """Kill any of (b)'s subprocesses still running."""
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def phase_dryrun(smi: str, procs: dict) -> dict:
+    """The compile-only accounting (slice 8) on the card.  (b), the
+    reference's three end-to-end cells at full config on the 256-card
+    stand-in, was started with the script (``start_dryrun_cells``) and
+    has traced beside every earlier phase; this phase waits for what is
+    left of it after (a).  (a) The
+    yardstick held on the card: llama3.2-1b whole at the train CLI's step
+    (16 x 64, remat none, f32 parameters, bf16 compute) dry-run by
+    ``lower_cell`` on a (1, 1) stand-in, then the same step function run
+    for real on the card under the same counting (``analyze``): the
+    adjusted FLOPs and bytes equal the real step's exactly and the
+    argument bytes equal those of the real ``TrainState`` and batch
+    (hard checks); printed beside them, not gated: the predicted peak
+    (arguments + temporaries) against ``torch.cuda.max_memory_allocated``
+    and the three roofline terms and ``roofline_fraction`` against the
+    measured step time (steps 1-3 uncounted), and the trace's host cost
+    per op with the counter and without it.  (b) For each cell: trace
+    seconds and their cost per op, FLOPs per device, arguments,
+    temporaries, collective GiB by kind, the dominant term, whether it
+    fits 80 GB, and whether the step is modelled (an inference cell on a
+    mesh: the port serves on one device).  (c) The
+    reporting path over (b)'s artifacts: ``launch.summarize`` and the
+    driver's ``table1`` and ``roofline`` sections.  No kernel of the
+    seven is launched."""
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.bench.run import main as run_main
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import summarize
+    from repro_torch.launch.dryrun import (_default_rc, artifact_path,
+                                           cell_inputs, lower_cell)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.dryrun import materialize
+    from repro_torch.launch.hlo_analysis import CollectiveLog, analyze
+    from repro_torch.launch.mesh import StandInMesh
+    from repro_torch.launch.roofline import PEAK_FLOPS, adjusted, cell_roofline
+    from repro_torch.launch.sharding import make_axes
+    from repro_torch.train.step import init_train_state
+
+    t_phase = time.perf_counter()
+    entries = _entries()
+    for e in entries.values():
+        e.launches = 0
+    checks, record = {}, {"nvidia_smi": smi}
+    out_dir = ROOT / "build" / "dryrun"
+    done_before = {cell: proc.poll() is not None
+                   for cell, (proc, _, _) in procs.items()}
+    # (a) the yardstick: the dry run against the real step on the card
+    cfg = get_config("llama3.2-1b")
+    batch_n, seq = DRYRUN_STEP
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batch_n,
+                                seq_len=seq)
+    over = {"remat": "none", "attn_impl": "dense"}
+    mesh = StandInMesh({"data": 1, "model": 1})
+    t0 = time.perf_counter()
+    art = lower_cell("llama3.2-1b", shape, False, over, verbose=False,
+                     mesh=mesh, device="cuda")
+    dry_s = time.perf_counter() - t0
+    rc = _default_rc("train", over)
+    step, structs = cell_inputs(cfg, rc, shape, make_axes(mesh, rc))
+    # the trace's host cost per op, with the counter and without it
+    per_op = {}
+    with FakeTensorMode():
+        fake = materialize(structs, "cuda")
+        with CollectiveLog():
+            step(*fake)                  # the fake kernels' first calls
+        t0 = time.perf_counter()
+        with CollectiveLog():
+            step(*fake)
+        per_op["bare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_ops = analyze(step, *fake)[1]["ops"]
+        per_op["counted"] = time.perf_counter() - t0
+        del fake
+    per_op = {k: 1e6 * v / n_ops for k, v in per_op.items()}
+    state = init_train_state(cfg, rc, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                        global_batch=batch_n, seed=0).batch(
+        0, device="cuda")
+    real_args = _tensor_bytes((state, batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, _), real = analyze(step, state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, 4):
+        b = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                        global_batch=batch_n, seed=0).batch(
+            i, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        loss = float(met["loss"])
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    mem = art["full"]["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    r = cell_roofline(art)
+    step_s = float(np.median(times))
+    flops_eq = adjusted(art, "flops") == real["flops"]
+    bytes_eq = adjusted(art, "bytes_accessed") == real["bytes_accessed"]
+    args_eq = (mem["argument_bytes"] == real["memory"]["argument_bytes"]
+               == real_args)
+    log(f"[dryrun] (a) llama3.2-1b {batch_n} x {seq}, remat none, on a "
+        f"(1, 1) stand-in: dry run {dry_s:.2f} s; FLOPs dry "
+        f"{adjusted(art, 'flops'):.0f} vs the real step's "
+        f"{real['flops']} (equal: {flops_eq}; matmuls "
+        f"{real['matmul_flops']}), bytes "
+        f"{adjusted(art, 'bytes_accessed'):.0f} vs "
+        f"{real['bytes_accessed']} (equal: {bytes_eq}), argument "
+        f"bytes {mem['argument_bytes']} vs {real['memory']['argument_bytes']}"
+        f" counted, {real_args} of the TrainState and batch (equal: "
+        f"{args_eq}); the counted step {counted_s:.3f} s; the fake "
+        f"trace's host cost {per_op['counted']:.1f} us an op counted, "
+        f"{per_op['bare']:.1f} us uncounted ({n_ops} ops)")
+    log(f"[dryrun] (a) predicted peak (args + temp) {predicted / 1e9:.3f}"
+        f" GB vs torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB over"
+        f" steps 1-3 (PR 32: 24.142 GB); roofline terms compute "
+        f"{r.compute_s * 1e3:.3f} ms, memory {r.memory_s * 1e3:.3f} ms "
+        f"(lower bound {r.memory_lb_s * 1e3:.3f}), collective "
+        f"{r.collective_s * 1e3:.3f} ms, dominant {r.dominant}, "
+        f"roofline_fraction {r.roofline_fraction:.4f} (opt "
+        f"{r.roofline_fraction_opt:.4f}); measured steps 1-3 "
+        f"{[round(t, 4) for t in times]} s, median {step_s:.4f} s, so "
+        f"the dominant bound is {100 * r.dominant_s / step_s:.2f} % of "
+        f"the step and 6·N·D at the bf16 peak "
+        f"{100 * r.model_flops / PEAK_FLOPS / step_s:.2f} % "
+        f"(loss {loss:.5g}; {smi})")
+    checks["(a) adjusted FLOPs == the real step's"] = flops_eq
+    checks["(a) adjusted bytes == the real step's"] = bytes_eq
+    checks["(a) argument bytes == TrainState + batch"] = args_eq
+    checks["(a) finite loss"] = bool(np.isfinite(loss))
+    record["yardstick"] = {
+        "flops": real["flops"], "matmul_flops": real["matmul_flops"],
+        "bytes_accessed": real["bytes_accessed"], "ops": real["ops"],
+        "memory": mem, "real_memory": real["memory"],
+        "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
+        "compute_s": r.compute_s, "memory_s": r.memory_s,
+        "memory_lb_s": r.memory_lb_s, "collective_s": r.collective_s,
+        "dominant": r.dominant, "roofline_fraction":
+            r.roofline_fraction, "roofline_fraction_opt":
+            r.roofline_fraction_opt, "step_s": times, "dry_s": dry_s,
+        "counted_step_s": counted_s, "trace_us_per_op": per_op}
+    del state, batch, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the three cells' subprocesses
+    record["cells"] = {}
+    t_wait = time.perf_counter()
+    for (arch, shape_name), (proc, log_path, t0) in procs.items():
+        rc_ = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+            time.perf_counter() - t0)))
+        wall = time.perf_counter() - t0
+        if rc_:
+            raise AssertionError(f"dry run of {arch} x {shape_name} "
+                                 f"exited {rc_}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        with open(artifact_path(str(out_dir), arch, shape_name,
+                                "single")) as fh:
+            cell = json.load(fh)
+        rf = cell_roofline(cell)
+        m = cell["full"]["memory"]
+        ops = cell["full"]["ops"]
+        coll = {k: v / 2 ** 30 for k, v in
+                cell["full"]["collectives"].items()
+                if k not in ("total", "count")}
+        log(f"[dryrun] (b) {arch} x {shape_name} on the 256-card "
+            f"stand-in: trace {cell['compile_s']:.1f} s ({ops} ops, "
+            f"{1e6 * cell['compile_s'] / ops:.1f} us an op; the "
+            f"subprocess {wall:.1f} s from the script's start, done "
+            f"before this phase: {done_before[(arch, shape_name)]}); "
+            f"FLOPs/device "
+            f"{adjusted(cell, 'flops'):.4e}, args "
+            f"{m['argument_bytes'] / 2 ** 30:.3f} GiB, temp "
+            f"{m['temp_bytes'] / 2 ** 30:.3f} GiB, collectives "
+            f"{ {k: round(v, 3) for k, v in coll.items()} } GiB; "
+            f"dominant {rf.dominant} (compute {rf.compute_s:.4f} s, "
+            f"memory {rf.memory_s:.4f} s, collective "
+            f"{rf.collective_s:.4f} s), fits 80G: "
+            f"{'Y' if rf.fits_hbm else 'N'}"
+            + (f"; modelled: {cell['modelled']}" if "modelled" in cell
+               else ""))
+        checks[f"(b) {arch} x {shape_name} counted"] = (
+            cell["chips"] == 256 and adjusted(cell, "flops") ==
+            cell["full"]["flops"] > 0 and ("modelled" in cell) ==
+            (cell["kind"] != "train"))
+        record["cells"][f"{arch}__{shape_name}"] = {
+            "compile_s": cell["compile_s"], "lower_s": cell["lower_s"],
+            "subprocess_s": wall, "ops": ops,
+            "done_before_phase": done_before[(arch, shape_name)],
+            "modelled": "modelled" in cell,
+            "flops": cell["full"]["flops"], "memory": m,
+            "collective_gib": coll, "dominant": rf.dominant,
+            "compute_s": rf.compute_s, "memory_s": rf.memory_s,
+            "collective_s": rf.collective_s, "fits_80g": rf.fits_hbm}
+    record["wait_s"] = time.perf_counter() - t_wait
+
+    # (c) the reporting path over (b)'s artifacts
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summarize.main(["--dir", str(out_dir.parent)])
+        run_main(["table1", "roofline", "--device", "cuda"])
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[dryrun] (c) {line}")
+    names = [f"roofline_{a}_{s}," for a, s in DRYRUN_CELLS]
+    # an inference cell on the stand-in mesh is a modelled step
+    checks["(c) summarize lists the three cells"] = all(
+        f"| {a} | {s}{'' if SHAPES[s].kind == 'train' else ' (modelled)'} "
+        f"| single |" in text for a, s in DRYRUN_CELLS)
+    checks["(c) the driver's table1 and roofline sections"] = (
+        "# --- table1 ---" in text and "# --- roofline ---" in text
+        and all(any(l.startswith(n) for l in text.splitlines())
+                for n in names))
+    launches = {name: e.launches for name, e in entries.items()}
+    checks["no kernel launched"] = not any(launches.values())
+    wall = time.perf_counter() - t_phase
+    log(f"[dryrun] phase wall {wall:.2f} s ({smi}); kernel launches "
+        f"{launches}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"dryrun checks failed: {checks}")
+    return {**record, "checks": checks, "launches": launches,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4639,6 +4941,19 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    # the dry run's (b) is host work on fake tensors: it runs beside every
+    # other phase, and the dryrun phase reads what it wrote
+    procs = start_dryrun_cells()
+    try:
+        return run_phases(procs)
+    finally:
+        stop_dryrun_cells(procs)
+
+
+def run_phases(procs: dict) -> int:
+    """Every phase in order, then the kernels' record and the last lines
+    (``procs``: the dry run's (b), started by ``main``)."""
+    import torch
     torch.manual_seed(0)
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -4691,6 +5006,8 @@ def main() -> int:
     record["train_families"] = phase_train_families(smi)
     # a one-rank NCCL group of its own, started and ended in the phase
     record["mesh"] = phase_mesh(smi)
+    # the compile-only accounting: the whole step counted against the card
+    record["dryrun"] = phase_dryrun(smi, procs)
     record["nvidia_smi"] = smi
     record["torch"] = torch.__version__
     record["cuda"] = torch.version.cuda

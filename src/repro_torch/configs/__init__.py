@@ -1,16 +1,15 @@
 """Architecture registry: --arch <id> resolves here.
 
-The ten model configurations of ``repro.configs``, field for field.  The
-port's model code runs the dense attention families; the MoE, SSM, hybrid,
-audio and vision configurations are priced as whole-model decode traffic
-(``repro_torch.models.trace``), and ``models.transformer`` refuses to build
-them before any weight is made.
+The ten model configurations of ``repro.configs``, field for field, and
+the assigned (architecture x input shape) cells of the compile-only
+accounting (``SHAPES``, ``shapes_for``, ``all_cells``).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, RunConfig,
+                                      ShapeConfig)
 
 _MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
@@ -45,5 +44,19 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke()
 
 
-__all__ = ["ARCH_IDS", "LONG_CONTEXT_ARCHS", "ModelConfig", "RunConfig", "get_config",
-           "get_smoke_config"]
+def shapes_for(arch: str) -> tuple[ShapeConfig, ...]:
+    """The assigned shape cells of one architecture: train, prefill and
+    decode, and ``long_500k`` for the sub-quadratic ones."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if arch in LONG_CONTEXT_ARCHS:
+        out.append(SHAPES["long_500k"])
+    return tuple(out)
+
+
+def all_cells() -> list[tuple[str, ShapeConfig]]:
+    return [(a, s) for a in ARCH_IDS for s in shapes_for(a)]
+
+
+__all__ = ["ARCH_IDS", "LONG_CONTEXT_ARCHS", "SHAPES", "ModelConfig",
+           "RunConfig", "ShapeConfig", "get_config", "get_smoke_config",
+           "shapes_for", "all_cells"]

@@ -4,13 +4,15 @@ importing this module creates no process group.
 
 A mesh here is what ``init_device_mesh`` returns.  The sharding layer also
 takes a stand-in with only ``.shape`` (a dict of axis sizes) and
-``.axis_names``, so that placements can be resolved for the 256- and
-512-chip production meshes that no process group here can build.
+``.axis_names`` (``StandInMesh``), so that placements can be resolved, and
+a step counted by the dry run, for the 256- and 512-chip production meshes
+that no process group here can build.
 """
 from __future__ import annotations
 
 import math
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -66,6 +68,24 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape = MULTI_POD if multi_pod else SINGLE_POD
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return compat_make_mesh(shape, axes)
+
+
+@dataclass(frozen=True)
+class StandInMesh:
+    """A mesh's shape with no ranks behind it: ``shape`` is {axis name:
+    size}.  Its collectives move nothing (``launch/sharding.py``)."""
+    shape: dict
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+
+def production_stand_in(*, multi_pod: bool = False) -> StandInMesh:
+    """``make_production_mesh``'s shape as a stand-in."""
+    shape = MULTI_POD if multi_pod else SINGLE_POD
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return StandInMesh(dict(zip(axes, shape)))
 
 
 def axis_names(mesh) -> tuple:

@@ -25,7 +25,9 @@ placements.  The model itself runs on plain tensors, never on DTensors:
 ``shard``, ``act`` and ``heads_act`` are identities (in the reference they
 are layout hints that leave the numbers unchanged), and the trainer moves
 shards with the collectives below, each an autograd function whose
-backward is its forward's exact adjoint.
+backward is its forward's exact adjoint (``all_reduce_`` in place, for a
+gradient's reduction).  Every collective of a step goes through them, so
+a ``CollectiveLog`` sees them all; on a stand-in mesh they are dry.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.hlo_analysis import record_collective
 from repro_torch.launch.mesh import axis_names, mesh_shape
 
 # logical -> preferred mesh axis (in resolution priority per param)
@@ -182,14 +185,59 @@ def local_shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
         idx, n = 0, 1
         for a in _entry_axes(entry):
-            idx = idx * sizes[a] + mesh.get_local_rank(a)
+            idx = idx * sizes[a] + local_rank(mesh, a)
             n *= sizes[a]
         if n > 1:
             out = out.tensor_split(n, dim=d)[idx]
     return out
 
 
-# -- differentiable collectives ----------------------------------------------
+# -- collectives ------------------------------------------------------------
+#
+# Each collective below is recorded in the active ``CollectiveLog``s
+# (``launch/hlo_analysis.py``) by its per-device output bytes.  On a
+# stand-in mesh (no ``get_group``: a shape and axis names only) it is "dry":
+# the same tensors are made as on a process group, and nothing is sent.
+
+@dataclass(frozen=True)
+class _StandInGroup:
+    """A stand-in mesh axis's group: its size; this process is rank 0."""
+    size: int
+
+
+def _group(mesh, axis: str):
+    if hasattr(mesh, "get_group"):
+        return mesh.get_group(axis)
+    return _StandInGroup(mesh_shape(mesh)[axis])
+
+
+def local_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 on a stand-in mesh)."""
+    return mesh.get_local_rank(axis) if hasattr(mesh, "get_local_rank") \
+        else 0
+
+
+def _size(group) -> int:
+    return group.size if isinstance(group, _StandInGroup) else \
+        dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return 0 if isinstance(group, _StandInGroup) else dist.get_rank(group)
+
+
+def _collective(kind: str, nbytes: int, group, send) -> None:
+    """Record the collective, then ``send()`` it unless it is dry."""
+    dry = isinstance(group, _StandInGroup)
+    record_collective(kind, nbytes, dry)
+    if not dry:
+        send()
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    _collective("all-reduce", x.numel() * x.element_size(), group,
+                lambda: dist.all_reduce(x, op=op, group=group))
+
 
 class _AllGather(torch.autograd.Function):
     """Concatenate the group's tensors along ``dim``.  Backward: the sum
@@ -198,19 +246,28 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
-            group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        n = _size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        x = x.contiguous()
+        _collective("all-gather", n * x.numel() * x.element_size(), group,
+                    lambda: dist.all_gather(parts, x, group=group))
         return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         # a copy: autograd may hand the same gradient to other consumers
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        n = dist.get_world_size(ctx.group)
-        me = dist.get_rank(ctx.group)
+        _all_reduce(g, ctx.group)
+        n, me = _size(ctx.group), _rank(ctx.group)
         return g.tensor_split(n, dim=ctx.dim)[me].contiguous(), None, None
+
+
+def _all_to_all_single(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    x = x.contiguous()
+    _collective("all-to-all", out.numel() * out.element_size(), group,
+                lambda: dist.all_to_all_single(out, x, group=group))
+    return out
 
 
 class _AllToAll(torch.autograd.Function):
@@ -220,15 +277,11 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
+        return _all_to_all_single(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
+        return _all_to_all_single(g, ctx.group), None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -238,13 +291,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -253,7 +306,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     along ``dim`` in rank order (differentiable)."""
     if mesh_shape(mesh)[axis] == 1:
         return x
-    return _AllGather.apply(x, mesh.get_group(axis), dim)
+    return _AllGather.apply(x, _group(mesh, axis), dim)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -261,7 +314,7 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     result from rank j (differentiable)."""
     if mesh_shape(mesh)[axis] == 1:
         return x
-    return _AllToAll.apply(x, mesh.get_group(axis))
+    return _AllToAll.apply(x, _group(mesh, axis))
 
 
 def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -270,7 +323,19 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     sizes = mesh_shape(mesh)
     for a in axes:
         if sizes[a] > 1:
-            x = _AllReduceSum.apply(x, mesh.get_group(a))
+            x = _AllReduceSum.apply(x, _group(mesh, a))
+    return x
+
+
+def all_reduce_(x: torch.Tensor, mesh, axes,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced with ``op`` over the ranks along every mesh axis in
+    ``axes``, in place (no autograd: a gradient's reduction, a norm's
+    maximum); returns ``x``."""
+    sizes = mesh_shape(mesh)
+    for a in axes:
+        if sizes[a] > 1:
+            _all_reduce(x, _group(mesh, a), op)
     return x
 
 

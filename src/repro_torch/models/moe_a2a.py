@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.arbiter import grant_positions
 from repro_torch.launch.mesh import axis_names, chips
 from repro_torch.launch.sharding import (Axes, all_gather, all_reduce_sum,
-                                         all_to_all, local_shard)
+                                         all_to_all, local_rank, local_shard)
 from repro_torch.models.layers import _act
 from repro_torch.models.moe import capacity
 
@@ -118,7 +118,7 @@ def moe_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor, ax: Axes):
     # ---- local expert FFN ----
     if split_experts:
         # rank j serves expert j // r
-        own = mesh.get_local_rank(tp_axis) // r
+        own = local_rank(mesh, tp_axis) // r
         w1f, w2f, w3f = (p[n][own].to(dt) for n in ("w1", "w2", "w3"))
         xin = recv.reshape(tp * cap_v, d)       # (tp·Cv, D) one vexpert
         h = _act(cfg.act, xin @ w1f) * (xin @ w3f)

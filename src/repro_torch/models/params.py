@@ -1,6 +1,8 @@
 """Parameter-spec trees (port of ``repro.models.params``): one declaration
 drives random init from a ``torch.Generator``, the conversion of the
-reference's parameters (``from_jax``) and sharding resolution.
+reference's parameters (``from_jax``), sharding resolution and the
+described, never allocated, tensors of the compile-only accounting
+(``shape_tree``).
 
 A tree is nested dicts of ``Leaf``s with the reference's structure and key
 names, so a parameter path means the same tensor in both packages.  Each
@@ -62,6 +64,48 @@ def spec_tree(specs, resolver):
     leaf.shape)`` for every leaf (``Axes.resolve``'s per-dimension
     entries)."""
     return tree_map_leaves(lambda l: resolver(l.axes, l.shape), specs)
+
+
+@dataclass(frozen=True)
+class ShapeStruct:
+    """A tensor described and never made (the port's counterpart of
+    ``jax.ShapeDtypeStruct``): its global ``shape`` and ``dtype``, its
+    placement ``spec`` (``Axes.resolve``'s entry per dimension; ``None``
+    off a mesh) and ``local_shape``, one rank's block of it."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: tuple | None = None
+    local_shape: tuple = ()
+
+
+def _local_shape(shape: tuple, spec, mesh) -> tuple:
+    """The global shape divided, dimension by dimension, by the sizes of
+    the mesh axes its spec entry names."""
+    if spec is None:
+        return tuple(shape)
+    from repro_torch.launch.mesh import mesh_shape
+    sizes = mesh_shape(mesh)
+    out = []
+    for dim, entry in zip(shape, spec):
+        for a in (() if entry is None else
+                  entry if isinstance(entry, tuple) else (entry,)):
+            dim //= sizes[a]
+        out.append(dim)
+    return tuple(out)
+
+
+def shape_tree(specs, dtype=torch.float32, resolver=None, mesh=None):
+    """The ``ShapeStruct`` tree of a spec tree, every leaf ``dtype``;
+    with a ``resolver`` (``Axes.resolve``) and a ``mesh`` (a
+    ``DeviceMesh`` or a stand-in), each leaf's spec and local shape.
+    Nothing is allocated."""
+    def f(leaf: Leaf) -> ShapeStruct:
+        spec = None
+        if resolver is not None and mesh is not None:
+            spec = tuple(resolver(leaf.axes, leaf.shape))
+        return ShapeStruct(tuple(leaf.shape), dtype, spec,
+                           _local_shape(leaf.shape, spec, mesh))
+    return tree_map_leaves(f, specs)
 
 
 def leaves(tree) -> list:

@@ -59,6 +59,42 @@ def model_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                stacked: bool = True) -> dict:
+    """Decode-state spec tree (KV / SSM caches), logical-axes tagged, in
+    ``prefill``'s layout: an attention block's {"k", "v"} over the
+    sequence or its window, an SSM block's {"h", "conv"}.  stacked=False
+    gives one superblock's slice (the dry run's block module)."""
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    blocks = {}
+    for j, (kind, _) in enumerate(cfg.block_pattern()):
+        if kind == "attn":
+            t = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+                else seq_len
+            if cfg.local_global and j % 2 == 0:
+                t = min(seq_len, cfg.local_window)
+            kv = Leaf((batch, t, kvh, hd),
+                      ("batch", "seq", "kv_heads", "head_dim"), init="zeros")
+            leaf = {"k": kv, "v": kv}
+        else:
+            leaf = {"h": Leaf((batch, di, n), ("batch", "dinner", "state"),
+                              init="zeros"),
+                    "conv": Leaf((batch, k - 1, di),
+                                 ("batch", "conv", "dinner"), init="zeros")}
+        if stacked:
+            leaf = stack_specs(leaf, cfg.n_superblocks)
+        blocks[f"b{j}"] = leaf
+    return {"blocks": blocks}
+
+
+def superblock_param_specs(cfg: ModelConfig) -> tuple:
+    """One (unstacked) superblock's parameter specs, a tuple over the
+    config's ``block_pattern()``."""
+    return tuple(block_specs(cfg, kind, is_moe)
+                 for kind, is_moe in cfg.block_pattern())
+
+
 def _block_window(cfg: ModelConfig, j: int) -> int:
     if cfg.local_global:
         return cfg.local_window if j % 2 == 0 else 0

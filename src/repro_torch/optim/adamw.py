@@ -31,7 +31,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_names
-from repro_torch.launch.sharding import all_reduce_sum, replicas
+from repro_torch.launch.sharding import (all_reduce_, all_reduce_sum,
+                                         replicas)
 from repro_torch.models.params import (Leaf, leaves, tree_map,
                                        tree_map_leaves)
 
@@ -108,9 +109,8 @@ def adamw_update(params, grads, opt: OptState, step, *, lr, beta1=0.9,
         gnorm = _mesh_global_norm(grads, mesh, specs)
 
         def amax_of(x):
-            x = x.clone()
-            dist.all_reduce(x, op=dist.ReduceOp.MAX)
-            return x
+            return all_reduce_(x.clone(), mesh, axis_names(mesh),
+                               op=dist.ReduceOp.MAX)
     clip = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             if grad_clip else 1.0)
     stepf = torch.as_tensor(step).to(torch.float32) + 1

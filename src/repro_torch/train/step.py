@@ -26,12 +26,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.launch.mesh import axis_names, chips, mesh_shape
-from repro_torch.launch.sharding import (NO_AXES, Axes, all_reduce_sum,
-                                         gather_shard, spec_axes)
+from repro_torch.launch.sharding import (NO_AXES, Axes, all_reduce_,
+                                         all_reduce_sum, gather_shard,
+                                         spec_axes)
 from repro_torch.models import transformer as T
 from repro_torch.models.params import (Leaf, from_jax, init_tree, leaves,
                                        spec_tree, tree_map)
@@ -144,9 +144,8 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig,
         sizes = mesh_shape(mesh)
 
         def one(t, spec):
-            for a, n in sizes.items():
-                if n > 1 and a not in spec_axes(spec):
-                    dist.all_reduce(t, group=mesh.get_group(a))
+            held = spec_axes(spec)
+            all_reduce_(t, mesh, [a for a in sizes if a not in held])
             return t.div_(chips(mesh))
         return tree_map(one, g, specs)
 

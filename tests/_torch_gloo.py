@@ -317,3 +317,59 @@ def moe_step(rank, out, moe_impl, state_dir, capacity_factor, seq):
              **{"p" + n: t.numpy() for n, t in _flatten_with_paths(params)},
              loss=metrics["loss"].numpy(), aux=metrics["aux"].numpy(),
              grad_norm=metrics["grad_norm"].numpy())
+
+
+def real_inputs(tree, seed: int = 0):
+    """Tensors for a tree of ``ShapeStruct``s (``launch/dryrun.py``'s
+    cells): each struct's local shape and dtype on the host, floats drawn
+    at 0.02 scale, integers in [0, 8) (valid token ids and positions)."""
+    import torch
+    from repro_torch.models.params import ShapeStruct
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(s):
+        if isinstance(s, ShapeStruct):
+            if s.dtype.is_floating_point:
+                return (0.02 * torch.randn(s.local_shape, generator=gen)
+                        ).to(s.dtype)
+            return torch.randint(0, 8, s.local_shape, generator=gen,
+                                 dtype=s.dtype)
+        if isinstance(s, dict):
+            return {k: make(v) for k, v in s.items()}
+        if isinstance(s, tuple):
+            parts = [make(v) for v in s]
+            return type(s)(*parts) if hasattr(s, "_fields") else tuple(parts)
+        return s
+    return make(tree)
+
+
+def dryrun_cell(arch: str, shape_name: str, batch: int, seq: int, mesh,
+                overrides=None):
+    """The dry run's step of one cell (``arch``'s smoke config, the
+    shape cut to ``batch`` x ``seq``, ``RunConfig`` ``overrides``) on
+    ``mesh`` and its inputs' structs."""
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.launch.dryrun import _default_rc, cell_inputs
+    from repro_torch.launch.sharding import make_axes
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch,
+                                seq_len=seq)
+    rc = _default_rc(shape.kind, overrides)
+    return cell_inputs(get_smoke_config(arch), rc, shape,
+                       make_axes(mesh, rc))
+
+
+def dryrun_cells(rank, out, cells):
+    """Each cell's step (``dryrun_cell``) run on real tensors on a (2, 2)
+    mesh under ``analyze``: its collective bytes and counts."""
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.mesh import compat_make_mesh
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    rec = []
+    for arch, shape_name, batch, seq, overrides in cells:
+        step, args = dryrun_cell(arch, shape_name, batch, seq, mesh,
+                                 overrides)
+        got = analyze(step, *real_inputs(args, seed=rank))[1]
+        rec.append({"collectives": got["collectives"],
+                    "collective_counts": got["collective_counts"]})
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)

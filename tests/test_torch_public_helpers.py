@@ -1,9 +1,8 @@
 """The reference's public helpers in the port's mirrored modules, held to
 the reference on the inputs of the reference's own uses (integers
 bit-equal), and a sweep of every reference module's public names against
-its port: only the compile-only accounting's modules and names (ROADMAP
-item 28) and the Pallas kernel modules (replaced by ``csrc/*.cu``) may be
-missing."""
+its port: only the Pallas kernel modules (replaced by ``csrc/*.cu``) may
+be missing."""
 import ast
 import dataclasses
 import importlib
@@ -37,20 +36,6 @@ from repro_torch.models.transformer import model_specs
 from repro.configs import get_smoke_config as r_smoke
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-
-#: ROADMAP item 28 (compile-only accounting) owns these
-ITEM_28_MODULES = {f"launch/{m}.py" for m in (
-    "blocks", "dryrun", "hlo_analysis", "inputs", "perf", "roofline",
-    "summarize")}
-ITEM_28_NAMES = {
-    "repro_torch.configs": {"SHAPES", "ShapeConfig", "all_cells",
-                            "shapes_for"},
-    "repro_torch.models": {"cache_specs", "shape_tree"},
-    "repro_torch.models.params": {"shape_tree"},
-    "repro_torch.models.transformer": {"cache_specs",
-                                       "superblock_param_specs"},
-}
-
 
 def test_writeback_strobe_as_the_reference():
     banks = [0, 1, 1, 3, 1, 4, 3, 6]
@@ -175,5 +160,5 @@ def test_every_reference_name_has_a_port():
     pallas = {p.relative_to(SRC / "repro").as_posix()
               for p in (SRC / "repro" / "kernels").glob("*/kernel.py")}
     assert len(pallas) == 7
-    assert missing_modules == ITEM_28_MODULES | pallas
-    assert missing == ITEM_28_NAMES
+    assert missing_modules == pallas
+    assert missing == {}
