@@ -289,9 +289,12 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                checkpointed on the mesh and restored by
                ``elastic_restore`` onto a fresh (1, 1) mesh; ``moe_a2a``
                at full width of phi3.5-moe against ``moe_gshard``; a
-               one-stage ``pipelined`` against its serial stage; step
-               times, peak memory and the wall time beside the card's
-               name and power limit;
+               one-stage ``pipelined`` against its serial stage;
+               ``prefill`` and 8 greedy ``decode_step``s through the mesh
+               path at full width (llama3.2-1b whole, jamba cut to one
+               superblock, bf16 parameters), bit-equal to one device's
+               and at its peak memory; step times, peak memory and the
+               wall time beside the card's name and power limit;
  18. dryrun  — the compile-only accounting: llama3.2-1b whole at the
                train CLI's step (16 x 64, remat none) dry-run on a (1, 1)
                stand-in and run for real on the card under the same
@@ -304,10 +307,12 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                the script so that their host work runs beside the other
                phases), each cell's trace seconds and host cost per op,
                FLOPs per device, memory, collectives by kind, dominant
-               term, whether it fits 80 GB, and whether its step is
-               modelled (inference on a mesh, which the port does not
-               serve); ``launch.summarize`` and the driver's ``table1``
-               and ``roofline`` sections over their artifacts.
+               term and whether it fits 80 GB (an inference cell traces
+               the port's mesh step, beside the all-gather bytes of the
+               modelled step it replaces); a llama3.2-1b decode step (4 x 4096) counted
+               against a real ``decode_step`` on the card the same way;
+               ``launch.summarize`` and the driver's ``table1`` and
+               ``roofline`` sections over their artifacts.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to
@@ -4415,6 +4420,122 @@ MESH_TRAIN = (16, 64, 3)
 MESH_MOE_ROWS = (2, 512)
 #: the one-stage pipeline: microbatches, rows a microbatch, width
 MESH_PIPE = (8, 16, 4096)
+#: (f): inference through the mesh path: (arch, layers; None: all of
+#: them), then batch x prompt and the greedy decode steps
+MESH_INFER_MODELS = (("llama3.2-1b", None), ("jamba-v0.1-52b", 8))
+MESH_INFER = (4, 512, 8)
+
+
+def _grown(cfg, cache: dict, buffer: int) -> dict:
+    """A one-rank prefill cache with each attention leaf padded to the
+    ``buffer``-position decode cache (``cache_specs``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as T
+    want = T.cache_specs(cfg, 1, buffer)["blocks"]
+    return {"blocks": {key: {name: F.pad(t, (0, 0, 0, 0, 0, want[key][
+        name].shape[2] - t.shape[2])) if name in ("k", "v") else t
+        for name, t in block.items()}
+        for key, block in cache["blocks"].items()}}
+
+
+def _mesh_inference(mesh, smi: str) -> tuple:
+    """(f) ``prefill`` and greedy ``decode_step``s (``MESH_INFER``) through
+    the mesh path (``ax`` on the one-rank mesh) against the one-device
+    path (``NO_AXES``), at full width with the dry run's inference
+    ``RunConfig`` (bf16 parameters and compute): llama3.2-1b whole, jamba
+    cut to one superblock (attention, Mamba and MoE decode).  Four runs
+    in turns, one device, mesh, mesh, one device, each from an emptied
+    allocator cache with the earlier runs' outputs on the host: tokens
+    and logits of every run bit-equal to the first's, and the peak device
+    memory above the run's starting allocation of each mesh run equal to
+    the second one-device run's (the first warms the libraries'
+    workspaces).  Returns (checks, record)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _default_rc
+    from repro_torch.launch.sharding import NO_AXES, make_axes
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.models import transformer as T
+
+    rc = _default_rc("decode")
+    batch, prompt, steps = MESH_INFER
+    checks, record = {}, {}
+    for arch, layers in MESH_INFER_MODELS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = f"{arch}" + (f" cut to {layers} layers" if layers else "")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_tree(model_specs(cfg), gen, torch.bfloat16, "cuda")
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                             generator=gen, device="cuda")
+        ax = make_axes(mesh, rc).for_batch(batch)
+
+        def run(on):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, cache = T.prefill(cfg, rc, params, toks, ax=on)
+                cache = _grown(cfg, cache, prompt + steps)
+                outs, picked = [logits[:, -1]], []
+                for i in range(steps + 1):
+                    tok = outs[-1][:, :cfg.vocab_size].argmax(-1,
+                                                              keepdim=True)
+                    picked.append(tok)
+                    if i == steps:
+                        break
+                    logits, cache = T.decode_step(
+                        cfg, rc, params, tok, cache,
+                        torch.tensor(prompt + i, device="cuda"), ax=on)
+                    outs.append(logits[:, -1])
+            torch.cuda.synchronize()
+            out = {"s": time.perf_counter() - t0,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "above_start": torch.cuda.max_memory_allocated() - base,
+                   "tokens": torch.cat(picked, 1).cpu(),
+                   "logits": torch.stack(outs).cpu()}
+            del cache, logits, outs, picked
+            return out
+
+        runs = [(on, run(ax if on == "mesh" else NO_AXES))
+                for on in ("one device", "mesh", "mesh", "one device")]
+        first = runs[0][1]
+        same = [torch.equal(r["tokens"], first["tokens"])
+                and torch.equal(r["logits"], first["logits"])
+                for _, r in runs]
+        peaks = [r["peak_gb"] for _, r in runs]
+        above = [r["above_start"] for _, r in runs]
+        walls = [r["s"] for _, r in runs]
+        log(f"[mesh] (f) {tag}, bf16 parameters ({weights_gb:.3f} GB): "
+            f"prefill {batch} x {prompt} and {steps} greedy decode steps "
+            f"in turns one device / mesh / mesh / one device: walls "
+            f"{[round(w, 4) for w in walls]} s, peaks "
+            f"{[round(p, 6) for p in peaks]} GB "
+            f"(torch.cuda.max_memory_allocated), {above} B above each "
+            f"run's start, tokens and logits "
+            f"bit-equal to the first run's {same}; tokens "
+            f"{first['tokens'][0].tolist()} ({smi})")
+        checks[f"(f) {arch} mesh == one device, bit for bit"] = all(same)
+        checks[f"(f) {arch} mesh peak == one device's"] = (
+            above[1] == above[2] == above[3])
+        checks[f"(f) {arch} finite logits"] = bool(
+            torch.isfinite(first["logits"]).all())
+        record[arch] = {"layers": cfg.n_layers, "weights_gb": weights_gb,
+                        "walls_s": walls, "peaks_gb": peaks,
+                        "peak_above_start_bytes": above, "bit_equal": same}
+        del params, runs, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    return checks, record
 
 
 def phase_mesh(smi: str) -> dict:
@@ -4435,7 +4556,10 @@ def phase_mesh(smi: str) -> dict:
     of f32 expert weights) called directly (``a2a_applicable`` is false
     at tp = 1, as in the reference), ``y`` within 1e-4 of max |y| and
     ``aux`` within 1e-4 of ``moe_gshard``'s; (e) ``pipelined`` with one
-    stage against the serial stage, within 1e-5.  Step times, peak device
+    stage against the serial stage, within 1e-5; (f) inference through
+    the mesh path (``_mesh_inference``): llama3.2-1b whole and jamba cut
+    to one superblock, prefill and 8 greedy decode steps, bit-equal to
+    one device's and at its peak memory.  Step times, peak device
     memory and the phase's wall time are printed beside the card's name
     and power limit; no kernel of the seven is launched."""
     import shutil
@@ -4633,6 +4757,13 @@ def phase_mesh(smi: str) -> dict:
             f"(tolerance 1e-5)")
         checks["(e) one-stage pipeline == serial (1e-5)"] = pipe_err <= 1e-5
         record["pipeline_err"] = pipe_err
+        del w, b, xs, got, serial
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) inference through the mesh path
+        more, record["inference"] = _mesh_inference(mesh, smi)
+        checks.update(more)
     finally:
         dist.destroy_process_group()
     launches = {name: e.launches for name, e in entries.items()}
@@ -4650,6 +4781,14 @@ def phase_mesh(smi: str) -> dict:
 
 #: (a): llama3.2-1b whole at the train CLI's step (batch, seq), remat none
 DRYRUN_STEP = (16, 64)
+#: (a'): llama3.2-1b whole, a decode step at (batch, seq)
+DRYRUN_DECODE = (4, 4096)
+#: (b): the inference cells' per-device all-gather GiB as the dry run
+#: counted them before inference ran on a mesh, in a modelled step (each
+#: rank gathered its weights whole and its cache over every dimension but
+#: the batch's)
+DRYRUN_MODELLED_GIB = {("jamba-v0.1-52b", "decode_32k"): 106.161,
+                       ("phi3.5-moe-42b-a6.6b", "prefill_32k"): 82.84}
 #: (b): the reference's three end-to-end cells (tests/test_dryrun_e2e.py),
 #: full configs on the 256-card stand-in
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("jamba-v0.1-52b", "decode_32k"),
@@ -4657,6 +4796,30 @@ DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("jamba-v0.1-52b", "decode_32k"),
 #: (b)'s trace subprocesses may take this long from the script's start
 #: (phi3.5-moe's prefill at 32k tokens dispatches about 0.9 million ops)
 DRYRUN_TIMEOUT_S = 700
+
+
+def _card_inputs(tree, seed: int = 0):
+    """Tensors on the card for a tree of ``ShapeStruct``s: each struct's
+    local shape and dtype, floats drawn at 0.02 scale, integers in [0, 8)
+    (valid token ids and positions)."""
+    import torch
+
+    from repro_torch.models.params import ShapeStruct
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(s):
+        if isinstance(s, ShapeStruct):
+            if s.dtype.is_floating_point:
+                return (0.02 * torch.randn(s.local_shape, generator=gen,
+                                           device="cuda")).to(s.dtype)
+            return torch.randint(0, 8, s.local_shape, generator=gen,
+                                 dtype=s.dtype, device="cuda")
+        if isinstance(s, dict):
+            return {k: make(v) for k, v in s.items()}
+        if isinstance(s, tuple):
+            return tuple(make(v) for v in s)
+        return s
+    return make(tree)
 
 
 def _tensor_bytes(tree) -> int:
@@ -4715,11 +4878,17 @@ def phase_dryrun(smi: str, procs: dict) -> dict:
     (arguments + temporaries) against ``torch.cuda.max_memory_allocated``
     and the three roofline terms and ``roofline_fraction`` against the
     measured step time (steps 1-3 uncounted), and the trace's host cost
-    per op with the counter and without it.  (b) For each cell: trace
-    seconds and their cost per op, FLOPs per device, arguments,
-    temporaries, collective GiB by kind, the dominant term, whether it
-    fits 80 GB, and whether the step is modelled (an inference cell on a
-    mesh: the port serves on one device).  (c) The
+    per op with the counter and without it.  (a') An inference cell
+    held the same way: llama3.2-1b whole, a decode step at batch 4 and
+    seq 4096 (bf16 parameters, the dry run's inference ``RunConfig``) on
+    the (1, 1) stand-in, its FLOPs, bytes and argument bytes equal to a
+    real ``decode_step`` on the card under ``analyze`` (hard checks).
+    (b) For each cell: trace seconds and their cost per op, FLOPs per
+    device, arguments, temporaries, collective GiB by kind, the dominant
+    term and whether it fits 80 GB; an inference cell traces the mesh
+    step the port runs (weights gathered a superblock at a time, the
+    cache kept where the reference keeps it), printed beside the
+    all-gather bytes of the modelled step it replaces.  (c) The
     reporting path over (b)'s artifacts: ``launch.summarize`` and the
     driver's ``table1`` and ``roofline`` sections.  No kernel of the
     seven is launched."""
@@ -4854,6 +5023,44 @@ def phase_dryrun(smi: str, procs: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (a') an inference cell: a decode step, dry and on the card
+    d_batch, d_seq = DRYRUN_DECODE
+    d_shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=d_batch,
+                                  seq_len=d_seq)
+    t0 = time.perf_counter()
+    d_art = lower_cell("llama3.2-1b", d_shape, False, verbose=False,
+                       mesh=mesh, device="cuda")
+    d_dry_s = time.perf_counter() - t0
+    d_rc = _default_rc("decode")
+    d_step, d_structs = cell_inputs(cfg, d_rc, d_shape, make_axes(mesh,
+                                                                  d_rc))
+    d_args = _card_inputs(d_structs)
+    # no_grad, as the fake trace runs: inference_mode dispatches other ops
+    with torch.no_grad():
+        d_real = analyze(d_step, *d_args)[1]
+    d_mem = d_art["full"]["memory"]
+    d_eq = {"flops": adjusted(d_art, "flops") == d_real["flops"] > 0,
+            "bytes": adjusted(d_art, "bytes_accessed") ==
+            d_real["bytes_accessed"] > 0,
+            "args": d_mem["argument_bytes"] ==
+            d_real["memory"]["argument_bytes"] == _tensor_bytes(d_args)}
+    log(f"[dryrun] (a') llama3.2-1b decode_32k cut to {d_batch} x {d_seq}"
+        f" on a (1, 1) stand-in: dry run {d_dry_s:.2f} s; FLOPs dry "
+        f"{adjusted(d_art, 'flops'):.0f} vs the real decode_step's "
+        f"{d_real['flops']}, bytes {adjusted(d_art, 'bytes_accessed'):.0f}"
+        f" vs {d_real['bytes_accessed']}, argument bytes "
+        f"{d_mem['argument_bytes']} vs {d_real['memory']['argument_bytes']}"
+        f" counted and {_tensor_bytes(d_args)} of the inputs: equal "
+        f"{d_eq} ({smi})")
+    for k, v in d_eq.items():
+        checks[f"(a') decode {k} == the real step's"] = v
+    record["decode_yardstick"] = {
+        "flops": d_real["flops"], "bytes_accessed": d_real["bytes_accessed"],
+        "memory": d_mem, "real_memory": d_real["memory"], "dry_s": d_dry_s}
+    del d_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (b) the three cells' subprocesses
     record["cells"] = {}
     t_wait = time.perf_counter()
@@ -4887,18 +5094,23 @@ def phase_dryrun(smi: str, procs: dict) -> dict:
             f"dominant {rf.dominant} (compute {rf.compute_s:.4f} s, "
             f"memory {rf.memory_s:.4f} s, collective "
             f"{rf.collective_s:.4f} s), fits 80G: "
-            f"{'Y' if rf.fits_hbm else 'N'}"
-            + (f"; modelled: {cell['modelled']}" if "modelled" in cell
-               else ""))
+            f"{'Y' if rf.fits_hbm else 'N'}")
+        was = DRYRUN_MODELLED_GIB.get((arch, shape_name))
+        if was is not None:
+            log(f"[dryrun] (b) {arch} x {shape_name} per device, the mesh "
+                f"step: all-gather {coll.get('all-gather', 0):.3f} GiB "
+                f"(the modelled step: {was} GiB), all-reduce "
+                f"{coll.get('all-reduce', 0):.3f} GiB, arguments "
+                f"{m['argument_bytes'] / 2 ** 30:.3f} GiB, temporaries "
+                f"{m['temp_bytes'] / 2 ** 30:.3f} GiB, fits 80G: "
+                f"{'Y' if rf.fits_hbm else 'N'}")
         checks[f"(b) {arch} x {shape_name} counted"] = (
             cell["chips"] == 256 and adjusted(cell, "flops") ==
-            cell["full"]["flops"] > 0 and ("modelled" in cell) ==
-            (cell["kind"] != "train"))
+            cell["full"]["flops"] > 0 and "modelled" not in cell)
         record["cells"][f"{arch}__{shape_name}"] = {
             "compile_s": cell["compile_s"], "lower_s": cell["lower_s"],
             "subprocess_s": wall, "ops": ops,
             "done_before_phase": done_before[(arch, shape_name)],
-            "modelled": "modelled" in cell,
             "flops": cell["full"]["flops"], "memory": m,
             "collective_gib": coll, "dominant": rf.dominant,
             "compute_s": rf.compute_s, "memory_s": rf.memory_s,
@@ -4914,10 +5126,8 @@ def phase_dryrun(smi: str, procs: dict) -> dict:
     for line in text.splitlines():
         log(f"[dryrun] (c) {line}")
     names = [f"roofline_{a}_{s}," for a, s in DRYRUN_CELLS]
-    # an inference cell on the stand-in mesh is a modelled step
     checks["(c) summarize lists the three cells"] = all(
-        f"| {a} | {s}{'' if SHAPES[s].kind == 'train' else ' (modelled)'} "
-        f"| single |" in text for a, s in DRYRUN_CELLS)
+        f"| {a} | {s} | single |" in text for a, s in DRYRUN_CELLS)
     checks["(c) the driver's table1 and roofline sections"] = (
         "# --- table1 ---" in text and "# --- roofline ---" in text
         and all(any(l.startswith(n) for l in text.splitlines())

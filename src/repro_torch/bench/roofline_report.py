@@ -6,8 +6,7 @@ name,us_per_call(dominant term in us),derived.
 
 Without artifacts it prints no rows.  The row key ``fits_80g`` (the
 reference's ``fits_16g``) says whether arguments and temporaries fit the
-H100's 80 GB; ``modelled=True`` marks a step the port does not run (an
-inference cell on a mesh, ``launch/dryrun.py``).
+H100's 80 GB.
 """
 from __future__ import annotations
 
@@ -44,8 +43,6 @@ def rows(mesh: str = "single", art_dir: str = ART) -> list[dict]:
             "roofline_fraction_opt": round(r.roofline_fraction_opt, 3),
             "fits_80g": r.fits_hbm,
         }
-        if "modelled" in art:
-            row["modelled"] = True
         shape = SHAPES[r.shape]
         tps = r.decode_tokens_per_s(shape)
         if tps is not None:

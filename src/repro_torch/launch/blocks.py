@@ -9,10 +9,11 @@ functions, held to it numerically: each does what one superblock of the
 step does, under the run config's remat policy (the backward recomputes
 the forward).
 
-On a mesh a block's inputs are what a rank computes on: the step gathers
-its weights whole before the forward, and an inference step its cache
-over every dimension but the batch's (a rank computes its own rows), so
-those gathers are the whole step's, outside any superblock.
+On a mesh a block's inputs are what a rank computes on: its rows of the
+activations and the block's weights whole (the train step gathers its
+weights before the forward, the inference step each block's just before
+it), and a decode block's cache is the rank's block of it, as
+``transformer.decode_step`` keeps it.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.launch.inputs import _fp32_state, _struct
-from repro_torch.launch.sharding import NO_AXES, Axes
+from repro_torch.launch.sharding import Axes
 from repro_torch.models import transformer as T
 from repro_torch.models.params import leaves, shape_tree, tree_map
 
@@ -71,9 +72,8 @@ def train_block_fn(cfg: ModelConfig, rc: RunConfig, ax: Axes, seq_len: int):
 
 def prefill_block_fn(cfg: ModelConfig, rc: RunConfig, ax: Axes,
                      seq_len: int):
-    """fn(block_params, x) -> y: one superblock's forward.  A MoE FFN
-    routes this rank's rows alone, as ``transformer.prefill`` does."""
-    fwd = _superblock_fwd(cfg, rc, NO_AXES)
+    """fn(block_params, x) -> y: one superblock's forward."""
+    fwd = _superblock_fwd(cfg, rc, ax)
 
     def fn(block_params, x):
         positions = torch.arange(seq_len, device=x.device)
@@ -89,7 +89,7 @@ def decode_block_fn(cfg: ModelConfig, rc: RunConfig, ax: Axes):
         for j, (kind, is_moe) in enumerate(pattern):
             x, new[f"b{j}"] = T.apply_block_decode(
                 cfg, rc, block_params[j], x, cache[f"b{j}"], pos, kind,
-                is_moe, j)
+                is_moe, j, ax=ax)
         return x, new
     return fn
 
@@ -102,8 +102,8 @@ def block_input_specs(cfg: ModelConfig, rc: RunConfig, shape: ShapeConfig,
     With gradient accumulation a train step's block runs on the micro
     batch, so the block module is traced at global_batch / microbatches
     (and the roofline scales it by microbatches x n_superblocks).  The
-    cache's SSM ``h`` is float32, as the whole decode step's
-    (``inputs.decode_specs``)."""
+    cache is placed as the whole decode step's (``inputs.decode_specs``),
+    its SSM ``h`` float32."""
     on = computed_on(ax)
     bp = tuple(shape_tree(s, getattr(torch, rc.param_dtype), on, ax.mesh)
                for s in T.superblock_param_specs(cfg))
@@ -117,7 +117,8 @@ def block_input_specs(cfg: ModelConfig, rc: RunConfig, shape: ShapeConfig,
                  getattr(torch, rc.compute_dtype))
     if shape.kind != "decode":
         return (bp, xs)
+    step_ax = ax.for_batch(b)
     cache = shape_tree(T.cache_specs(cfg, b, shape.seq_len, stacked=False),
-                       torch.bfloat16, on, ax.mesh)
+                       torch.bfloat16, step_ax.resolve, ax.mesh)
     return (bp, xs, _fp32_state(cache)["blocks"],
             _struct(ax, (), (), torch.int32))

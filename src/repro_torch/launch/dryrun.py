@@ -8,9 +8,10 @@ The step is the port's own (``train.step.make_train_step``,
 rank's shards of the inputs, on a stand-in of the 256- or 512-card mesh
 (``launch/mesh.py``'s ``StandInMesh``), whose collectives are dry.  Every
 dispatched op is counted (``launch/hlo_analysis.py``: FLOPs, bytes, live
-bytes, collective bytes by kind).  On a mesh a rank gathers its weights
-whole before the forward, as the mesh train step does; an inference step
-also gathers its cache over every dimension but the batch's.
+bytes, collective bytes by kind).  On a mesh the train step gathers its
+weights whole before the forward; the inference step gathers them one
+superblock at a time and keeps its cache where the reference keeps it
+(``models/transformer.py``).
 
 Eager tracing visits every superblock, where XLA's cost analysis counts
 a scan body once, so one trace counts the whole step: it is recorded as
@@ -18,11 +19,6 @@ a scan body once, so one trace counts the whole step: it is recorded as
 (``full`` + (``block_multiplier`` - 1) x ``block``, the reference's scan
 adjustment) is the whole step's count.  ``launch/blocks.py`` keeps the
 reference's one-superblock functions.
-
-The port serves on one device (``transformer.prefill`` and
-``decode_step`` take no mesh), so an inference cell on a mesh of more
-than one card counts a step the port does not run: its artifact says so
-under ``modelled``, and the reports mark it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -50,9 +46,9 @@ from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.inputs import batch_specs, decode_specs
 from repro_torch.launch.mesh import chips, production_stand_in
-from repro_torch.launch.sharding import gather_shard, local_shard, make_axes
+from repro_torch.launch.sharding import make_axes
 from repro_torch.models import transformer as T
-from repro_torch.models.params import Leaf, ShapeStruct, shape_tree, tree_map
+from repro_torch.models.params import ShapeStruct, shape_tree, tree_map
 from repro_torch.train.step import make_train_step, train_state_specs
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -82,38 +78,6 @@ def materialize(tree, device):
     return tree
 
 
-def _unbatched(leaf: Leaf, ax) -> tuple:
-    """``leaf``'s placement without its batch dimension's entry: what a
-    rank gathers before use."""
-    return tuple(None if name == "batch" else entry for name, entry in
-                 zip(leaf.axes, ax.resolve(leaf.axes, leaf.shape)))
-
-
-def gather_inputs(tree, specs, ax):
-    """The tensors a rank computes on, from its shards (``specs``, the
-    tree's ``Leaf``s): each gathered over every dimension but the batch's
-    (``blocks.computed_on``).  Off a mesh, ``tree`` as it is."""
-    if ax.mesh is None:
-        return tree
-    return tree_map(lambda t, leaf: gather_shard(t, _unbatched(leaf, ax),
-                                                 ax.mesh), tree, specs)
-
-
-def shard_outputs(tree, specs, ax):
-    """``gather_inputs``' inverse: this rank's block of each tensor (a
-    view)."""
-    if ax.mesh is None:
-        return tree
-    return tree_map(lambda t, leaf: local_shard(t, _unbatched(leaf, ax),
-                                                ax.mesh), tree, specs)
-
-
-#: an inference cell on a mesh: what its counts are of
-MODELLED = ("a mesh inference step that the port does not run (it serves "
-            "on one device): each rank gathers its weights whole and its "
-            "cache over every dimension but the batch's")
-
-
 def cell_inputs(cfg, rc: RunConfig, shape: ShapeConfig, ax):
     """(the step, its argument structs) of one cell on ``ax``'s mesh."""
     pspecs = T.model_specs(cfg)
@@ -128,23 +92,19 @@ def cell_inputs(cfg, rc: RunConfig, shape: ShapeConfig, ax):
                 l, dtype=torch.float32), state.opt))
         step = make_train_step(cfg, rc, ax=ax)
         return step, (state, batch_specs(cfg, shape, ax, train=True))
+    ax = ax.for_batch(shape.global_batch)
     params = shape_tree(pspecs, pdt, ax.resolve, ax.mesh)
     if shape.kind == "prefill":
         batch = batch_specs(cfg, shape, ax, train=False)
 
         def prefill(p, tokens, frontend=None):
-            return T.prefill(cfg, rc, gather_inputs(p, pspecs, ax), tokens,
-                             frontend)
+            return T.prefill(cfg, rc, p, tokens, frontend, ax=ax)
         return prefill, (params, batch["tokens"]) + (
             (batch["frontend"],) if "frontend" in batch else ())
     d = decode_specs(cfg, shape, ax)
-    cspecs = T.cache_specs(cfg, shape.global_batch, shape.seq_len)
 
     def decode(p, token, cache, pos):
-        logits, new = T.decode_step(
-            cfg, rc, gather_inputs(p, pspecs, ax), token,
-            gather_inputs(cache, cspecs, ax), pos)
-        return logits, shard_outputs(new, cspecs, ax)
+        return T.decode_step(cfg, rc, p, token, cache, pos, ax=ax)
     return decode, (params, d["token"], d["cache"], d["pos"])
 
 
@@ -173,8 +133,6 @@ def lower_cell(arch: str, shape: ShapeConfig, multi_pod: bool,
            "rc": {k: getattr(rc, k) for k in
                   ("remat", "attn_impl", "moe_impl", "seq_parallel",
                    "microbatches", "param_dtype", "zero1", "fsdp_axis")}}
-    if shape.kind != "train" and res["chips"] > 1:
-        res["modelled"] = MODELLED
 
     with FakeTensorMode():
         t0 = time.perf_counter()
@@ -199,8 +157,6 @@ def lower_cell(arch: str, shape: ShapeConfig, multi_pod: bool,
         print("  memory:", mem)
         print("  counted: flops=%.4e bytes=%.4e ops=%d" %
               (whole["flops"], whole["bytes_accessed"], whole["ops"]))
-        if "modelled" in res:
-            print("  modelled:", res["modelled"])
     return res
 
 

@@ -3,7 +3,10 @@ every (arch x shape) cell, placed on the mesh and never allocated (port of
 ``repro.launch.inputs``).
 
 Token ids are int64, the index dtype the port's models take (the
-reference's are int32); every other leaf has the reference's dtype.
+reference's are int32); every other leaf has the reference's dtype.  A
+struct's ``local_shape`` is the block one rank holds; for an inference
+cell the dry run passes ``ax.for_batch(global_batch)``, so the tokens are
+a rank's rows and a cache leaf its block as ``decode_step`` keeps it.
 """
 from __future__ import annotations
 

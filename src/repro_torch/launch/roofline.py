@@ -12,8 +12,7 @@ needed.  An artifact names its shape cell and, where the cell was cut,
 its ``seq_len`` and ``global_batch``.  It keeps the reference's
 two-compile form, ``adj = full + (block_multiplier - 1) x block``; the
 port's dry run traces the whole step into ``full`` and leaves ``block``
-empty, so ``adj`` is the whole step's count.  An inference cell on a mesh
-is ``modelled`` (``launch/dryrun.py``): the report marks it.
+empty, so ``adj`` is the whole step's count.
 
 MODEL_FLOPS uses 6·N·D (train) / 2·N·D (prefill/decode) with N = *active*
 params (MoE) and D = global tokens; the ratio MODEL_FLOPS / (FLOPs_adj x
@@ -181,11 +180,6 @@ def load_artifacts(artifact_dir: str, mesh: str = "single") -> list[dict]:
     return out
 
 
-def shape_label(art: dict) -> str:
-    """The artifact's shape, marked where its step is modelled."""
-    return art["shape"] + (" (modelled)" if "modelled" in art else "")
-
-
 def report(artifact_dir: str, mesh: str = "single") -> str:
     lines = ["| arch | shape | compute s | mem s (ub/lb) | collective s | "
              "dominant | useful | frac (pess/opt) | fits 80G | hint |",
@@ -197,7 +191,7 @@ def report(artifact_dir: str, mesh: str = "single") -> str:
                          f"| | | | | | | |")
             continue
         lines.append(
-            f"| {r.arch} | {shape_label(art)} | {r.compute_s:.4f} "
+            f"| {r.arch} | {r.shape} | {r.compute_s:.4f} "
             f"| {r.memory_s:.3f}/{r.memory_lb_s:.3f} "
             f"| {r.collective_s:.4f} | **{r.dominant}** "
             f"| {r.useful_ratio:.2f} "

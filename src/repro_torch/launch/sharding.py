@@ -23,14 +23,17 @@ or a tuple of names, equal entry for entry to the reference's
 ``PartitionSpec``.  ``to_placements`` turns such a spec into DTensor
 placements.  The model itself runs on plain tensors, never on DTensors:
 ``shard``, ``act`` and ``heads_act`` are identities (in the reference they
-are layout hints that leave the numbers unchanged), and the trainer moves
+are layout hints that leave the numbers unchanged), and the steps move
 shards with the collectives below, each an autograd function whose
 backward is its forward's exact adjoint (``all_reduce_`` in place, for a
-gradient's reduction).  Every collective of a step goes through them, so
-a ``CollectiveLog`` sees them all; on a stand-in mesh they are dry.
+gradient's reduction or a softmax's statistics).  The inference step
+gathers its weights one superblock at a time (``gather_superblock``).
+Every collective of a step goes through them, so a ``CollectiveLog`` sees
+them all; on a stand-in mesh they are dry.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -111,6 +114,16 @@ class Axes:
                 out.append(chosen[0] if len(chosen) == 1 else tuple(chosen))
         return tuple(out)
 
+    def for_batch(self, rows: int) -> "Axes":
+        """This context for a batch of ``rows`` rows: ``batch`` narrowed
+        to the mesh axes that ``resolve`` splits those rows over.  The
+        steps take each rank's rows as split over ``batch`` (a batch of 1
+        on a mesh is on no axis, so ``seq`` may take them all)."""
+        if self.mesh is None:
+            return self
+        entry = self.resolve(("batch",), (rows,))[0]
+        return dataclasses.replace(self, batch=_entry_axes(entry))
+
     # -- activation constraints ----------------------------------------------
     def shard(self, x, *axes):
         """The reference's layout constraint: the identity here, with or
@@ -178,18 +191,33 @@ def replicas(spec, mesh) -> int:
     return n
 
 
+def shard_index(entry, mesh) -> tuple:
+    """(this rank's block, the number of blocks) of a dimension placed by
+    the spec entry ``entry``: its mesh axes' coordinates, major first."""
+    sizes = mesh_shape(mesh)
+    idx, n = 0, 1
+    for a in _entry_axes(entry):
+        idx = idx * sizes[a] + local_rank(mesh, a)
+        n *= sizes[a]
+    return idx, n
+
+
 def local_shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` (a view)."""
-    sizes = mesh_shape(mesh)
     out = full
     for d, entry in enumerate(spec):
-        idx, n = 0, 1
-        for a in _entry_axes(entry):
-            idx = idx * sizes[a] + local_rank(mesh, a)
-            n *= sizes[a]
+        idx, n = shard_index(entry, mesh)
         if n > 1:
             out = out.tensor_split(n, dim=d)[idx]
     return out
+
+
+def own_block(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``local_shard`` as a tensor of its own, so that the rest of
+    ``full`` can be freed (``full`` itself where ``spec`` splits
+    nothing)."""
+    out = local_shard(full, spec, mesh)
+    return out if out is full else out.clone()
 
 
 # -- collectives ------------------------------------------------------------
@@ -339,6 +367,12 @@ def all_reduce_(x: torch.Tensor, mesh, axes,
     return x
 
 
+def all_reduce_max_(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """``x``'s maximum over the ranks along every mesh axis that the
+    resolved placement ``spec`` names, in place; returns ``x``."""
+    return all_reduce_(x, mesh, spec_axes(spec), op=dist.ReduceOp.MAX)
+
+
 def gather_shard(local: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The full tensor from every rank's ``local_shard`` under ``spec``
     (differentiable: the gradient of a block is the sum, over the ranks
@@ -348,3 +382,17 @@ def gather_shard(local: torch.Tensor, spec, mesh) -> torch.Tensor:
         for a in reversed(_entry_axes(entry)):
             out = all_gather(out, mesh, a, d)
     return out
+
+
+def gather_superblock(tree, specs, mesh, sb: int):
+    """Superblock ``sb``'s weights, whole, from this rank's shards of the
+    stacked leaves of ``tree`` (``specs``: their resolved placements, the
+    ``layers`` entry first, which never shards).  Each leaf's ``layers``
+    entry is indexed first and only that block is gathered, so no rank
+    holds a whole stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: gather_superblock(v, specs[k], mesh, sb)
+                for k, v in tree.items()}
+    if specs[0] is not None:
+        raise ValueError(f"a stacked leaf sharded over its layers: {specs}")
+    return gather_shard(tree[sb], specs[1:], mesh)

@@ -12,7 +12,7 @@ import argparse
 import json
 import os
 
-from repro_torch.launch.roofline import load_artifacts, report, shape_label
+from repro_torch.launch.roofline import load_artifacts, report
 
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          "build")
@@ -32,7 +32,7 @@ def dryrun_table(artifact_dir: str) -> str:
             c = art["full"]["collectives"]
             counts = art["full"].get("collective_counts", {})
             lines.append(
-                f"| {art['arch']} | {shape_label(art)} | {mesh} "
+                f"| {art['arch']} | {art['shape']} | {mesh} "
                 f"| {art['compile_s']:.0f} "
                 f"| {art['full'].get('flops', 0):.2e} "
                 f"| {m.get('argument_bytes', 0)/2**30:.2f} "
@@ -54,8 +54,7 @@ def perf_table(perf_dir: str) -> str:
         if "roofline" not in d:
             continue
         r = d["roofline"]
-        var = d.get("variant", "?") + (" (modelled)" if "modelled" in d
-                                       else "")
+        var = d.get("variant", "?")
         rows.append((d["arch"], d["shape"], var, r))
     lines = ["| cell | variant | compute s | mem ub/lb s | coll s | "
              "dominant | frac pess/opt | temp GiB | fits |",

@@ -8,6 +8,13 @@ softmax runs in float32, everything else in the activations' dtype (the
 G = H / KV, so attention contracts against (B, T, KV, HD) without
 repeating KV heads.  Attention here is plain torch, as in the reference
 (where XLA, not a Pallas kernel, computes it).
+
+``ax`` is the mesh context, as in the reference.  The weights a layer is
+given are whole and its activations are this rank's rows, so only
+``attention_decode`` does anything with it: on a mesh its KV cache is
+this rank's block, the positions split over the mesh axes that the batch
+leaves free (``seq_axes``), and the ranks combine their partial softmaxes
+by two all-reduces of float32 statistics; no cache byte moves.
 """
 from __future__ import annotations
 
@@ -17,9 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.launch.sharding import (NO_AXES, Axes, all_reduce_,
+                                         all_reduce_max_, own_block,
+                                         shard_index)
 from repro_torch.models.params import Leaf, fan_in_scale
 
 NEG_INF = -2.0 ** 30
+#: an attention block's decode cache {"k", "v"}: its logical axes
+KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
 
 
 def rmsnorm_spec(d: int) -> Leaf:
@@ -154,11 +166,13 @@ def attention_flash(cfg: ModelConfig, q, k, v, qpos, kpos, window: int,
 
 
 def attention(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor, *,
-              window: int = 0, positions=None, return_kv: bool = False):
+              window: int = 0, positions=None, return_kv: bool = False,
+              ax: Axes = NO_AXES):
     """Full-sequence (train / prefill) attention; returns (B, S, D) and,
     with ``return_kv``, the roped K/V for the prefill cache.  ``attn_impl``
     "flash", or "auto" on a sequence longer than 2 x ``flash_block``, takes
-    ``attention_flash``; otherwise the dense scores."""
+    ``attention_flash``; otherwise the dense scores.  On a mesh (``ax``)
+    ``x`` is this rank's rows, each whole, so nothing changes."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -178,35 +192,90 @@ def attention(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor, *,
     return out
 
 
+def seq_axes(ax: Axes) -> tuple:
+    """The mesh axes that a KV cache's positions split over on ``ax``'s
+    mesh, major first: "data" and "model" where the batch leaves them
+    free, as ``Axes.resolve`` places ``KV_AXES`` (``()`` off a mesh)."""
+    if ax.mesh is None:
+        return ()
+    return tuple(a for a in ("data", "model")
+                 if a not in ax.batch and ax.size(a) > 1)
+
+
+def cache_block(kv: torch.Tensor, ax: Axes) -> torch.Tensor:
+    """This rank's block of a K or V cache (B, T, KV, HD) of its rows:
+    its slice of the positions (the whole off a mesh)."""
+    seq = seq_axes(ax)
+    if not seq:
+        return kv
+    n = shard_index(seq, ax.mesh)[1]
+    if kv.shape[1] % n:
+        raise ValueError(f"a KV cache of {kv.shape[1]} positions does not "
+                         f"split over the mesh axes {seq} ({n} ranks)")
+    return own_block(kv, (None, seq), ax.mesh)
+
+
 def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     cache: dict, pos: torch.Tensor, *, window: int = 0):
+                     cache: dict, pos: torch.Tensor, *, window: int = 0,
+                     ax: Axes = NO_AXES):
     """Single-token decode against a (ring-)buffered KV cache.
 
     x: (B, 1, D); cache {"k","v"}: (B, T, KV, HD), T = seq_len (full cache)
     or the window (SWA ring buffer); pos: () current position.
-    Returns (out (B, 1, D), new cache)."""
+    Returns (out (B, 1, D), new cache).
+
+    On a mesh ``cache`` is this rank's block (``cache_block``), its slice
+    of the whole cache's positions.  The new K/V goes in by the
+    reference's one-hot masked write, which lands only on the rank whose
+    slice holds the slot; each rank's partial softmax (its maximum, sum of
+    exponentials and weighted V, in float32) is combined over the
+    ``seq_axes`` by a max and a sum all-reduce."""
     b = x.shape[0]
     hd = cfg.hd
     t = cache["k"].shape[1]
+    seq = seq_axes(ax)
+    block, n = shard_index(seq, ax.mesh) if seq else (0, 1)
+    total = t * n                             # the whole cache's positions
     q, k_new, v_new = _qkv(cfg, p, x, pos[None])
-    slot = pos % t if window else pos
-    idx = torch.arange(t, device=x.device)
+    slot = pos % total if window else pos
+    idx = torch.arange(block * t, (block + 1) * t, device=x.device)
     hot = (idx == slot)[None, :, None, None]
     ck = torch.where(hot, k_new.to(cache["k"].dtype), cache["k"])
     cv = torch.where(hot, v_new.to(cache["v"].dtype), cache["v"])
     if window:
-        age = (slot - idx) % t
-        valid = age <= torch.clamp(pos, max=t - 1)
+        age = (slot - idx) % total
+        valid = age <= torch.clamp(pos, max=total - 1)
     else:
         valid = idx <= pos
     s = torch.einsum("bqkgh,btkh->bkgqt", q, ck.to(q.dtype)) / math.sqrt(hd)
     s = softcap(s, cfg.attn_softcap)
     s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
-    pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
-    o = torch.einsum("bkgqt,btkh->bqkgh", pr, cv.to(q.dtype))
+    if n == 1:
+        pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bkgqt,btkh->bqkgh", pr, cv.to(q.dtype))
+    else:
+        o = _combined_softmax(s, cv, seq, ax.mesh).to(q.dtype)
     o = o.reshape(b, 1, cfg.n_heads, hd)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     return out, {"k": ck, "v": cv}
+
+
+def _combined_softmax(s: torch.Tensor, cv: torch.Tensor, seq: tuple,
+                      mesh) -> torch.Tensor:
+    """softmax(s) · V over the whole cache from each rank's block of the
+    scores ``s`` (B, KV, G, 1, T) and of V, in float32 -> (B, 1, KV, G,
+    HD): the ranks' maxima reduced to the global one, then each rank's
+    exponentials taken against it (the rescale) and its weighted V and
+    sum of exponentials summed over the ranks in one all-reduce.  A rank
+    with no valid position adds exp(NEG_INF - max) = 0."""
+    s = s.float()
+    m = s.amax(dim=-1, keepdim=True)                    # (B, KV, G, 1, 1)
+    all_reduce_max_(m, mesh, (seq,))
+    e = torch.exp(s - m)
+    acc = torch.cat([torch.einsum("bkgqt,btkh->bkgqh", e, cv.float()),
+                     e.sum(dim=-1, keepdim=True)], dim=-1)
+    all_reduce_(acc, mesh, seq)
+    return (acc[..., :-1] / acc[..., -1:]).permute(0, 3, 1, 2, 4)
 
 
 def mlp_specs(cfg: ModelConfig) -> dict:
@@ -224,7 +293,10 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+        ax: Axes = NO_AXES) -> torch.Tensor:
+    """The gated MLP; on a mesh (``ax``) ``x`` is this rank's rows and
+    nothing changes."""
     dt = x.dtype
     h = _act(cfg.act, torch.einsum("bsd,df->bsf", x, p["w1"].to(dt)))
     h = h * torch.einsum("bsd,df->bsf", x, p["w3"].to(dt))

@@ -83,11 +83,13 @@ def _router(cfg: ModelConfig, p: dict, x: torch.Tensor, ax: Axes = NO_AXES):
 def _load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
                        n_experts: int, ax: Axes = NO_AXES) -> torch.Tensor:
     """Switch-style auxiliary loss (mean prob × token fraction per expert),
-    the statistics averaged over the batch axes on a mesh."""
+    the statistics averaged over the batch axes where they split the
+    rows (with none, one device's ops: a one-rank mesh's step is one
+    device's)."""
     frac = _one_hot(top_e[..., 0], n_experts, torch.float32).mean(dim=(0, 1))
     mean_p = probs.mean(dim=(0, 1))
-    if ax.mesh is not None:
-        n = ax.batch_size()
+    n = ax.batch_size()
+    if n > 1:
         frac = all_reduce_sum(frac, ax.mesh, ax.batch) / n
         mean_p = all_reduce_sum(mean_p, ax.mesh, ax.batch) / n
     return n_experts * torch.sum(frac * mean_p)

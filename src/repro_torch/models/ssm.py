@@ -10,8 +10,12 @@ N) state plus a rolling depthwise-conv window.
 
 The reference's scan is jitted ``jnp`` (``associative_scan`` in a
 ``lax.scan``), not a Pallas kernel, so here it is plain torch.  The
-reference's sharding constraint on the SSM input has no meaning on one
-device and is dropped.
+reference's sharding constraint on the SSM input is a layout hint and is
+dropped.  On a mesh (``ax``) the weights are whole and ``x`` is this
+rank's rows; the decode state is this rank's block of them, ``dinner``
+split over the model axis as the reference keeps it: prefill keeps its
+block of the state, and a decode step gathers the (small) state over
+``dinner``, computes as on one device and keeps its block of the new one.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import (NO_AXES, Axes, gather_shard,
+                                         own_block)
 from repro_torch.models.params import Leaf, fan_in_scale
 
 
@@ -40,6 +46,25 @@ def ssm_specs(cfg: ModelConfig) -> dict:
         "out_proj": Leaf((di, d), ("dinner", "embed"),
                          scale=fan_in_scale(di)),
     }
+
+
+def state_specs(cfg: ModelConfig, batch: int) -> dict:
+    """An SSM block's decode state of ``batch`` rows: {"h" (B, Di, N),
+    "conv" (B, K-1, Di)}, logical-axes tagged."""
+    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {"h": Leaf((batch, di, n), ("batch", "dinner", "state"),
+                      init="zeros"),
+            "conv": Leaf((batch, k - 1, di), ("batch", "conv", "dinner"),
+                         init="zeros")}
+
+
+def _state_placement(cfg: ModelConfig, ax: Axes, rows: int) -> dict:
+    """{name: placement} of this rank's ``rows`` rows of the decode state:
+    ``ax.resolve``'s, but for the batch entry (the rows are the rank's
+    already)."""
+    specs = state_specs(cfg, rows * ax.batch_size())
+    return {name: (None,) + ax.resolve(leaf.axes, leaf.shape)[1:]
+            for name, leaf in specs.items()}
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor,
@@ -89,10 +114,10 @@ def _scan_chunk(carry_h: torch.Tensor, abar: torch.Tensor,
 
 
 def mamba_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                  chunk: int = 256):
+                  chunk: int = 256, *, ax: Axes = NO_AXES):
     """x: (B, S, D) -> (y (B, S, D), decode-ready state cache {"h" (B, Di,
     N) float32, "conv" (B, K-1, Di)}).  S must be a multiple of the chunk
-    (``min(chunk, S)``)."""
+    (``min(chunk, S)``).  On a mesh the cache is this rank's block."""
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     dt = x.dtype
@@ -122,11 +147,22 @@ def mamba_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(dt))
     # a copy, so the cache does not hold the whole projection alive
     cache = {"h": h, "conv": u_pre[:, -(cfg.ssm_conv - 1):].contiguous()}
+    if ax.mesh is not None:
+        place = _state_placement(cfg, ax, b)
+        cache = {name: own_block(t, place[name], ax.mesh)
+                 for name, t in cache.items()}
     return out, cache
 
 
-def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
-    """One-token recurrent step.  x: (B, 1, D); cache: {h, conv}."""
+def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, *,
+                 ax: Axes = NO_AXES):
+    """One-token recurrent step.  x: (B, 1, D); cache: {h, conv}, on a
+    mesh this rank's block of them (returned so too)."""
+    place = None
+    if ax.mesh is not None:
+        place = _state_placement(cfg, ax, x.shape[0])
+        cache = {name: gather_shard(t, place[name], ax.mesh)
+                 for name, t in cache.items()}
     dt = x.dtype
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(dt))
     u_new, z = xz.chunk(2, dim=-1)                           # (B,1,Di)
@@ -143,4 +179,8 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
     y = y.to(dt)[:, None] + u * p["D_skip"].to(dt)
     y = y * F.silu(z)
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(dt))
-    return out, {"h": h, "conv": window[:, 1:]}
+    new = {"h": h, "conv": window[:, 1:]}
+    if place is not None:
+        new = {name: own_block(t, place[name], ax.mesh)
+               for name, t in new.items()}
+    return out, new

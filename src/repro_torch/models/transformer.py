@@ -15,6 +15,17 @@ A modality frontend (audio frames, vision patches) is an input, not a
 parameter: its (B, F, D) embeddings come before the token embeddings in
 the training forward and the prefill, and the loss scores the text region
 only.
+
+Inference on a mesh (``prefill`` / ``decode_step`` with ``ax``): each rank
+holds its shards of the parameters, placed by ``ax.resolve``, and its rows
+of the batch (split over ``ax.batch``; ``Axes.for_batch`` narrows it for
+a batch that does not divide the data axis).  Each leaf outside the
+stack is gathered whole when first used, each block's weights just
+before the block (``gather_superblock``) and dropped after it.  The
+decode cache stays where the reference keeps it: each rank holds its rows
+of it, an attention block's positions split over the axes the batch
+leaves free (``layers.cache_block``), an SSM block's state over
+``dinner``.  Model ranks compute the same rows.
 """
 from __future__ import annotations
 
@@ -24,11 +35,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.launch.sharding import NO_AXES, Axes
+from repro_torch.launch.sharding import (NO_AXES, Axes, gather_shard,
+                                         gather_superblock)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.params import Leaf, fan_in_scale, stack_specs
+from repro_torch.models.params import (Leaf, fan_in_scale, spec_tree,
+                                       stack_specs)
 
 AUX_LOSS_COEF = 0.01
 
@@ -65,8 +78,6 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
     ``prefill``'s layout: an attention block's {"k", "v"} over the
     sequence or its window, an SSM block's {"h", "conv"}.  stacked=False
     gives one superblock's slice (the dry run's block module)."""
-    kvh, hd = cfg.n_kv_heads, cfg.hd
-    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     blocks = {}
     for j, (kind, _) in enumerate(cfg.block_pattern()):
         if kind == "attn":
@@ -74,14 +85,11 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                 else seq_len
             if cfg.local_global and j % 2 == 0:
                 t = min(seq_len, cfg.local_window)
-            kv = Leaf((batch, t, kvh, hd),
-                      ("batch", "seq", "kv_heads", "head_dim"), init="zeros")
+            kv = Leaf((batch, t, cfg.n_kv_heads, cfg.hd), L.KV_AXES,
+                      init="zeros")
             leaf = {"k": kv, "v": kv}
         else:
-            leaf = {"h": Leaf((batch, di, n), ("batch", "dinner", "state"),
-                              init="zeros"),
-                    "conv": Leaf((batch, k - 1, di),
-                                 ("batch", "conv", "dinner"), init="zeros")}
+            leaf = S.state_specs(cfg, batch)
         if stacked:
             leaf = stack_specs(leaf, cfg.n_superblocks)
         blocks[f"b{j}"] = leaf
@@ -258,31 +266,39 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict, *,
 
 
 def _ffn(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
-         is_moe: bool) -> torch.Tensor:
+         is_moe: bool, ax: Axes = NO_AXES) -> torch.Tensor:
     """The block's FFN on the normed residual (a MoE's aux is dropped: it
     is a training term)."""
     if is_moe:
-        return M.moe(cfg, rc, p, x)[0]
-    return L.mlp(cfg, p, x)
+        return M.moe(cfg, rc, p, x, ax=ax)[0]
+    return L.mlp(cfg, p, x, ax=ax)
 
 
 def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
                        x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                       kind: str, is_moe: bool, j: int, attn_fn=None):
+                       kind: str, is_moe: bool, j: int, attn_fn=None, *,
+                       ax: Axes = NO_AXES):
     """One block's decode step against its cache ({"k", "v"} for an
-    attention block, {"h", "conv"} for an SSM block).  ``attn_fn`` swaps
-    the attention-cache implementation (same signature as
-    ``L.attention_decode``); SSM blocks ignore it."""
+    attention block, {"h", "conv"} for an SSM block; on a mesh this
+    rank's block of it).  ``attn_fn`` swaps the attention-cache
+    implementation (same signature as ``L.attention_decode``, without
+    ``ax``: the serving engine's, which runs on one device); SSM blocks
+    ignore it."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
-        h, new_cache = (attn_fn or L.attention_decode)(
-            cfg, p["mixer"], h, cache, pos, window=_block_window(cfg, j))
+        w = _block_window(cfg, j)
+        if attn_fn is None:
+            h, new_cache = L.attention_decode(cfg, p["mixer"], h, cache, pos,
+                                              window=w, ax=ax)
+        else:
+            h, new_cache = attn_fn(cfg, p["mixer"], h, cache, pos, window=w)
     else:
-        h, new_cache = S.mamba_decode(cfg, p["mixer"], h, cache)
+        h, new_cache = S.mamba_decode(cfg, p["mixer"], h, cache, ax=ax)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
     x = x + h
-    h = _ffn(cfg, rc, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), is_moe)
+    h = _ffn(cfg, rc, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), is_moe,
+             ax)
     if cfg.post_block_norms:
         h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
     return x + h, new_cache
@@ -336,23 +352,57 @@ def _stack_caches(parts: dict) -> dict:
             for key, caches in parts.items()}
 
 
+def _weights(cfg: ModelConfig, params: dict, ax: Axes):
+    """(top, block) for an inference step: ``top(name)`` is a leaf outside
+    the stack ("embed", "final_norm", "lm_head") and ``block(j, sb)``
+    pattern block ``j``'s parameters in superblock ``sb``, each whole.
+    Off a mesh they are views of ``params``; on a mesh ``params`` is this
+    rank's shards and each is gathered when asked for."""
+    if ax.mesh is None:
+        return params.__getitem__, lambda j, sb: superblock_params(params,
+                                                                   j, sb)
+    specs = spec_tree(model_specs(cfg), ax.resolve)
+
+    def top(name):
+        return gather_shard(params[name], specs[name], ax.mesh)
+
+    def block(j, sb):
+        key = f"b{j}"
+        return gather_superblock(params["blocks"][key], specs["blocks"][key],
+                                 ax.mesh, sb)
+    return top, block
+
+
+def _head(cfg: ModelConfig, top, embed) -> dict:
+    """``_unembed``'s parameters: ``embed`` (the step's embedding) where
+    the config ties it, else ``lm_head``."""
+    return {"embed": embed} if cfg.tie_embeddings else \
+        {"lm_head": top("lm_head")}
+
+
 def prefill(cfg: ModelConfig, rc: RunConfig, params: dict,
-            tokens: torch.Tensor, frontend=None):
+            tokens: torch.Tensor, frontend=None, *, ax: Axes = NO_AXES):
     """Inference prefill: returns (last-position logits (B, 1, Vp), decode
     cache ``{"blocks": {"b{j}": ...}}``), each leaf stacked over
     superblocks: an attention block's {"k", "v"} (n_superblocks, B, t, KV,
     HD), t = S or the window; an SSM block's {"h" (n_superblocks, B, Di,
     N) float32, "conv" (n_superblocks, B, K-1, Di)}.  S counts a frontend
-    config's ``frontend`` positions, which come first."""
+    config's ``frontend`` positions, which come first.  On a mesh
+    (module docstring) ``params`` are this rank's shards, ``tokens`` and
+    ``frontend`` its rows, and the logits and cache its blocks."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _embed(cfg, params, tokens, frontend, dtype)
+    top, block = _weights(cfg, params, ax)
+    embed = top("embed")
+    x = _embed(cfg, {"embed": embed}, tokens, frontend, dtype)
+    if not cfg.tie_embeddings:
+        embed = None
     pattern = cfg.block_pattern()
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
     caches = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):
         for j, (kind, is_moe) in enumerate(pattern):
-            p = superblock_params(params, j, sb)
+            p = block(j, sb)
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
             if kind == "attn":
                 w = _block_window(cfg, j)
@@ -360,40 +410,50 @@ def prefill(cfg: ModelConfig, rc: RunConfig, params: dict,
                 if s % t:
                     raise ValueError("ring cache needs seq % window == 0")
                 h, (k, v) = L.attention(cfg, rc, p["mixer"], h, window=w,
-                                        positions=positions, return_kv=True)
-                caches[f"b{j}"].append({"k": k[:, -t:], "v": v[:, -t:]})
+                                        positions=positions, return_kv=True,
+                                        ax=ax)
+                caches[f"b{j}"].append({"k": L.cache_block(k[:, -t:], ax),
+                                        "v": L.cache_block(v[:, -t:], ax)})
             else:
-                h, sc = S.mamba_prefill(cfg, p["mixer"], h)
+                h, sc = S.mamba_prefill(cfg, p["mixer"], h, ax=ax)
                 caches[f"b{j}"].append(sc)
             if cfg.post_block_norms:
                 h = L.rmsnorm(p["ln1_post"], h, cfg.norm_eps)
             x = x + h
             h = _ffn(cfg, rc, p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                     is_moe)
+                     is_moe, ax)
             if cfg.post_block_norms:
                 h = L.rmsnorm(p["ln2_post"], h, cfg.norm_eps)
             x = x + h
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _unembed(cfg, params, x[:, -1:])
+            del p                # on a mesh: the block's gathered weights
+    x = L.rmsnorm(top("final_norm"), x, cfg.norm_eps)
+    logits = _unembed(cfg, _head(cfg, top, embed), x[:, -1:])
     return logits, {"blocks": _stack_caches(caches)}
 
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, params: dict,
-                token: torch.Tensor, cache: dict, pos: torch.Tensor):
+                token: torch.Tensor, cache: dict, pos: torch.Tensor, *,
+                ax: Axes = NO_AXES):
     """One decode step.  token: (B, 1) int64; pos: () current position;
     ``cache`` as ``prefill`` returns it (attention caches padded to the
-    decode buffer).  Returns (logits (B, 1, Vp), new cache)."""
+    decode buffer).  Returns (logits (B, 1, Vp), new cache).  On a mesh
+    ``params`` are this rank's shards, ``token`` its rows and ``cache``
+    its block, and the logits and new cache are its blocks."""
     dtype = getattr(torch, rc.compute_dtype)
-    x = _token_rows(params, token, dtype)
+    top, block = _weights(cfg, params, ax)
+    embed = top("embed")
+    x = _token_rows({"embed": embed}, token, dtype)
+    if not cfg.tie_embeddings:
+        embed = None
     pattern = cfg.block_pattern()
     new = {f"b{j}": [] for j in range(len(pattern))}
     for sb in range(cfg.n_superblocks):
         for j, (kind, is_moe) in enumerate(pattern):
             c = {name: leaf[sb]
                  for name, leaf in cache["blocks"][f"b{j}"].items()}
-            x, nc = apply_block_decode(cfg, rc,
-                                       superblock_params(params, j, sb), x,
-                                       c, pos, kind, is_moe, j)
+            x, nc = apply_block_decode(cfg, rc, block(j, sb), x, c, pos,
+                                       kind, is_moe, j, ax=ax)
             new[f"b{j}"].append(nc)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(cfg, params, x), {"blocks": _stack_caches(new)}
+    x = L.rmsnorm(top("final_norm"), x, cfg.norm_eps)
+    return _unembed(cfg, _head(cfg, top, embed), x), \
+        {"blocks": _stack_caches(new)}

@@ -373,3 +373,203 @@ def dryrun_cells(rank, out, cells):
                     "collective_counts": got["collective_counts"]})
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
+
+
+# ------------------------------------------------------ mesh inference --
+
+#: inference on a mesh (``tests/test_torch_mesh_inference.py``): float32
+#: compute on float32 weights, dense attention
+MESH_RC = {"remat": "none", "attn_impl": "dense", "compute_dtype": "float32"}
+#: the prompt's positions (a frontend's included), the greedy decode steps
+#: after the prefill's token and the decode buffer: on (2, 2) the model
+#: ranks' slices of a full cache meet at position 28 and gemma2's
+#: 32-position local ring wraps at 32, both inside positions 24..35
+MESH_INFER = {"positions": 24, "steps": 12, "buffer": 56}
+
+
+def unflatten(flat: dict, prefix: str = "") -> dict:
+    """{"a/b/c": array} (the keys under ``prefix``) as nested dicts."""
+    out: dict = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        *path, last = key[len(prefix):].split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = value
+    return out
+
+
+def flatten(tree, prefix: str = "", leaf=np.asarray) -> dict:
+    """{"prefix/a/b": leaf(value)} of nested dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/", leaf))
+        return out
+    return {prefix[:-1]: leaf(tree)}
+
+
+def grow_cache(cfg, cache: dict, buffer: int, ax) -> dict:
+    """The prefill cache with each attention leaf's positions padded to
+    the ``buffer``-position decode cache (``cache_specs``), as the
+    reference's tests pad theirs: on a mesh each rank gathers its rows'
+    positions, pads them and keeps its block again (the test's step
+    between prefill and decode, not the model's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.launch.sharding import gather_shard, own_block
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    want = T.cache_specs(cfg, 1, buffer)["blocks"]
+    spec = (None, None, L.seq_axes(ax))
+    out = {}
+    for key, block in cache["blocks"].items():
+        out[key] = dict(block)
+        if "k" not in block:
+            continue
+        for name, t in block.items():
+            if ax.mesh is not None:
+                t = gather_shard(t, spec, ax.mesh)
+            t = F.pad(t, (0, 0, 0, 0, 0, want[key][name].shape[2]
+                          - t.shape[2]))
+            out[key][name] = own_block(t, spec, ax.mesh) \
+                if ax.mesh is not None else t
+    return {"blocks": out}
+
+
+def greedy(cfg, rc, params, tokens, frontend, ax, steps: int,
+           buffer: int) -> dict:
+    """``prefill`` then ``steps`` greedy ``decode_step``s on ``ax``, the
+    cache grown between them (``grow_cache``): the tokens (B, steps + 1), the
+    logits (steps + 1, B, Vp), the last cache and each decode step's
+    collective bytes by kind."""
+    import torch
+    from repro_torch.launch.hlo_analysis import CollectiveLog
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        logits, cache = T.prefill(cfg, rc, params, tokens, frontend, ax=ax)
+        cache = grow_cache(cfg, cache, buffer, ax)
+        start = tokens.shape[1] + (0 if frontend is None
+                                   else frontend.shape[1])
+        toks, outs, moved = [], [logits[:, -1]], []
+        for i in range(steps + 1):
+            tok = outs[-1][:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            toks.append(tok)
+            if i == steps:
+                break
+            with CollectiveLog() as log:
+                logits, cache = T.decode_step(cfg, rc, params, tok, cache,
+                                              torch.tensor(start + i), ax=ax)
+            outs.append(logits[:, -1])
+            moved.append(log.bytes())
+    return {"tokens": torch.cat(toks, 1).numpy(),
+            "logits": torch.stack(outs).numpy(), "cache": cache,
+            "moved": moved}
+
+
+def mesh_inference(rank, out, cases, steps, buffer):
+    """Each case (arch, batch, inputs .npz: the whole weights under "p/",
+    "tokens" and "frontend") on a (2, 2) mesh: this rank's shards of the
+    weights and rows of the batch in, ``greedy``'s tokens, logits, cache
+    blocks and collective bytes out, and how many of the step's gathers
+    took a whole stacked leaf (its shard as it is, not a superblock's
+    block of it)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import (from_jax, leaves, spec_tree,
+                                           tree_map)
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    stacked, whole = set(), [0]
+    real = sharding.all_gather
+
+    def spy(x, *args):
+        whole[0] += (x.data_ptr(), tuple(x.shape)) in stacked
+        return real(x, *args)
+    sharding.all_gather = spy
+    for i, (arch, batch, inputs) in enumerate(cases):
+        cfg, rc = get_smoke_config(arch), RunConfig(**MESH_RC)
+        ax = sharding.make_axes(mesh, rc).for_batch(batch)
+        data = dict(np.load(inputs))
+        specs = spec_tree(T.model_specs(cfg), ax.resolve)
+        params = tree_map(lambda t, s: sharding.own_block(t, s, mesh),
+                          from_jax(T.model_specs(cfg), unflatten(data, "p/"),
+                                   "cpu"), specs)
+        stacked = {(t.data_ptr(), tuple(t.shape))
+                   for t in leaves(params["blocks"])}
+        rows = (ax.batch,)
+        tokens = sharding.local_shard(torch.from_numpy(data["tokens"]),
+                                      rows, mesh)
+        frontend = sharding.local_shard(torch.from_numpy(
+            data["frontend"]), rows, mesh) if "frontend" in data else None
+        whole[0] = 0
+        res = greedy(cfg, rc, params, tokens, frontend, ax, steps, buffer)
+        np.savez(os.path.join(out, f"case{i}_rank{rank}.npz"),
+                 tokens=res["tokens"], logits=res["logits"],
+                 **flatten(res["cache"], "c/"))
+        with open(os.path.join(out, f"case{i}_rank{rank}.json"), "w") as f:
+            json.dump({"moved": res["moved"], "whole_stacked": whole[0],
+                       "data": mesh.get_local_rank("data"),
+                       "model": mesh.get_local_rank("model")}, f)
+
+
+def inference_collectives(cfg, ax, kind: str, batch: int, seq: int,
+                          param_bytes: int, act_bytes: int,
+                          cache_bytes: int) -> dict:
+    """An inference step's collective bytes by kind, per rank, from the
+    config alone, on ``ax``'s mesh (``ax.batch`` already narrowed by
+    ``for_batch(batch)``); ``kind`` "prefill" over ``seq`` positions or
+    "decode".  All-gather: every weight gathered once, one mesh axis at a
+    time (a gather's output is the leaf's whole bytes over the sizes of
+    the axes still to gather); on a decode step an SSM block's state over
+    ``dinner`` (h float32, conv in the cache's dtype); a MoE block's input
+    over the batch axes where its routing group spans data ranks.
+    All-reduce, once a mesh axis: a decode step's attention softmax
+    statistics over each seq axis (the maximum, B·H float32, then the
+    weighted V and the sum, B·H·(HD + 1)); a MoE block routed on this
+    rank's rows, its two load-balance statistics (E float32 each) over
+    each batch axis; counted twice, as ``CollectiveLog`` counts an
+    all-reduce.  No KV cache byte moves."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import leaves
+
+    def gathered(whole: int, spec) -> int:
+        sizes = [ax.size(a) for e in spec
+                 for a in reversed(e if isinstance(e, tuple) else (e,))
+                 if e and ax.size(a) > 1]
+        return sum(whole // int(np.prod(sizes[i + 1:]))
+                   for i in range(len(sizes)))
+
+    weights = sum(gathered(int(np.prod(leaf.shape)) * param_bytes,
+                           ax.resolve(leaf.axes, leaf.shape))
+                  for leaf in leaves(T.model_specs(cfg)))
+    decode = kind == "decode"
+    rows = batch // ax.batch_size()
+    tokens = rows * (1 if decode else seq)
+    n_batch = len([a for a in ax.batch if ax.size(a) > 1])
+    gather = reduce = 0                      # one superblock's
+    for block, is_moe in cfg.block_pattern():
+        if decode and block == "attn":
+            reduce += len(L.seq_axes(ax)) * rows * cfg.n_heads * (
+                cfg.hd + 2) * 4
+        elif decode:
+            for name, leaf in S.state_specs(cfg, batch).items():
+                spec = (None,) + ax.resolve(leaf.axes, leaf.shape)[1:]
+                per_row = int(np.prod(leaf.shape[1:]))
+                gather += gathered(rows * per_row * (
+                    4 if name == "h" else cache_bytes), spec)
+        if is_moe:
+            if tokens % min(1024, tokens * ax.batch_size()):
+                gather += gathered(tokens * ax.batch_size() * cfg.d_model
+                                   * act_bytes, (tuple(ax.batch),))
+            else:
+                reduce += n_batch * 2 * cfg.n_experts * 4
+    return {"all-gather": weights + cfg.n_superblocks * gather,
+            "all-reduce": 2 * cfg.n_superblocks * reduce}

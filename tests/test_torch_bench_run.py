@@ -71,11 +71,12 @@ def test_summarize_renders(artifacts, capsys):
     lines = md.splitlines()
     assert lines[0].startswith("| arch |") and len(lines) == 2 + 4
     assert any("FAILED" in l for l in lines)
-    # an inference cell on a mesh counts a step the port does not run
-    assert "| jamba-v0.1-52b | decode_32k (modelled) | single |" in md
+    # an inference cell on a mesh counts the mesh step the port runs
+    assert "| jamba-v0.1-52b | decode_32k | single |" in md
     assert "| llama3.2-1b | train_4k | single |" in md
+    assert "modelled" not in md
     pt = summarize.perf_table(str(artifacts / "perf"))
-    assert "llama3.2-1b × decode_32k | baseline (modelled) |" in pt
+    assert "llama3.2-1b × decode_32k | baseline |" in pt
     assert summarize.perf_table(str(artifacts / "none")) == \
         "(no perf artifacts)"
     summarize.main(["--dir", str(artifacts)])
@@ -99,7 +100,7 @@ def test_roofline_report_rows(artifacts, capsys, tmp_path):
         assert r["us_per_call"] > 0
     assert "decode_tokens_per_s" in rows[1]
     assert "decode_tokens_per_s" not in rows[2]
-    assert rows[1]["modelled"] is True and "modelled" not in rows[2]
+    assert "modelled" not in rows[1] and "modelled" not in rows[2]
     roofline_report.main(["--dir", str(artifacts / "dryrun")])
     out = capsys.readouterr().out.splitlines()
     assert [l.split(",")[0] for l in out] == names

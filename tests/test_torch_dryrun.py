@@ -14,8 +14,10 @@
   bytes equal the same counting of a real step of the same function on
   the CPU, exactly;
 * on a (2, 2) stand-in, the collective bytes by kind equal those that
-  ``CollectiveLog`` records of one real step on 4 gloo ranks, and the
-  all-gather bytes equal an analytic sum over the sharded leaves;
+  ``CollectiveLog`` records of one real step on 4 gloo ranks, and a train
+  step's all-gather bytes equal an analytic sum over the sharded leaves;
+  on a (2, 4) stand-in an inference step's all-gather and all-reduce
+  bytes equal an analytic sum (weights once, no KV cache term);
 * the counted matmul FLOPs equal an analytic sum of 2·M·N·K over the
   model's matmuls, exactly, on a (1, 1) stand-in for every family and
   step kind;
@@ -156,8 +158,8 @@ def test_lower_cell_on_a_2x4_stand_in(arch, shape):
         for part in key.split("."):
             whole = whole[part]
         assert adjusted(res, key) == whole, key
-    # the port serves on one device: a mesh inference step is a model
-    assert ("modelled" in res) == (shape != "train_4k")
+    # every cell traces the step the port runs on the mesh
+    assert "modelled" not in res
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,6 +174,7 @@ def _one_device_cell(arch, name, batch, seq) -> dict:
 EXACT_CELLS = (("llama3.2-1b", "train_4k", 4, 32),
                ("phi3.5-moe-42b-a6.6b", "train_4k", 4, 32),
                ("jamba-v0.1-52b", "decode_32k", 4, 32),
+               ("llama3.2-1b", "decode_32k", 4, 32),
                ("musicgen-medium", "prefill_32k", 2, 48))
 
 
@@ -352,15 +355,48 @@ def test_matmul_flops_equal_an_analytic_count(cell):
 #: the (2, 2) cells of the all-gather sum: (arch, batch, seq)
 GATHER_CELLS = (("llama3.2-1b", 4, 32), ("phi3.5-moe-42b-a6.6b", 4, 32),
                 ("jamba-v0.1-52b", 4, 32))
+#: the (2, 4) inference cells: (arch, shape, batch, seq); at batch 1 the
+#: cache's positions split over both axes
+INFERENCE_GATHER_CELLS = (("llama3.2-1b", "decode_32k", 8, 64),
+                          ("llama3.2-1b", "decode_32k", 1, 64),
+                          ("gemma2-9b", "decode_32k", 8, 64),
+                          ("jamba-v0.1-52b", "decode_32k", 8, 64),
+                          ("falcon-mamba-7b", "decode_32k", 8, 64),
+                          ("phi3.5-moe-42b-a6.6b", "decode_32k", 8, 64),
+                          ("phi3.5-moe-42b-a6.6b", "prefill_32k", 8, 64),
+                          ("musicgen-medium", "prefill_32k", 8, 64))
 
 
-@pytest.mark.parametrize("cell", GATHER_CELLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("cell", GATHER_CELLS + INFERENCE_GATHER_CELLS,
+                         ids=lambda c: c[0] if len(c) == 3 else "-".join(
+                             map(str, c)))
 def test_all_gather_bytes_equal_an_analytic_sum(cell):
     """A train step on a (2, 2) stand-in gathers each sharded f32 weight
     whole before the forward, one mesh axis at a time: a gather's output
     is the leaf's whole bytes over the sizes of the axes still to gather.
     A MoE layer whose routing groups span the data ranks gathers its bf16
-    input over them, in the forward and again in the remat recompute."""
+    input over them, in the forward and again in the remat recompute.
+
+    An inference step on a (2, 4) stand-in gathers each bf16 weight once,
+    a superblock at a time, and moves no KV cache byte: its all-gather
+    and all-reduce bytes are ``_torch_gloo.inference_collectives``'
+    (the weights, a decode step's SSM state over ``dinner``, a spanning
+    MoE input; the decode softmax statistics, a local MoE's load-balance
+    statistics) exactly."""
+    if len(cell) == 4:
+        arch, name, batch, seq = cell
+        cfg = get_smoke_config(arch)
+        mesh = StandInMesh({"data": 2, "model": 4})
+        art = lower_cell(arch, _cut(name, batch, seq), False,
+                         verbose=False, mesh=mesh, cfg=cfg, device="cpu")
+        kind = SHAPES[name].kind
+        ax = make_axes(mesh, _default_rc(kind)).for_batch(batch)
+        want = G.inference_collectives(cfg, ax, kind, batch, seq, 2, 2, 2)
+        got = art["full"]["collectives"]
+        assert {k: got.get(k, 0) for k in want} == want
+        assert want["all-gather"] > 0
+        assert set(got) - {"total", "count"} <= set(want)
+        return
     arch, batch, seq = cell
     cfg = get_smoke_config(arch)
     mesh = StandInMesh({"data": 2, "model": 2})

@@ -2,10 +2,12 @@
 the reference on the inputs of the reference's own uses (integers
 bit-equal), and a sweep of every reference module's public names against
 its port: only the Pallas kernel modules (replaced by ``csrc/*.cu``) may
-be missing."""
+be missing, and a public function or method takes the reference's
+parameter names but for the port's listed idiom."""
 import ast
 import dataclasses
 import importlib
+import inspect
 from pathlib import Path
 
 import jax
@@ -142,10 +144,69 @@ def _public_names(path: Path) -> set:
     return {n for n in names if not n.startswith("_")} - {"Array", "log"}
 
 
+#: parameters only the reference takes, and why the port has none
+REF_ONLY = {
+    "interpret": "a Pallas kernel's interpret mode: a wrapper runs its "
+                 "plain version on a CPU tensor",
+    "kernel_interpret": "the same, for the serving engine's kernels",
+    "key": "a JAX PRNG key: the port takes a torch.Generator",
+    "shardings": "a restore's JAX shardings: the port's takes `place`",
+    "legacy_shard": "a GSPMD layout hint (models/moe.py)",
+}
+#: parameters only the port takes
+PORT_ONLY = {
+    "device": "the device a function makes its tensors on",
+    "generator": "the torch.Generator in place of a PRNG key",
+    "place": "what a leaf keeps of itself on a mesh",
+    "argv": "a CLI's arguments, for calling its main in-process",
+    "copy": "whether a checkpoint's writer copies the state first",
+    "mesh": "the mesh an update reduces over (GSPMD infers it there)",
+    "specs": "the placements of that update's leaves",
+}
+#: (module, function) -> (reference-only, port-only) names beyond those
+PER_FUNCTION = {
+    # the Pallas kernel's VMEM tile; the CUDA kernel picks its own tiling
+    ("repro_torch.kernels.banked_transpose.ops", "banked_transpose"):
+        ({"tile"}, set()),
+    # the reference's body never reads it: the mesh's axis names decide
+    ("repro_torch.launch.sharding", "make_axes"): ({"multi_pod"}, set()),
+    # ROADMAP item 32: every reference caller passes NO_AXES
+    ("repro_torch.serving.engine", "ServeEngine.__init__"): ({"ax"}, set()),
+}
+
+
+def _ref_params(node: ast.FunctionDef) -> set:
+    a = node.args
+    names = {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+    names |= {x.arg for x in (a.vararg, a.kwarg) if x is not None}
+    return names - {"self", "cls"}
+
+
+def _port_params(obj) -> set:
+    return set(inspect.signature(obj).parameters) - {"self", "cls"}
+
+
+def _public_functions(path: Path):
+    """(qualified name, ``FunctionDef``) of every public function and of
+    every public class's public methods and ``__init__``."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith(
+                "_"):
+            yield node.name, node
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef) and (
+                        sub.name == "__init__"
+                        or not sub.name.startswith("_")):
+                    yield f"{node.name}.{sub.name}", sub
+
+
 def test_every_reference_name_has_a_port():
     """The re-anchor's sweep: every public function, class, constant and
-    ``__all__`` entry of every reference module exists in its port."""
-    missing_modules, missing = set(), {}
+    ``__all__`` entry of every reference module exists in its port, and
+    every public function and method takes the reference's parameter
+    names, but for ``REF_ONLY``, ``PORT_ONLY`` and ``PER_FUNCTION``."""
+    missing_modules, missing, params = set(), {}, {}
     for path in sorted((SRC / "repro").rglob("*.py")):
         rel = path.relative_to(SRC / "repro")
         if not (SRC / "repro_torch" / rel).exists():
@@ -157,8 +218,22 @@ def test_every_reference_name_has_a_port():
         gone = {n for n in _public_names(path) if not hasattr(mod, n)}
         if gone:
             missing[name] = gone
+        for qual, node in _public_functions(path):
+            obj = mod
+            for part in qual.split("."):
+                obj = getattr(obj, part, None)
+            if not callable(obj):              # missing, or a property
+                continue
+            ref, port = _ref_params(node), _port_params(obj)
+            ref_only, port_only = PER_FUNCTION.get((name, qual),
+                                                   (set(), set()))
+            extra = (ref - port - set(REF_ONLY) - ref_only,
+                     port - ref - set(PORT_ONLY) - port_only)
+            if any(extra):
+                params[f"{name}.{qual}"] = extra
     pallas = {p.relative_to(SRC / "repro").as_posix()
               for p in (SRC / "repro" / "kernels").glob("*/kernel.py")}
     assert len(pallas) == 7
     assert missing_modules == pallas
     assert missing == {}
+    assert params == {}
