@@ -293,8 +293,13 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
                ``prefill`` and 8 greedy ``decode_step``s through the mesh
                path at full width (llama3.2-1b whole, jamba cut to one
                superblock, bf16 parameters), bit-equal to one device's
-               and at its peak memory; step times, peak memory and the
-               wall time beside the card's name and power limit;
+               and at its peak memory; the ``ServeEngine`` with ``ax``
+               against one device's: llama3.2-1b whole at the serving
+               point, paged and dense (tokens and pools bit-equal, the
+               same peak, the mesh run's paired row launches 240 / 256),
+               the scheduled day (outputs, stats, stream) and jamba cut
+               to one superblock (tokens); step times, peak memory and
+               the wall time beside the card's name and power limit;
  18. dryrun  — the compile-only accounting: llama3.2-1b whole at the
                train CLI's step (16 x 64, remat none) dry-run on a (1, 1)
                stand-in and run for real on the card under the same
@@ -344,7 +349,7 @@ def log(msg: str) -> None:
 
 #: the serving paths past ``serve`` that run the row kernels
 ROW_PATHS = ("schedule", "faults", "preempt", "serving_bench", "analysis",
-             "families")
+             "families", "mesh")
 
 LIBRARIES = ("banked_rows", "banked_transpose", "fft_stage", "controllers",
              "moe_dispatch")
@@ -536,6 +541,7 @@ def phase_serve() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeEngine
@@ -545,7 +551,8 @@ def phase_serve() -> dict:
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_tree(model_specs(cfg), gen, device="cuda")
-    engine = ServeEngine(cfg, rc, params, max_batch=BATCH, max_seq=MAX_SEQ,
+    engine = ServeEngine(cfg, rc, params, NO_AXES,
+                         max_batch=BATCH, max_seq=MAX_SEQ,
                          mem_arch="16B", page_len=PAGE_LEN, device="cuda")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (BATCH, PROMPT))
@@ -576,7 +583,7 @@ def phase_serve() -> dict:
         tok = logits0[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
         pools, pages = engine._ingest_prefill(cache, PROMPT, BATCH)
         lp, _, _ = engine._paged_step(params, tok, pools, pages, PROMPT)
-        dense = ServeEngine(cfg, rc, params, max_batch=BATCH,
+        dense = ServeEngine(cfg, rc, params, NO_AXES, max_batch=BATCH,
                             max_seq=MAX_SEQ, kv_mode="dense", device="cuda")
         ld, _ = T.decode_step(cfg, rc, params, tok,
                               dense._pad_cache(cache, PROMPT),
@@ -698,6 +705,7 @@ def phase_schedule(engine, smi: str) -> dict:
     from repro_torch.core.cost_engine import cost_many
     from repro_torch.kernels.banked_gather import ops as G
     from repro_torch.kernels.banked_scatter import ops as S
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import (Request, Scheduler,
@@ -706,7 +714,7 @@ def phase_schedule(engine, smi: str) -> dict:
                                                synthesize_requests)
     t_phase = time.perf_counter()
     cfg = engine.cfg
-    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+    eng = ServeEngine(cfg, engine.rc, engine.params, NO_AXES, max_batch=BATCH,
                       max_seq=SCHED_MAX_SEQ, mem_arch="16B",
                       page_len=PAGE_LEN, device=engine.device)
     reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
@@ -892,6 +900,7 @@ def phase_faults(engine, healthy: dict, smi: str) -> dict:
     from repro_torch.kernels.banked_gather import ops as G
     from repro_torch.kernels.banked_scatter import ops as S
     from repro_torch.launch import serve
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.runtime import FaultEvent, FaultPlan
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving.engine import ServeEngine
@@ -899,7 +908,7 @@ def phase_faults(engine, healthy: dict, smi: str) -> dict:
                                                synthesize_requests)
     t_phase = time.perf_counter()
     cfg = engine.cfg
-    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+    eng = ServeEngine(cfg, engine.rc, engine.params, NO_AXES, max_batch=BATCH,
                       max_seq=SCHED_MAX_SEQ, mem_arch="16B",
                       page_len=PAGE_LEN, device=engine.device)
     reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
@@ -1072,6 +1081,7 @@ def phase_preempt(engine, healthy: dict, launches: dict, smi: str) -> dict:
     import repro_torch.checkpoint as CK
     from repro_torch.bench.serving_bench import implied_row_launches
     from repro_torch.core.trace import AddressTrace
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.runtime import FaultEvent, FaultPlan, PreemptionGuard
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import (Scheduler,
@@ -1079,7 +1089,7 @@ def phase_preempt(engine, healthy: dict, launches: dict, smi: str) -> dict:
                                                synthesize_requests)
     t_phase = time.perf_counter()
     cfg = engine.cfg
-    eng = ServeEngine(cfg, engine.rc, engine.params, max_batch=BATCH,
+    eng = ServeEngine(cfg, engine.rc, engine.params, NO_AXES, max_batch=BATCH,
                       max_seq=SCHED_MAX_SEQ, mem_arch="16B",
                       page_len=PAGE_LEN, device=engine.device)
     reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
@@ -3147,6 +3157,7 @@ def _analysis_scaled_embedding() -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models.params import tree_map
     from repro_torch.serving.engine import ServeEngine
@@ -3163,7 +3174,8 @@ def _analysis_scaled_embedding() -> dict:
     try:
         tokens = {
             (mode, dev): ServeEngine(
-                cfg, rc, params, kv_mode=mode, max_batch=3, max_seq=24,
+                cfg, rc, params, NO_AXES,
+                kv_mode=mode, max_batch=3, max_seq=24,
                 page_len=8, device=dev).generate(
                     prompts, max_new_tokens=6).tokens.tolist()
             for mode in ("paged", "dense")
@@ -3774,6 +3786,7 @@ def _family_point(arch: str, n_layers: int, smi: str, check=None) -> dict:
     from repro_torch.kernels import registry
     from repro_torch.kernels.banked_scatter import ops as S
     from repro_torch.kernels.moe_dispatch import ops as D
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
@@ -3794,7 +3807,8 @@ def _family_point(arch: str, n_layers: int, smi: str, check=None) -> dict:
     weights_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     n_params = count_params(specs)
-    engine = ServeEngine(cfg, rc, params, max_batch=BATCH, max_seq=MAX_SEQ,
+    engine = ServeEngine(cfg, rc, params, NO_AXES,
+                         max_batch=BATCH, max_seq=MAX_SEQ,
                          mem_arch="16B", page_len=PAGE_LEN, device="cuda")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (BATCH, PROMPT))
@@ -4011,6 +4025,7 @@ def _family_smokes() -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.models.params import tree_map
     from repro_torch.serving.engine import ServeEngine
@@ -4026,7 +4041,8 @@ def _family_smokes() -> dict:
         runs = {}
         for device, params in (("cpu", host), ("cuda", tree_map(
                 lambda t: t.to("cuda"), host))):
-            eng = ServeEngine(cfg, rc, params, max_batch=2, max_seq=24,
+            eng = ServeEngine(cfg, rc, params, NO_AXES,
+                              max_batch=2, max_seq=24,
                               page_len=8, device=device)
             logits, sample = [], eng._sample
 
@@ -4538,6 +4554,209 @@ def _mesh_inference(mesh, smi: str) -> tuple:
     return checks, record
 
 
+#: (g): jamba cut to one superblock for the mesh engine's hybrid check
+MESH_SERVE_JAMBA_LAYERS = 8
+
+
+def _engine_run(engine, run, tag: str, paged: bool):
+    """``run(engine)`` (a ``generate``) from an emptied allocator cache
+    after a 2-token warm-up, each decode step timed on the host to the end
+    of its device work: (result, decode step seconds, peak bytes above
+    the run's start)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    engine.generate(np.zeros((1, 8), np.int64), max_new_tokens=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_s: list = []
+    owner, name = (engine, "_paged_step") if paged else (T, "decode_step")
+    real = getattr(owner, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    setattr(owner, name, timed)
+    try:
+        res = run(engine)
+    finally:
+        if paged:
+            del engine._paged_step
+        else:
+            T.decode_step = real
+    torch.cuda.synchronize()
+    return res, step_s, torch.cuda.max_memory_allocated() - base
+
+
+def _mesh_serving(mesh, smi: str) -> tuple:
+    """(g) ``ServeEngine`` with ``ax`` on the one-rank mesh against
+    ``NO_AXES``.  llama3.2-1b whole at the ``serve`` point (``BATCH`` x
+    ``PROMPT`` + ``NEW``, a 16B pool of ``PAGE_LEN``-token pages, f32
+    parameters, bf16 compute), paged and dense, each in turns one device,
+    mesh, mesh, one device, from an emptied allocator cache: tokens
+    bit-equal to the first run's, paged pools bit-equal, the peak above
+    each run's start of the later runs equal, each run's decode step
+    times; the first paged mesh run through ``_counted_path`` (one paired
+    gather and one paired scatter a KV layer and decode step, one paired
+    scatter a KV layer for the ingest: 240 and 256).  The reference CLI's
+    scheduled day (``SCHED_REQUESTS`` requests on ``BATCH`` lanes,
+    max_seq ``SCHED_MAX_SEQ``) through ``run_scheduler`` on the mesh and
+    on one device: outputs, ``stats()`` and the scheduler stream equal.
+    jamba cut to one superblock, bf16, paged ``generate`` on the mesh and
+    on one device: tokens equal.  Returns (checks, record, the counted
+    run's launches, its launches by entry)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.dryrun import _default_rc
+    from repro_torch.launch.sharding import NO_AXES, make_axes
+    from repro_torch.models import init_tree, model_specs
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import synthesize_requests
+
+    cfg = get_config("llama3.2-1b")
+    rc = RunConfig(remat="none", attn_impl="dense")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_tree(model_specs(cfg), gen, device="cuda")
+    ax = make_axes(mesh, rc)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (BATCH, PROMPT))
+    checks, record, counted = {}, {}, {}
+
+    def engine(on, kv_mode, max_seq=MAX_SEQ, c=cfg, r=rc, p=params):
+        return ServeEngine(c, r, p, on, max_batch=BATCH, max_seq=max_seq,
+                           mem_arch="16B", kv_mode=kv_mode,
+                           page_len=PAGE_LEN, device="cuda")
+
+    n_kv = engine(NO_AXES, "paged").n_kv_layers
+    for kv_mode in ("paged", "dense"):
+        paged = kv_mode == "paged"
+        runs = []
+        for on in ("one device", "mesh", "mesh", "one device"):
+            eng = engine(ax if on == "mesh" else NO_AXES, kv_mode)
+
+            def go(e):
+                return e.generate(prompts, max_new_tokens=NEW)
+            if paged and on == "mesh" and not counted:
+                def go(e, plain=go):
+                    res, _, launches, entries = _counted_path(
+                        "mesh (g)", lambda: plain(e),
+                        lambda _: {"banked_gather": n_kv * (NEW - 1),
+                                   "banked_scatter": n_kv * NEW})
+                    counted.update(launches=launches, entries=entries)
+                    return res
+            res, step_s, above = _engine_run(eng, go, on, paged)
+            pools = {k: {h: t.cpu() for h, t in pair.items()}
+                     for k, pair in eng.last_pools.items()} if paged else {}
+            runs.append({"on": on, "tokens": res.tokens, "pools": pools,
+                         "step_ms": [s * 1e3 for s in step_s],
+                         "above_start": above})
+            del eng, res
+        first = runs[0]
+        same = [np.array_equal(r["tokens"], first["tokens"]) for r in runs]
+        same_pools = [all(torch.equal(r["pools"][k][h], first["pools"][k][h])
+                          for k in first["pools"] for h in first["pools"][k])
+                      for r in runs]
+        above = [r["above_start"] for r in runs]
+        medians = [float(np.median(r["step_ms"])) for r in runs]
+        log(f"[mesh] (g) ServeEngine {kv_mode}, llama3.2-1b whole, {BATCH} "
+            f"x {PROMPT} + {NEW} new, in turns one device / mesh / mesh / "
+            f"one device: median decode step {[round(m, 4) for m in medians]}"
+            f" ms over {len(runs[0]['step_ms'])} steps, {above} B above "
+            f"each run's start (torch.cuda.max_memory_allocated), tokens "
+            f"bit-equal to the first run's {same}"
+            + (f", pools bit-equal {same_pools}" if paged else "")
+            + f"; tokens {first['tokens'][0].tolist()} ({smi})")
+        checks[f"(g) {kv_mode} mesh == one device, tokens"] = all(same)
+        if paged:
+            checks["(g) paged mesh pools == one device's, bit for bit"] = \
+                all(same_pools)
+        checks[f"(g) {kv_mode} mesh peak == one device's"] = (
+            above[1] == above[2] == above[3])
+        record[kv_mode] = {"step_ms": [r["step_ms"] for r in runs],
+                           "median_step_ms": medians,
+                           "peak_above_start_bytes": above,
+                           "tokens_equal": same, "pools_equal": same_pools}
+        del runs, first
+    checks["(g) the mesh engine's row launches 240 / 256"] = (
+        counted["launches"] == {"banked_gather": 240,
+                                "banked_scatter": 256})
+
+    # the reference CLI's scheduled day, on the mesh and on one device
+    reqs = synthesize_requests(SCHED_REQUESTS, arrival_rate=SCHED_RATE,
+                               context_dist="mixed", max_seq=SCHED_MAX_SEQ,
+                               seed=0, vocab_size=cfg.vocab_size)
+    day = {}
+    for on in ("one device", "mesh"):
+        eng = engine(ax if on == "mesh" else NO_AXES, "paged",
+                     max_seq=SCHED_MAX_SEQ)
+        t0 = time.perf_counter()
+        res = eng.run_scheduler(reqs)
+        torch.cuda.synchronize()
+        day[on] = {"res": res, "s": time.perf_counter() - t0,
+                   "stream": eng.scheduler_stream().materialize()}
+        del eng
+    a, b = day["one device"], day["mesh"]
+    outputs_same = a["res"].outputs.keys() == b["res"].outputs.keys() and all(
+        np.array_equal(a["res"].outputs[k], b["res"].outputs[k])
+        for k in a["res"].outputs)
+    stream_same = all(np.array_equal(getattr(a["stream"], f),
+                                     getattr(b["stream"], f))
+                      for f in ("addrs", "kinds", "instr", "mask"))
+    log(f"[mesh] (g) scheduled day ({len(reqs)} requests, {BATCH} lanes, "
+        f"max_seq {SCHED_MAX_SEQ}): {b['res'].ticks} ticks, one device "
+        f"{a['s']:.3f} s, mesh {b['s']:.3f} s; outputs equal {outputs_same},"
+        f" stats equal {a['res'].stats == b['res'].stats}, stream equal "
+        f"{stream_same} ({a['stream'].n_ops} ops) ({smi})")
+    checks["(g) scheduled day: mesh outputs == one device's"] = outputs_same
+    checks["(g) scheduled day: mesh stats == one device's"] = (
+        a["res"].stats == b["res"].stats)
+    checks["(g) scheduled day: mesh stream == one device's"] = stream_same
+    record["day"] = {"ticks": b["res"].ticks, "one_device_s": a["s"],
+                     "mesh_s": b["s"], "ops": a["stream"].n_ops}
+    del day, a, b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba cut to one superblock, bf16, paged generate
+    jcfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                               n_layers=MESH_SERVE_JAMBA_LAYERS)
+    jrc = _default_rc("decode")
+    jgen = torch.Generator(device="cuda").manual_seed(0)
+    jparams = init_tree(model_specs(jcfg), jgen, torch.bfloat16, "cuda")
+    j_ax = make_axes(mesh, jrc)
+    jtoks = {}
+    for on in ("one device", "mesh"):
+        eng = engine(j_ax if on == "mesh" else NO_AXES, "paged", c=jcfg,
+                     r=jrc, p=jparams)
+        t0 = time.perf_counter()
+        jtoks[on] = eng.generate(prompts % jcfg.vocab_size,
+                                 max_new_tokens=NEW).tokens
+        torch.cuda.synchronize()
+        record[f"jamba_{on}_s"] = time.perf_counter() - t0
+        del eng
+    jsame = np.array_equal(jtoks["one device"], jtoks["mesh"])
+    log(f"[mesh] (g) jamba cut to {MESH_SERVE_JAMBA_LAYERS} layers, bf16: "
+        f"paged generate {BATCH} x {PROMPT} + {NEW} on the mesh "
+        f"{record['jamba_mesh_s']:.3f} s, one device "
+        f"{record['jamba_one device_s']:.3f} s; tokens equal {jsame}; "
+        f"tokens {jtoks['mesh'][0].tolist()} ({smi})")
+    checks["(g) jamba paged mesh tokens == one device's"] = jsame
+    del jparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return checks, record, counted["launches"], counted["entries"]
+
+
 def phase_mesh(smi: str) -> dict:
     """Meshes and collectives (slice 7b) on the card, on a one-rank NCCL
     group that the phase starts and ends: (a) ``make_current_mesh()`` is
@@ -4559,9 +4778,11 @@ def phase_mesh(smi: str) -> dict:
     stage against the serial stage, within 1e-5; (f) inference through
     the mesh path (``_mesh_inference``): llama3.2-1b whole and jamba cut
     to one superblock, prefill and 8 greedy decode steps, bit-equal to
-    one device's and at its peak memory.  Step times, peak device
-    memory and the phase's wall time are printed beside the card's name
-    and power limit; no kernel of the seven is launched."""
+    one device's and at its peak memory; (g) the serving engine with
+    ``ax`` (``_mesh_serving``).  Step times, peak device memory and the
+    phase's wall time are printed beside the card's name and power
+    limit; no kernel of the seven is launched before (g), and (g)
+    launches the row kernels only."""
     import shutil
     import tempfile
 
@@ -4764,10 +4985,21 @@ def phase_mesh(smi: str) -> dict:
         # (f) inference through the mesh path
         more, record["inference"] = _mesh_inference(mesh, smi)
         checks.update(more)
+        before = {name: e.launches for name, e in entries.items()}
+        checks["no kernel launched before (g)"] = not any(before.values())
+
+        # (g) the serving engine on the mesh: the row kernels' launches are
+        # its counted run's
+        more, record["serving"], g_launches, g_entries = _mesh_serving(
+            mesh, smi)
+        checks.update(more)
     finally:
         dist.destroy_process_group()
-    launches = {name: e.launches for name, e in entries.items()}
-    checks["no kernel launched"] = not any(launches.values())
+    rows = ("banked_gather", "banked_scatter")
+    checks["(g) no kernel but the row kernels launched"] = not any(
+        e.launches for name, e in entries.items() if name not in rows)
+    launches = {name: (g_launches[name] if name in rows else e.launches)
+                for name, e in entries.items()}
     gc.collect()
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
@@ -4776,7 +5008,7 @@ def phase_mesh(smi: str) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"mesh checks failed: {checks}")
     return {**record, "checks": checks, "launches": launches,
-            "wall_s": wall}
+            "entries": g_entries, "wall_s": wall}
 
 
 #: (a): llama3.2-1b whole at the train CLI's step (batch, seq), remat none

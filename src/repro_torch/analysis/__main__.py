@@ -188,6 +188,7 @@ def _check_engine(arch, device="cuda") -> int:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.serving.engine import ServeEngine
 
@@ -195,7 +196,7 @@ def _check_engine(arch, device="cuda") -> int:
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_tree(model_specs(cfg), gen, device=device)
-    eng = ServeEngine(cfg, rc, params, kv_mode="paged", max_batch=2,
+    eng = ServeEngine(cfg, rc, params, NO_AXES, kv_mode="paged", max_batch=2,
                       max_seq=24, page_len=8, device=device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(2, 10)).astype(np.int32)

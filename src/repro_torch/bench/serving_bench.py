@@ -195,6 +195,7 @@ def check_live_equals_sim(device="cuda") -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import arch as A
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import (Request,
@@ -203,7 +204,8 @@ def check_live_equals_sim(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_tree(model_specs(cfg), gen, device=device)
     eng = ServeEngine(cfg, RunConfig(remat="none", attn_impl="dense"),
-                      params, max_batch=4, max_seq=32, kv_mode="paged",
+                      params, NO_AXES,
+                      max_batch=4, max_seq=32, kv_mode="paged",
                       page_len=8, device=device)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, arrival=a, prompt_len=p, max_new_tokens=m,

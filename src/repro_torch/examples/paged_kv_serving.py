@@ -31,6 +31,7 @@ from repro_torch.bench import serving_workload
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import arch
+from repro_torch.launch.sharding import NO_AXES
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving import ServeEngine, bank_load_stats
 
@@ -60,7 +61,7 @@ def main(argv=None) -> dict:
     params = init_tree(model_specs(cfg), gen, device=device)
     b, prompt, new = 4, 12, 8
 
-    engine = ServeEngine(cfg, rc, params, max_batch=b, max_seq=32,
+    engine = ServeEngine(cfg, rc, params, NO_AXES, max_batch=b, max_seq=32,
                          mem_arch="16B", kv_mode="paged", page_len=8,
                          device=device)
     prompts = np.random.default_rng(0).integers(
@@ -74,7 +75,7 @@ def main(argv=None) -> dict:
         print(f"  req{i}: {res.tokens[i].tolist()}")
 
     # -- 2. the dense reference produces the same tokens --------------------
-    ref = ServeEngine(cfg, rc, params, max_batch=b, max_seq=32,
+    ref = ServeEngine(cfg, rc, params, NO_AXES, max_batch=b, max_seq=32,
                       kv_mode="dense", device=device)
     if not np.array_equal(ref.generate(prompts, max_new_tokens=new).tokens,
                           res.tokens):

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.serve import no_frontend_message
+from repro_torch.launch.sharding import NO_AXES
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving.engine import ServeEngine
 
@@ -47,7 +48,7 @@ def main(argv=None) -> dict:
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = init_tree(model_specs(cfg), gen, device=args.device)
-    engine = ServeEngine(cfg, rc, params, max_batch=args.batch,
+    engine = ServeEngine(cfg, rc, params, NO_AXES, max_batch=args.batch,
                          max_seq=args.prompt_len + args.new_tokens + 4,
                          device=args.device)
 

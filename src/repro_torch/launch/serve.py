@@ -53,6 +53,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import arch as _arch
 from repro_torch.core.cost_engine import cost_many
+from repro_torch.launch.sharding import NO_AXES
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving.engine import ServeEngine
 
@@ -193,7 +194,7 @@ def main(argv=None):
     rc = RunConfig(remat="none", attn_impl="dense")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_tree(model_specs(cfg), gen, device=args.device)
-    engine = ServeEngine(cfg, rc, params, max_batch=args.batch,
+    engine = ServeEngine(cfg, rc, params, NO_AXES, max_batch=args.batch,
                          max_seq=args.prompt_len + args.new_tokens + 4,
                          mem_arch=args.mem_arch, kv_mode=args.kv_mode,
                          page_len=args.page_len, device=args.device)

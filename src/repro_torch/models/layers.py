@@ -192,26 +192,31 @@ def attention(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor, *,
     return out
 
 
-def seq_axes(ax: Axes) -> tuple:
+def seq_axes(ax: Axes, length: int | None = None) -> tuple:
     """The mesh axes that a KV cache's positions split over on ``ax``'s
     mesh, major first: "data" and "model" where the batch leaves them
-    free, as ``Axes.resolve`` places ``KV_AXES`` (``()`` off a mesh)."""
+    free, as ``Axes.resolve`` places ``KV_AXES`` (``()`` off a mesh).
+    With ``length``, only those that ``resolve`` splits a cache of
+    ``length`` positions over: each in turn where it divides them."""
     if ax.mesh is None:
         return ()
-    return tuple(a for a in ("data", "model")
-                 if a not in ax.batch and ax.size(a) > 1)
+    out, n = [], 1
+    for a in ("data", "model"):
+        if a in ax.batch or ax.size(a) <= 1:
+            continue
+        if length is None or length % (n * ax.size(a)) == 0:
+            out.append(a)
+            n *= ax.size(a)
+    return tuple(out)
 
 
 def cache_block(kv: torch.Tensor, ax: Axes) -> torch.Tensor:
-    """This rank's block of a K or V cache (B, T, KV, HD) of its rows:
-    its slice of the positions (the whole off a mesh)."""
-    seq = seq_axes(ax)
+    """This rank's block of a prefill's K or V cache (B, T, KV, HD) of its
+    rows: its slice of the positions over ``seq_axes(ax, T)`` (the whole
+    off a mesh, or where no free axis divides T)."""
+    seq = seq_axes(ax, kv.shape[1])
     if not seq:
         return kv
-    n = shard_index(seq, ax.mesh)[1]
-    if kv.shape[1] % n:
-        raise ValueError(f"a KV cache of {kv.shape[1]} positions does not "
-                         f"split over the mesh axes {seq} ({n} ranks)")
     return own_block(kv, (None, seq), ax.mesh)
 
 
@@ -224,8 +229,10 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     or the window (SWA ring buffer); pos: () current position.
     Returns (out (B, 1, D), new cache).
 
-    On a mesh ``cache`` is this rank's block (``cache_block``), its slice
-    of the whole cache's positions.  The new K/V goes in by the
+    On a mesh ``cache`` is this rank's block, its slice of the whole
+    cache's positions over ``seq_axes(ax)`` (every free axis: a decode
+    buffer that they divide, as ``launch.inputs.decode_specs`` places
+    it).  The new K/V goes in by the
     reference's one-hot masked write, which lands only on the rank whose
     slice holds the slot; each rank's partial softmax (its maximum, sum of
     exponentials and weighted V, in float32) is combined over the

@@ -25,7 +25,11 @@ before the block (``gather_superblock``) and dropped after it.  The
 decode cache stays where the reference keeps it: each rank holds its rows
 of it, an attention block's positions split over the axes the batch
 leaves free (``layers.cache_block``), an SSM block's state over
-``dinner``.  Model ranks compute the same rows.
+``dinner``.  Model ranks compute the same rows.  The serving engine
+(``repro_torch.serving.engine``) runs its paged decode steps through
+``apply_block_decode`` with its attention in the ``attn_fn`` hook, on the
+same mesh with an empty batch: the weights gathered as here, every rank
+running every lane on its whole page pools.
 """
 from __future__ import annotations
 
@@ -281,17 +285,14 @@ def apply_block_decode(cfg: ModelConfig, rc: RunConfig, p: dict,
     """One block's decode step against its cache ({"k", "v"} for an
     attention block, {"h", "conv"} for an SSM block; on a mesh this
     rank's block of it).  ``attn_fn`` swaps the attention-cache
-    implementation (same signature as ``L.attention_decode``, without
-    ``ax``: the serving engine's, which runs on one device); SSM blocks
-    ignore it."""
+    implementation (same signature as ``L.attention_decode``, ``ax``
+    passed to it: the serving engine's paged attention plugs in here);
+    SSM blocks ignore it."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
-        w = _block_window(cfg, j)
-        if attn_fn is None:
-            h, new_cache = L.attention_decode(cfg, p["mixer"], h, cache, pos,
-                                              window=w, ax=ax)
-        else:
-            h, new_cache = attn_fn(cfg, p["mixer"], h, cache, pos, window=w)
+        h, new_cache = (attn_fn or L.attention_decode)(
+            cfg, p["mixer"], h, cache, pos, window=_block_window(cfg, j),
+            ax=ax)
     else:
         h, new_cache = S.mamba_decode(cfg, p["mixer"], h, cache, ax=ax)
     if cfg.post_block_norms:
@@ -438,7 +439,8 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, params: dict,
     ``cache`` as ``prefill`` returns it (attention caches padded to the
     decode buffer).  Returns (logits (B, 1, Vp), new cache).  On a mesh
     ``params`` are this rank's shards, ``token`` its rows and ``cache``
-    its block, and the logits and new cache are its blocks."""
+    its block (an attention cache's positions over ``layers.seq_axes``),
+    and the logits and new cache are its blocks."""
     dtype = getattr(torch, rc.compute_dtype)
     top, block = _weights(cfg, params, ax)
     embed = top("embed")

@@ -31,20 +31,42 @@ decode fault is retried.  A preemption (a ``preempt`` event or a tripped
 ``runtime.PreemptionGuard``) checkpoints the pools and the scheduler's
 state through ``repro_torch.checkpoint``, and a second ``run_scheduler``
 call resumes the day from it.
+
+On a mesh (``ax`` from ``make_axes``; ``NO_AXES`` for one device) each
+rank holds its shards of ``params``, placed by ``ax.resolve``, and is
+handed the whole request batch.  The prefill runs as
+``transformer.prefill`` runs on a mesh (``ax.for_batch``: this rank's
+rows, its block of the cache), and so does ``kv_mode="dense"``'s decode,
+its logits gathered over the batch axes before sampling, so every rank
+draws the same tokens.  The page pools get no placement, as in the
+reference: they stay whole on every rank, and the paged steps run on
+``ax`` with an empty batch, the mesh splitting the weights only (each
+block's gathered just before the block and dropped after it), every rank
+running every lane through the row kernels on its own pools.  An
+admission gathers its prefill K/V whole before lowering it to page rows:
+the only KV bytes that cross ranks.  A preemption's checkpoint is written
+by rank 0 and restored by every rank.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import arch as _arch
+from repro_torch.launch.sharding import (NO_AXES, Axes, gather_shard,
+                                         local_shard, own_block,
+                                         shard_index)
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.serving import kvcache as KV
 
@@ -88,10 +110,15 @@ class _RaggedStep(NamedTuple):
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, rc: RunConfig, params: dict,
-                 max_batch: int = 8, max_seq: int = 256, mem_arch="16B",
-                 kv_mode: str = "paged", page_len: int = 8, device="cuda"):
-        self.cfg, self.rc = cfg, rc
+                 ax: Axes, max_batch: int = 8, max_seq: int = 256,
+                 mem_arch="16B", kv_mode: str = "paged", page_len: int = 8,
+                 device="cuda"):
+        self.cfg, self.rc, self.ax = cfg, rc, ax
         self.params = params
+        #: the paged steps' context: ``ax`` with an empty batch (module
+        #: docstring)
+        self._lanes = ax if ax.mesh is None else dataclasses.replace(
+            ax, batch=())
         self.device = torch.device(device)
         self.max_batch, self.max_seq = max_batch, max_seq
         #: the memory architecture the KV page banking derives from
@@ -114,8 +141,9 @@ class ServeEngine:
         #: final PageTableState of the last paged generate
         self.last_pages: KV.PageTableState | None = None
         #: the per-layer decode state of the last paged ``generate`` or
-        #: ``run_scheduler`` (key ``b{j}s{sb}`` -> {"k", "v"} pools, or an
-        #: SSM layer's {"h", "conv"})
+        #: ``run_scheduler`` (key ``b{j}s{sb}`` -> {"k", "v"} pools, whole
+        #: on every rank of a mesh, or an SSM layer's {"h", "conv"}, on a
+        #: mesh this rank's block over ``dinner``)
         self.last_pools: dict | None = None
 
     # -- configuration -----------------------------------------------------
@@ -142,15 +170,80 @@ class ServeEngine:
         return self.cfg.n_superblocks * sum(
             1 for kind, _ in self.cfg.block_pattern() if kind == "attn")
 
+    # -- a mesh --------------------------------------------------------------
+
+    def _my_rows(self, x: torch.Tensor, ax: Axes) -> torch.Tensor:
+        """This rank's rows of the whole batch ``x`` on ``ax``."""
+        return x if ax.mesh is None else local_shard(x, (ax.batch,), ax.mesh)
+
+    def _all_rows(self, x: torch.Tensor, ax: Axes) -> torch.Tensor:
+        """The whole batch from every rank's rows ``x`` on ``ax``."""
+        return x if ax.mesh is None else gather_shard(x, (ax.batch,),
+                                                      ax.mesh)
+
+    def _prefill_positions(self, j: int, plen: int) -> int:
+        """The positions pattern block ``j``'s prefill cache keeps of a
+        ``plen``-token prompt: the prompt, or its window."""
+        w = T._block_window(self.cfg, j)
+        return min(plen, w) if w else plen
+
+    def _whole_prefill(self, cache: dict, plen: int, batch: int) -> dict:
+        """The prefill cache of ``batch`` rows as the paged steps take it:
+        on a mesh each K/V made whole (its rows and positions gathered,
+        once per admission) and each SSM state moved to the placement
+        ``ssm.py`` gives it on the paged steps' context (every row, its
+        ``dinner`` still split); off a mesh ``cache`` itself."""
+        ax = self.ax.for_batch(batch)
+        if ax.mesh is None:
+            return cache
+        held = S._state_placement(self.cfg, ax, batch // ax.batch_size())
+        lanes = S._state_placement(self.cfg, self._lanes, batch)
+        out = {}
+        for j, (kind, _) in enumerate(self.cfg.block_pattern()):
+            bc = cache["blocks"][f"b{j}"]
+            if kind == "attn":
+                spec = (None, ax.batch,
+                        L.seq_axes(ax, self._prefill_positions(j, plen)))
+                out[f"b{j}"] = {name: gather_shard(t, spec, ax.mesh)
+                                for name, t in bc.items()}
+                continue
+            out[f"b{j}"] = {name: own_block(gather_shard(
+                t, (None, ax.batch) + held[name][1:], ax.mesh),
+                (None,) + lanes[name], ax.mesh) for name, t in bc.items()}
+        return {"blocks": out}
+
+    def _decode_layers(self, params, tok, pools, pos, attn_fn):
+        """The model's decode step over the per-layer decode state
+        ``pools`` (updated in place) with the paged attention ``attn_fn``,
+        on the paged steps' context: on a mesh each block's weights are
+        gathered just before it.  Returns (logits, pools)."""
+        cfg, rc, ax = self.cfg, self.rc, self._lanes
+        top, block = T._weights(cfg, params, ax)
+        embed = top("embed")
+        x = T._token_rows({"embed": embed}, tok,
+                          getattr(torch, rc.compute_dtype))
+        if not cfg.tie_embeddings:
+            embed = None
+        for sb in range(cfg.n_superblocks):
+            for j, (kind, is_moe) in enumerate(cfg.block_pattern()):
+                key = f"b{j}s{sb}"
+                x, pools[key] = T.apply_block_decode(
+                    cfg, rc, block(j, sb), x, pools[key], pos, kind, is_moe,
+                    j, attn_fn=attn_fn, ax=ax)
+        x = L.rmsnorm(top("final_norm"), x, cfg.norm_eps)
+        return T._unembed(cfg, T._head(cfg, top, embed), x), pools
+
     # -- paged decode path -------------------------------------------------
 
-    def _paged_attention_decode(self, cfg, p, x, cache, pos, *,
+    def _paged_attention_decode(self, cfg, p, x, cache, pos, ax, *,
                                 window: int = 0, pages=None, step_pos=0):
         """``L.attention_decode`` against the banked page pool: gather the
         sequences' pages, insert the new token, attend, write each current
         page back.  Same einsums, masks and dtypes as the dense path.
         ``step_pos`` is ``pos`` on the host (it picks the current page
-        without a device sync)."""
+        without a device sync).  ``ax`` is the paged steps' context: the
+        mesh splits no lane and no pool, so every rank attends every lane
+        with the block's whole weights."""
         kv = self.kv_cfg
         b = x.shape[0]
         plen = kv.page_len
@@ -194,22 +287,13 @@ class ServeEngine:
         layer's K/V page pools, updated in place, or an SSM layer's
         {"h", "conv"}, replaced by the step's new state).  Returns (logits,
         pools, pages)."""
-        cfg, rc = self.cfg, self.rc
-        dtype = getattr(torch, rc.compute_dtype)
         need = (pages.seq_lens % self.kv_cfg.page_len) == 0
         pages, _ = KV.allocate_pages(self.kv_cfg, pages, need)
-        x = T._token_rows(params, tok, dtype)
         attn_fn = functools.partial(self._paged_attention_decode, pages=pages,
                                     step_pos=pos)
-        pos = torch.tensor(pos, device=self.device)
-        for sb in range(cfg.n_superblocks):
-            for j, (kind, is_moe) in enumerate(cfg.block_pattern()):
-                key = f"b{j}s{sb}"
-                x, pools[key] = T.apply_block_decode(
-                    cfg, rc, T.superblock_params(params, j, sb), x,
-                    pools[key], pos, kind, is_moe, j, attn_fn=attn_fn)
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = T._unembed(cfg, params, x)
+        logits, pools = self._decode_layers(
+            params, tok, pools, torch.tensor(pos, device=self.device),
+            attn_fn)
         return logits, pools, pages._replace(seq_lens=pages.seq_lens + 1)
 
     def _ingest_prefill(self, cache, plen: int, batch: int):
@@ -218,8 +302,11 @@ class ServeEngine:
         after this no dense KV state survives.  An SSM layer's prefill
         state ({"h", "conv"}, one superblock's slice) is its entry as it
         is: it has no pages.  Returns (pools, pages): the per-layer decode
-        state ``_paged_step`` carries, and the page table."""
+        state ``_paged_step`` carries, and the page table.  On a mesh
+        ``cache`` is this rank's block, made whole first
+        (``_whole_prefill``)."""
         kv = self.kv_cfg
+        cache = self._whole_prefill(cache, plen, batch)
         n_pref = -(-plen // kv.page_len)
         pages = KV.fill_prompt_pages(kv, batch, self.max_seq, plen,
                                      self.device)
@@ -291,7 +378,7 @@ class ServeEngine:
         return _RaggedStep(ids.reshape(-1), cur, line, pos_d, hot,
                            valid), tok
 
-    def _paged_attention_decode_ragged(self, cfg, p, x, cache, pos, *,
+    def _paged_attention_decode_ragged(self, cfg, p, x, cache, pos, ax, *,
                                        window: int = 0, step=None):
         """``_paged_attention_decode`` with per-lane positions: each lane
         attends up to its own position (``pos`` is (B,)) and writes back
@@ -299,7 +386,8 @@ class ServeEngine:
         nothing and write to the reserved scratch page (the row kernels
         have no lane predication, so idle lanes need a sink; the trace
         predicates them off, see ``scheduler.scheduler_step_trace``).
-        ``step`` holds the step's index and mask tensors."""
+        ``step`` holds the step's index and mask tensors; ``ax`` is the
+        paged steps' context, as in ``_paged_attention_decode``."""
         kv = self.kv_cfg
         b = x.shape[0]
         s_all = step.hot.shape[1]
@@ -338,20 +426,10 @@ class ServeEngine:
         ``pos`` (B,) and ``active`` (B,) are host arrays: the scheduler's
         snapshots, which own allocation (no in-step ``allocate_pages``).
         Returns (logits, pools)."""
-        cfg, rc = self.cfg, self.rc
-        dtype = getattr(torch, rc.compute_dtype)
         step, tok = self._ragged_step(page_table, pos, active, scratch, tok)
-        x = T._token_rows(params, tok, dtype)
         attn_fn = functools.partial(self._paged_attention_decode_ragged,
                                     step=step)
-        for sb in range(cfg.n_superblocks):
-            for j, (kind, is_moe) in enumerate(cfg.block_pattern()):
-                key = f"b{j}s{sb}"
-                x, pools[key] = T.apply_block_decode(
-                    cfg, rc, T.superblock_params(params, j, sb), x,
-                    pools[key], step.pos, kind, is_moe, j, attn_fn=attn_fn)
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return T._unembed(cfg, params, x), pools
+        return self._decode_layers(params, tok, pools, step.pos, attn_fn)
 
     def _prefill_rows(self, prompt: np.ndarray):
         """Prefill one request and lower its K/V to page rows: returns the
@@ -362,14 +440,20 @@ class ServeEngine:
         cache), so held rows survive any in-place pool update.  K/V slots
         past the prompt in its last page stay zero; every decode mask is
         ``idx <= pos``, so a stale slot is never read before the decode
-        step that writes it."""
+        step that writes it.  On a mesh the prefill runs on
+        ``ax.for_batch(1)`` (the row on every rank, its positions split)
+        and its K/V is made whole (``_whole_prefill``)."""
         kv = self.kv_cfg
         plen = int(prompt.shape[0])
         n_pref = -(-plen // kv.page_len)
         tokens = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int64,
                                  device=self.device)
-        logits, cache = T.prefill(self.cfg, self.rc, self.params, tokens)
+        ax = self.ax.for_batch(1)
+        logits, cache = T.prefill(self.cfg, self.rc, self.params,
+                                  self._my_rows(tokens, ax), ax=ax)
+        logits = self._all_rows(logits, ax)
         first = int(logits[0, -1, :self.cfg.vocab_size].argmax())
+        cache = self._whole_prefill(cache, plen, 1)
 
         def rows_of(kc):
             # kc: (1, t, KV, HD) with t ≤ plen (a sliding-window prefill
@@ -511,10 +595,12 @@ class ServeEngine:
 
         Requests need prompt ``tokens``.  The live path needs an
         attention-only model.  Each tick costs one host-to-device copy (the
-        step's indices, pinned) and one read of the sampled tokens."""
+        step's indices, pinned) and one read of the sampled tokens.  On a
+        mesh every rank runs the same day on its whole pools (module
+        docstring); the ranks agree on a guard's stop, rank 0 writes the
+        checkpoint and every rank restores it."""
         from repro_torch.checkpoint import (latest_step, load_aux,
-                                            restore_checkpoint,
-                                            save_checkpoint)
+                                            restore_checkpoint)
         from repro_torch.runtime import TransientFault, retry_step
         from repro_torch.serving.scheduler import Scheduler
         if self.kv_mode != "paged":
@@ -654,7 +740,8 @@ class ServeEngine:
                     for lane in np.flatnonzero(ev.active):
                         toks[int(lane_rid[lane])].append(int(nxt[lane]))
                 self._sched_traces.extend(ev.traces)
-                if ev.preempt or (guard is not None and guard.should_stop):
+                if ev.preempt or (guard is not None
+                                  and self._any_rank(guard.should_stop)):
                     if checkpoint_dir is None:
                         raise ValueError(
                             "preemption fired but run_scheduler has no "
@@ -666,12 +753,12 @@ class ServeEngine:
                                        for k, v in outputs.items()},
                            "lane_rid": lane_rid.tolist()}
                     # the save copies every pool to the host: the sync
-                    ckpt_path = save_checkpoint(
+                    ckpt_path = self._save(
                         checkpoint_dir, sched.now,
                         {"pools": pools,
                          "lane_tok": torch.from_numpy(
                              lane_tok.astype(np.int32)[:, None])},
-                        aux=aux)
+                        aux)
                     preempted = True
                     break
         self.last_pools = pools
@@ -682,6 +769,28 @@ class ServeEngine:
         return SchedulerRunResult(outputs=outputs, stats=sched.stats(),
                                   ticks=sched.now, preempted=preempted,
                                   checkpoint=ckpt_path)
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether any rank's ``flag`` is set (every rank must stop at the
+        same tick); off a mesh ``flag``."""
+        if self.ax.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def _save(self, directory: str, step: int, state, aux) -> str:
+        """``save_checkpoint``; on a mesh, where every rank holds the same
+        whole pools, rank 0 writes and the others wait for it.  Returns
+        the checkpoint's path."""
+        from repro_torch.checkpoint import save_checkpoint
+        if self.ax.mesh is None:
+            return save_checkpoint(directory, step, state, aux=aux)
+        path = os.path.join(directory, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            path = save_checkpoint(directory, step, state, aux=aux)
+        dist.barrier()
+        return path
 
     def scheduler_stream(self):
         """The last ``run_scheduler``'s KV traffic as a re-iterable
@@ -704,23 +813,37 @@ class ServeEngine:
 
     # -- dense reference path ----------------------------------------------
 
-    def _pad_cache(self, cache, prompt_len: int):
+    def _pad_cache(self, cache, prompt_len: int, ax: Axes = NO_AXES):
         """Grow prefill attention caches (len = prompt) to the decode
         buffer (max_seq); ring (SWA) caches at window size stay as they
         are.  Only leaves named ``k`` / ``v`` are padded, as the reference
         picks them by path: SSM state (``h`` (n_superblocks, B, Di, N),
         ``conv`` (n_superblocks, B, K-1, Di)) is length-free, whatever its
-        axis 2 happens to equal."""
-        def grow(name, x):
-            if name not in ("k", "v") or x.shape[2] != prompt_len:
+        axis 2 happens to equal.  On a mesh (``ax``, the prefill's) each
+        rank gathers its rows' positions, grows them and keeps its block
+        of the decode cache, over ``layers.seq_axes(ax)``."""
+        win = self.cfg.sliding_window
+        seq = L.seq_axes(ax)
+
+        def grow(j, name, x):
+            if name not in ("k", "v"):
                 return x
-            win = self.cfg.sliding_window
-            if win and prompt_len == win:
+            t = self._prefill_positions(j, prompt_len)
+            if ax.mesh is not None:
+                x = gather_shard(x, (None, None, L.seq_axes(ax, t)), ax.mesh)
+            if t == prompt_len and not (win and prompt_len == win):
+                pad = x.new_zeros(x.shape[:2] + (self.max_seq - prompt_len,)
+                                  + x.shape[3:])
+                x = torch.cat([x, pad], dim=2)
+            if not seq:
                 return x
-            pad = x.new_zeros(x.shape[:2] + (self.max_seq - prompt_len,)
-                              + x.shape[3:])
-            return torch.cat([x, pad], dim=2)
-        return {"blocks": {key: {name: grow(name, x)
+            n = shard_index(seq, ax.mesh)[1]
+            if x.shape[2] % n:
+                raise ValueError(
+                    f"a decode cache of {x.shape[2]} positions does not "
+                    f"split over the mesh axes {seq} ({n} ranks)")
+            return own_block(x, (None, None, seq), ax.mesh)
+        return {"blocks": {key: {name: grow(int(key[1:]), name, x)
                                  for name, x in c.items()}
                            for key, c in cache["blocks"].items()}}
 
@@ -729,18 +852,22 @@ class ServeEngine:
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
                  temperature: float = 0.0,
                  seed: int = 0) -> GenerationResult:
-        """prompts: (B, prompt_len) integer token ids (a padded batch)."""
+        """prompts: (B, prompt_len) integer token ids (a padded batch; on a
+        mesh the whole batch, on every rank, which returns every token)."""
         b, plen = prompts.shape
         if b > self.max_batch or plen + max_new_tokens > self.max_seq:
             raise ValueError(f"batch {b} x {plen}+{max_new_tokens} tokens "
                              f"exceeds the engine's {self.max_batch} x "
                              f"{self.max_seq}")
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        ax = self.ax.for_batch(b)
         with torch.inference_mode():
             tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                      device=self.device)
-            logits, cache = T.prefill(self.cfg, self.rc, self.params, tokens)
-            tok = self._sample(logits[:, -1], temperature, gen)
+            logits, cache = T.prefill(self.cfg, self.rc, self.params,
+                                      self._my_rows(tokens, ax), ax=ax)
+            tok = self._sample(self._all_rows(logits, ax)[:, -1],
+                               temperature, gen)
             out = [tok]
             paged = self.kv_mode == "paged"
             if paged:
@@ -750,7 +877,7 @@ class ServeEngine:
                 self._prefill_trace = KV.prefill_trace(
                     self.kv_cfg, pages.page_table, plen, self.n_kv_layers)
             else:
-                cache = self._pad_cache(cache, plen)
+                cache = self._pad_cache(cache, plen, ax)
             for i in range(1, max_new_tokens):
                 pos = plen + i - 1
                 if paged:
@@ -761,8 +888,10 @@ class ServeEngine:
                         self.n_kv_layers))
                 else:
                     logits, cache = T.decode_step(
-                        self.cfg, self.rc, self.params, tok, cache,
-                        torch.tensor(pos, device=self.device))
+                        self.cfg, self.rc, self.params,
+                        self._my_rows(tok, ax), cache,
+                        torch.tensor(pos, device=self.device), ax=ax)
+                    logits = self._all_rows(logits, ax)
                 tok = self._sample(logits[:, -1], temperature, gen)
                 out.append(tok)
             if paged:

@@ -518,6 +518,17 @@ def mesh_inference(rank, out, cases, steps, buffer):
                        "model": mesh.get_local_rank("model")}, f)
 
 
+def _gathered(ax, whole: int, spec) -> int:
+    """The bytes ``gather_shard`` records making ``whole`` bytes whole from
+    its blocks under ``spec``: one gather a mesh axis, each output the
+    whole over the sizes of the axes still to gather."""
+    sizes = [ax.size(a) for e in spec
+             for a in reversed(e if isinstance(e, tuple) else (e,))
+             if e and ax.size(a) > 1]
+    return sum(whole // int(np.prod(sizes[i + 1:]))
+               for i in range(len(sizes)))
+
+
 def inference_collectives(cfg, ax, kind: str, batch: int, seq: int,
                           param_bytes: int, act_bytes: int,
                           cache_bytes: int) -> dict:
@@ -541,11 +552,7 @@ def inference_collectives(cfg, ax, kind: str, batch: int, seq: int,
     from repro_torch.models.params import leaves
 
     def gathered(whole: int, spec) -> int:
-        sizes = [ax.size(a) for e in spec
-                 for a in reversed(e if isinstance(e, tuple) else (e,))
-                 if e and ax.size(a) > 1]
-        return sum(whole // int(np.prod(sizes[i + 1:]))
-                   for i in range(len(sizes)))
+        return _gathered(ax, whole, spec)
 
     weights = sum(gathered(int(np.prod(leaf.shape)) * param_bytes,
                            ax.resolve(leaf.axes, leaf.shape))
@@ -573,3 +580,246 @@ def inference_collectives(cfg, ax, kind: str, batch: int, seq: int,
                 reduce += n_batch * 2 * cfg.n_experts * 4
     return {"all-gather": weights + cfg.n_superblocks * gather,
             "all-reduce": 2 * cfg.n_superblocks * reduce}
+
+
+# -------------------------------------------------------- mesh serving --
+
+#: the mesh engine's ``generate`` cases (``tests/test_torch_mesh_serving.py``):
+#: prompt positions, new tokens and the engine's budget (a decode buffer
+#: that the free mesh axes divide, 3 pages of 8 tokens)
+MESH_SERVE = {"prompt": 12, "new": 6, "max_batch": 4, "max_seq": 24,
+              "page_len": 8}
+#: the scheduled day's engine and traffic, ``tests/test_scheduler.py``'s:
+#: (arrival, prompt_len, max_new) a request
+SERVE_DAY = {"max_batch": 4, "max_seq": 32, "page_len": 8}
+TRAFFIC = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0), (2, 9, 5),
+           (3, 12, 3))
+TRACE_FIELDS = ("addrs", "kinds", "instr", "mask")
+
+
+def trace_arrays(tr, prefix: str = "") -> dict:
+    """An ``AddressTrace``'s arrays by field (an all-active mask where it
+    has none), either package's."""
+    out = {f"{prefix}{f}": np.asarray(getattr(tr, f))
+           for f in TRACE_FIELDS[:3]}
+    out[f"{prefix}mask"] = np.ones(out[f"{prefix}addrs"].shape, bool) \
+        if tr.mask is None else np.asarray(tr.mask)
+    return out
+
+
+def generate_record(eng) -> dict:
+    """A paged ``generate``'s recorded traffic and page table: each decode
+    step's trace, the whole serving trace and ``last_pages``."""
+    out = trace_arrays(eng.serving_trace(), "full/")
+    for k, tr in enumerate(eng._step_traces):
+        out.update(trace_arrays(tr, f"step{k}/"))
+    for name in ("page_table", "seq_lens", "bank_used"):
+        out[f"pages/{name}"] = np.asarray(getattr(eng.last_pages, name))
+    return out
+
+
+def serve_day(eng, scheduler, runtime, tokens: list, ckpt: str) -> tuple:
+    """The scheduled runs of ``eng`` on ``TRAFFIC`` with the prompts
+    ``tokens``, in either package (``scheduler`` / ``runtime``: its
+    modules): 1-page prefill chunks; the reference's chaos plan (bank 1
+    offline at tick 3, rid 0's first page corrupted at tick 5, a decode
+    step failing twice at tick 6); the chunked day preempted at tick 3
+    (a lane mid prefill), checkpointed to ``ckpt`` and resumed.  Returns
+    ({run: outputs, stats, ticks, preempted}, {run/stream field: array})."""
+    R = runtime
+
+    def requests():
+        return [scheduler.Request(rid=i, arrival=a, prompt_len=p,
+                                  max_new_tokens=m,
+                                  tokens=np.asarray(tokens[i], np.int32))
+                for i, (a, p, m) in enumerate(TRAFFIC)]
+
+    chaos = R.FaultPlan((
+        R.FaultEvent(tick=3, kind="bank_offline", bank=1),
+        R.FaultEvent(tick=5, kind="page_corrupt", rid=0, page_idx=0),
+        R.FaultEvent(tick=6, kind="decode_transient", failures=2)))
+    preempt = R.FaultPlan((R.FaultEvent(tick=3, kind="preempt"),))
+    runs = (("chunked", lambda: eng.run_scheduler(
+                requests(), prefill_chunk_pages=1)),
+            ("faults", lambda: eng.run_scheduler(requests(),
+                                                 fault_plan=chaos)),
+            ("preempted", lambda: eng.run_scheduler(
+                requests(), fault_plan=preempt, checkpoint_dir=ckpt,
+                prefill_chunk_pages=1)),
+            ("resumed", lambda: eng.run_scheduler(
+                None, fault_plan=preempt, resume_from=ckpt,
+                prefill_chunk_pages=1)))
+    meta, arrays = {}, {}
+    for name, run in runs:
+        res = run()
+        meta[name] = {"outputs": {str(k): np.asarray(v).tolist()
+                                  for k, v in res.outputs.items()},
+                      "stats": res.stats, "ticks": res.ticks,
+                      "preempted": res.preempted}
+        arrays.update(trace_arrays(eng.scheduler_stream().materialize(),
+                                   f"{name}/"))
+    return meta, arrays
+
+
+def _logged(eng, name: str, rec: list, what=None) -> None:
+    """Wrap ``eng``'s method ``name`` so that each call appends
+    {"bytes": its collective bytes by kind, **what(args)} to ``rec``."""
+    from repro_torch.launch.hlo_analysis import CollectiveLog
+    real = getattr(eng, name)
+
+    def call(*args, **kw):
+        with CollectiveLog() as log:
+            out = real(*args, **kw)
+        rec.append({"bytes": log.bytes(), **(what(*args) if what else {})})
+        return out
+    setattr(eng, name, call)
+
+
+def _serve_weights(cfg, data, ax, mesh):
+    """This rank's shards of the whole float32 weights under "p/"."""
+    from repro_torch.launch.sharding import own_block
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import from_jax, spec_tree, tree_map
+    specs = spec_tree(T.model_specs(cfg), ax.resolve)
+    return tree_map(lambda t, s: own_block(t, s, mesh),
+                    from_jax(T.model_specs(cfg), unflatten(data, "p/"),
+                             "cpu"), specs)
+
+
+def whole_pools(eng, batch: int) -> dict:
+    """``eng.last_pools`` flattened, an SSM state gathered whole (the
+    K/V pools are whole on every rank already)."""
+    from repro_torch.launch.sharding import gather_shard
+    from repro_torch.models import ssm as S
+    place = S._state_placement(eng.cfg, eng._lanes, batch) \
+        if eng.ax.mesh is not None else None
+    out = {}
+    for key, pair in eng.last_pools.items():
+        for name, t in pair.items():
+            if place is not None and name in place:
+                t = gather_shard(t, place[name], eng.ax.mesh)
+            out[f"pool/{key}/{name}"] = t.float().numpy()
+    return out
+
+
+def mesh_serving(rank, out, cases, day):
+    """``ServeEngine`` with ``ax`` on a (2, 2) mesh: each ``generate`` case
+    (arch, batch, kv_mode, inputs .npz: the whole weights under "p/" and
+    "prompts") sampled at temperature 0.8 (seed 3), then greedy, with its
+    record, last pools and collective bytes a call; then the scheduled
+    day (``day``: its inputs, with "tokens/{rid}") through ``serve_day``,
+    the admissions' and steps' collective bytes, the last pools."""
+    from repro_torch import runtime
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.hlo_analysis import CollectiveLog
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.sharding import make_axes
+    from repro_torch.serving import scheduler
+    from repro_torch.serving.engine import ServeEngine
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    coords = {"data": mesh.get_local_rank("data"),
+              "model": mesh.get_local_rank("model")}
+    for i, (arch, batch, kv_mode, inputs) in enumerate(cases):
+        cfg, rc = get_smoke_config(arch), RunConfig(**MESH_RC)
+        ax = make_axes(mesh, rc)
+        data = dict(np.load(inputs))
+        eng = ServeEngine(cfg, rc, _serve_weights(cfg, data, ax, mesh), ax,
+                          max_batch=MESH_SERVE["max_batch"],
+                          max_seq=MESH_SERVE["max_seq"], kv_mode=kv_mode,
+                          page_len=MESH_SERVE["page_len"], device="cpu")
+        sampled = eng.generate(data["prompts"], MESH_SERVE["new"],
+                               temperature=0.8, seed=3).tokens
+        steps, calls = [], []
+        if kv_mode == "paged":
+            _logged(eng, "_paged_step", steps)
+        with CollectiveLog() as log:
+            tokens = eng.generate(data["prompts"], MESH_SERVE["new"]).tokens
+        calls.append(log.bytes())
+        rec = {"tokens": tokens, "sampled": sampled}
+        if kv_mode == "paged":
+            rec.update(generate_record(eng))
+            rec.update(whole_pools(eng, batch))
+        np.savez(os.path.join(out, f"case{i}_rank{rank}.npz"), **rec)
+        with open(os.path.join(out, f"case{i}_rank{rank}.json"), "w") as f:
+            json.dump({"steps": steps, "generate": calls, **coords}, f)
+    cfg, rc = get_smoke_config("llama3.2-1b"), RunConfig(**MESH_RC)
+    ax = make_axes(mesh, rc)
+    data = dict(np.load(day))
+    eng = ServeEngine(cfg, rc, _serve_weights(cfg, data, ax, mesh), ax,
+                      kv_mode="paged", device="cpu", **SERVE_DAY)
+    admissions, steps = [], []
+    _logged(eng, "_prefill_rows", admissions,
+            lambda prompt: {"plen": int(prompt.shape[0])})
+    _logged(eng, "_scheduler_step", steps)
+    meta, arrays = serve_day(
+        eng, scheduler, runtime,
+        [data[f"tokens/{r}"] for r in range(len(TRAFFIC))],
+        os.path.join(out, "day_ckpt"))
+    arrays.update(whole_pools(eng, SERVE_DAY["max_batch"]))
+    np.savez(os.path.join(out, f"day_rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"day_rank{rank}.json"), "w") as f:
+        json.dump({"runs": meta, "admissions": admissions, "steps": steps,
+                   **coords}, f)
+
+
+def serving_collectives(cfg, ax, what: str, batch: int, plen: int = 0,
+                        nbytes: int = 4) -> dict:
+    """The mesh engine's collective bytes by kind, per rank, from the
+    config alone, on ``make_axes``' ``ax`` in float32.  ``what``:
+
+    "paged step": a paged decode step, on ``ax`` with an empty batch:
+    every weight gathered once and an SSM block's state over ``dinner``
+    (``inference_collectives``' decode all-gather); the paged attention
+    reduces nothing, and no pool byte moves.
+
+    "admission": a paged prefill of ``batch`` rows x ``plen`` positions
+    on ``ax.for_batch(batch)`` (``inference_collectives``' prefill), its
+    last logits gathered over the batch axes, each K/V made whole (its
+    rows and positions) and an SSM state gathered over the batch axes.
+
+    "dense admission": the prefill and its logits as above, then each
+    K/V's positions gathered (the rank's rows) to grow the cache.
+
+    "dense step": a decode step on ``ax.for_batch(batch)``
+    (``inference_collectives``' decode) and its logits gathered over the
+    batch axes."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    if what == "paged step":
+        lanes = dataclasses.replace(ax, batch=())
+        return {"all-gather": inference_collectives(
+            cfg, lanes, "decode", batch, 0, nbytes, nbytes,
+            nbytes)["all-gather"]}
+    axb = ax.for_batch(batch)
+    rows = (axb.batch,)
+    logits = _gathered(axb, batch * cfg.padded_vocab() * nbytes, rows)
+    if what == "dense step":
+        out = dict(inference_collectives(cfg, axb, "decode", batch, 0,
+                                         nbytes, nbytes, nbytes))
+        out["all-gather"] = out.get("all-gather", 0) + logits
+        return out
+    out = dict(inference_collectives(cfg, axb, "prefill", batch, plen,
+                                     nbytes, nbytes, nbytes))
+    paged = what == "admission"
+    mine = batch // axb.batch_size()
+    held = S._state_placement(cfg, axb, mine)
+    gather = logits
+    for j, (kind, _) in enumerate(cfg.block_pattern()):
+        if kind == "attn":
+            w = T._block_window(cfg, j)
+            t = min(plen, w) if w else plen
+            whole = cfg.n_superblocks * (batch if paged else mine) * t * \
+                cfg.n_kv_heads * cfg.hd * nbytes
+            spec = (None, axb.batch if paged else None, L.seq_axes(axb, t))
+            gather += 2 * _gathered(axb, whole, spec)
+        elif paged:
+            for name, leaf in S.state_specs(cfg, batch).items():
+                per_row = int(np.prod(leaf.shape[1:]))
+                whole = cfg.n_superblocks * batch * per_row * (
+                    4 if name == "h" else nbytes)
+                gather += _gathered(axb, whole,
+                                    (None, axb.batch) + held[name][1:])
+    out["all-gather"] = out.get("all-gather", 0) + gather
+    return out

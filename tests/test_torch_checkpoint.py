@@ -379,6 +379,7 @@ def test_run_scheduler_checkpoint_is_unchanged(tmp_path, monkeypatch):
     from repro_torch.checkpoint.checkpoint import _flatten_with_paths
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES
     from repro_torch.models import init_tree, model_specs
     from repro_torch.runtime import FaultEvent, FaultPlan
     from repro_torch.serving.engine import ServeEngine
@@ -393,7 +394,7 @@ def test_run_scheduler_checkpoint_is_unchanged(tmp_path, monkeypatch):
     cfg = get_smoke_config("llama3.2-1b")
     gen = torch.Generator().manual_seed(0)
     eng = ServeEngine(cfg, RunConfig(remat="none", attn_impl="dense"),
-                      init_tree(model_specs(cfg), gen, device="cpu"),
+                      init_tree(model_specs(cfg), gen, device="cpu"), NO_AXES,
                       max_batch=4, max_seq=32, kv_mode="paged", page_len=8,
                       device="cpu")
     rng = np.random.default_rng(0)

@@ -38,6 +38,7 @@ from repro_torch.kernels.banked_scatter.ops import (CLAIM, CLAIMED_COPY,
                                                     banked_scatter_plain,
                                                     claim_words)
 from repro_torch.kernels.banked_scatter.ref import last_writers
+from repro_torch.launch.sharding import NO_AXES
 from repro_torch.models import init_tree, model_specs
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.kvcache import simulate_serving_stream
@@ -287,14 +288,14 @@ def test_serving_on_the_card_matches_the_host(cuda):
                        device=cuda)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 12))
     kw = dict(max_batch=4, max_seq=32, page_len=8, device=cuda)
-    paged = ServeEngine(cfg, rc, params, kv_mode="paged", **kw)
+    paged = ServeEngine(cfg, rc, params, NO_AXES, kv_mode="paged", **kw)
     GATHERS.launches = SCATTERS.launches = 0
     tokens = paged.generate(prompts, max_new_tokens=8).tokens
     # one launch per KV layer for K and V: 2 layers x 7 decode steps, and
     # the prefill ingest's one per layer
     assert GATHERS.launches == GATHER_PAIR.launches == 2 * 7
     assert SCATTERS.launches == SCATTER_PAIR.launches == 2 * 7 + 2
-    dense = ServeEngine(cfg, rc, params, kv_mode="dense", **kw)
+    dense = ServeEngine(cfg, rc, params, NO_AXES, kv_mode="dense", **kw)
     np.testing.assert_array_equal(
         tokens, dense.generate(prompts, max_new_tokens=8).tokens)
     archs = PA.PAPER_ARCHITECTURES

@@ -27,6 +27,7 @@ from repro.models import transformer as RT
 from repro.serving.engine import ServeEngine as RServe
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
 from repro_torch.models import from_jax, model_specs
 from repro_torch.models import transformer as PT
 from repro_torch.serving.engine import ServeEngine
@@ -70,7 +71,8 @@ def test_prefill_then_decode_steps_equal_the_reference():
     """``prefill`` (scaled) and three ``decode_step``s (unscaled) on a
     dense cache padded to the decode buffer."""
     ref = RServe(RCFG, RRC, R_PARAMS, NO_AXES, kv_mode="dense", **KW)
-    eng = ServeEngine(CFG, PRC, PARAMS, kv_mode="dense", device="cpu", **KW)
+    eng = ServeEngine(CFG, PRC, PARAMS, P_NO_AXES,
+                      kv_mode="dense", device="cpu", **KW)
     plen = PROMPTS.shape[1]
     toks = np.random.default_rng(6).integers(0, CFG.vocab_size, (3, 3, 1))
     r_logits, r_cache = RT.prefill(RCFG, RRC, R_PARAMS, jnp.asarray(PROMPTS),
@@ -107,6 +109,7 @@ def test_decode_embeds_unscaled_and_prefill_scaled():
 def test_generate_tokens_equal_the_reference(kv_mode):
     want = RServe(RCFG, RRC, R_PARAMS, NO_AXES, kv_mode=kv_mode,
                   **KW).generate(PROMPTS, max_new_tokens=6).tokens
-    got = ServeEngine(CFG, PRC, PARAMS, kv_mode=kv_mode, device="cpu",
+    got = ServeEngine(CFG, PRC, PARAMS, P_NO_AXES,
+                      kv_mode=kv_mode, device="cpu",
                       **KW).generate(PROMPTS, max_new_tokens=6).tokens
     np.testing.assert_array_equal(got, want)

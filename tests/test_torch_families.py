@@ -28,6 +28,7 @@ from repro.serving.engine import ServeEngine as RServe
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import arch as PA
+from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
 from repro_torch.models import from_jax, model_specs
 from repro_torch.models import transformer as PT
 from repro_torch.serving.engine import ServeEngine
@@ -99,7 +100,7 @@ def test_prefill_caches_and_decode_steps_equal_the_reference(arch):
         {"h", "conv"} if "ssm" in kinds else set())
 
     max_seq = PLEN + 3
-    pe = ServeEngine(cfg, prc, pp, kv_mode="dense", max_batch=BATCH,
+    pe = ServeEngine(cfg, prc, pp, P_NO_AXES, kv_mode="dense", max_batch=BATCH,
                      max_seq=max_seq, device="cpu")
     re_ = RServe(rcfg, rrc, rp, NO_AXES, kv_mode="dense", max_batch=BATCH,
                  max_seq=max_seq)
@@ -142,7 +143,8 @@ def _ref_generate(arch, kv_mode, impl="gshard"):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_tokens_equal_the_reference(arch, kv_mode):
     cfg, _, pp, _, prompts = _model(arch)
-    eng = ServeEngine(cfg, _rc()[1], pp, kv_mode=kv_mode, mem_arch="16B",
+    eng = ServeEngine(cfg, _rc()[1], pp, P_NO_AXES,
+                      kv_mode=kv_mode, mem_arch="16B",
                       device="cpu", **KW)
     got = eng.generate(prompts, max_new_tokens=NEW).tokens
     np.testing.assert_array_equal(got, _ref_generate(arch, kv_mode)[0])
@@ -165,7 +167,8 @@ def test_traces_and_cost_rows_equal_the_reference(arch):
     (an attention-free model records empty traces and prices 0 cycles, as
     the reference does)."""
     cfg, _, pp, _, prompts = _model(arch)
-    eng = ServeEngine(cfg, _rc()[1], pp, kv_mode="paged", mem_arch="16B",
+    eng = ServeEngine(cfg, _rc()[1], pp, P_NO_AXES,
+                      kv_mode="paged", mem_arch="16B",
                       device="cpu", **KW)
     eng.generate(prompts, max_new_tokens=NEW)
     _, (r_step, r_full, r_cycles) = _ref_generate(arch, "paged")
@@ -188,7 +191,7 @@ def test_moe_impls_generate_the_references_tokens(arch, impl):
     """``moe_impl`` "scatter" and "a2a" (with no mesh, the reference's
     gshard fallback) serve the reference's tokens, and gshard's."""
     cfg, _, pp, _, prompts = _model(arch)
-    eng = ServeEngine(cfg, _rc(impl)[1], pp, kv_mode="paged",
+    eng = ServeEngine(cfg, _rc(impl)[1], pp, P_NO_AXES, kv_mode="paged",
                       mem_arch="16B", device="cpu", **KW)
     got = eng.generate(prompts, max_new_tokens=NEW).tokens
     np.testing.assert_array_equal(got, _ref_generate(arch, "paged", impl)[0])
@@ -207,7 +210,8 @@ def test_pad_cache_pads_attention_leaves_by_name():
         prompts = np.random.default_rng(plen).integers(
             0, cfg.vocab_size, (2, plen)).astype(np.int32)
         kw = dict(max_batch=2, max_seq=plen + 4, page_len=4)
-        eng = ServeEngine(cfg, prc, pp, kv_mode="dense", device="cpu", **kw)
+        eng = ServeEngine(cfg, prc, pp, P_NO_AXES,
+                          kv_mode="dense", device="cpu", **kw)
         with torch.inference_mode():
             _, cache = PT.prefill(cfg, prc, pp, torch.tensor(prompts).long())
         padded = eng._pad_cache(cache, plen)
@@ -222,7 +226,8 @@ def test_pad_cache_pads_attention_leaves_by_name():
         got = eng.generate(prompts, max_new_tokens=3).tokens
         want = RServe(rcfg, rrc, rp, NO_AXES, kv_mode="dense",
                       **kw).generate(prompts, max_new_tokens=3).tokens
-        paged = ServeEngine(cfg, prc, pp, kv_mode="paged", device="cpu",
+        paged = ServeEngine(cfg, prc, pp, P_NO_AXES,
+                            kv_mode="paged", device="cpu",
                             **kw).generate(prompts, max_new_tokens=3).tokens
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, paged)
@@ -234,7 +239,8 @@ def test_bf16_serving_runs_every_family():
     for arch in ARCHS:
         cfg, _, pp, _, prompts = _model(arch)
         rc = dataclasses.replace(_rc()[1], compute_dtype="bfloat16")
-        got = {mode: ServeEngine(cfg, rc, pp, kv_mode=mode, device="cpu",
+        got = {mode: ServeEngine(cfg, rc, pp, P_NO_AXES,
+                                 kv_mode=mode, device="cpu",
                                  **KW).generate(prompts,
                                                 max_new_tokens=4).tokens
                for mode in ("paged", "dense")}

@@ -52,6 +52,7 @@ from repro_torch.core import cost_engine as PCE  # noqa: E402
 from repro_torch.core.trace import (KIND_LOAD, KIND_STORE, LANES,  # noqa: E402
                                     AddressTrace)
 from repro_torch.launch import serve as p_serve_cli  # noqa: E402
+from repro_torch.launch.sharding import NO_AXES as P_NO_AXES  # noqa: E402
 from repro_torch.models import from_jax, model_specs  # noqa: E402
 from repro_torch.serving import scheduler as PS  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -736,7 +737,8 @@ def _engine(**kw):
     kw.setdefault("max_seq", 32)
     kw.setdefault("page_len", 8)
     kw.setdefault("mem_arch", "16B-xor")
-    return ServeEngine(CFG, P_RC, PARAMS, kv_mode="paged", device="cpu",
+    return ServeEngine(CFG, P_RC, PARAMS, P_NO_AXES,
+                       kv_mode="paged", device="cpu",
                        **kw)
 
 
@@ -1040,7 +1042,8 @@ def test_serve_fault_cli_prints_the_references_lines(capsys):
         policy="seq-skew", cost=True, fault_bank=1, fault_tick=4)
     max_seq = 16 + 32 + 4                 # the CLIs' prompt + new + 4
     p_eng = ServeEngine(CFG, RunConfig(remat="none", attn_impl="dense"),
-                        PARAMS, max_batch=4, max_seq=max_seq, device="cpu")
+                        PARAMS, P_NO_AXES,
+                        max_batch=4, max_seq=max_seq, device="cpu")
     p_serve_cli.run_schedule(args, p_eng, CFG)
     got = capsys.readouterr().out
     r_eng = RServe(RCFG, RRun(remat="none", attn_impl="dense"), R_PARAMS,

@@ -216,6 +216,7 @@ def test_cpu_hybrid_generate_runs_with_jax_and_repro_blocked():
         "from repro_torch.configs import get_smoke_config\n"
         "from repro_torch.configs.base import RunConfig\n"
         "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.launch.sharding import NO_AXES\n"
         "from repro_torch.serving.engine import ServeEngine\n"
         "cfg = get_smoke_config('jamba-v0.1-52b')\n"
         "params = init_tree(model_specs(cfg), torch.Generator()"
@@ -223,7 +224,7 @@ def test_cpu_hybrid_generate_runs_with_jax_and_repro_blocked():
         "prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,"
         " (2, 8))\n"
         "toks = [ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense',"
-        " compute_dtype='float32'), params, max_batch=2, max_seq=16,"
+        " compute_dtype='float32'), params, NO_AXES, max_batch=2, max_seq=16,"
         " kv_mode=m, device='cpu').generate(prompts, max_new_tokens=4)"
         ".tokens for m in ('paged', 'dense')]\n"
         "assert toks[0].shape == (2, 4) and (toks[0] == toks[1]).all()\n"
@@ -271,13 +272,14 @@ def test_cpu_faulted_day_runs_with_jax_and_repro_blocked():
         "from repro_torch.launch import serve\n"
         "from repro_torch.models import init_tree, model_specs\n"
         "from repro_torch.runtime import FaultEvent, FaultPlan\n"
+        "from repro_torch.launch.sharding import NO_AXES\n"
         "from repro_torch.serving.engine import ServeEngine\n"
         "from repro_torch.serving.scheduler import Request\n"
         "cfg = get_smoke_config('llama3.2-1b')\n"
         "params = init_tree(model_specs(cfg),"
         " torch.Generator().manual_seed(0), device='cpu')\n"
         "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
-        " params, max_batch=4, max_seq=32, mem_arch='16B-xor',"
+        " params, NO_AXES, max_batch=4, max_seq=32, mem_arch='16B-xor',"
         " device='cpu')\n"
         "rng = np.random.default_rng(0)\n"
         "spec = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0), (2, 9, 5),"
@@ -333,13 +335,14 @@ def test_cpu_preempted_day_resumes_with_jax_and_repro_blocked(tmp_path):
         "from repro_torch.configs.base import RunConfig\n"
         "from repro_torch.models import init_tree, model_specs\n"
         "from repro_torch.runtime import FaultEvent, FaultPlan\n"
+        "from repro_torch.launch.sharding import NO_AXES\n"
         "from repro_torch.serving.engine import ServeEngine\n"
         "from repro_torch.serving.scheduler import Request\n"
         "cfg = get_smoke_config('llama3.2-1b')\n"
         "params = init_tree(model_specs(cfg),"
         " torch.Generator().manual_seed(0), device='cpu')\n"
         "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
-        " params, max_batch=4, max_seq=32, device='cpu')\n"
+        " params, NO_AXES, max_batch=4, max_seq=32, device='cpu')\n"
         "rng = np.random.default_rng(0)\n"
         "spec = ((0, 12, 8), (0, 5, 6), (1, 8, 4), (2, 3, 0), (2, 9, 5),"
         " (3, 12, 3))\n"
@@ -442,12 +445,13 @@ def test_online_tuner_over_a_generation_runs_with_the_reference_blocked():
         "from repro_torch.configs import get_smoke_config\n"
         "from repro_torch.configs.base import RunConfig\n"
         "from repro_torch.models import init_tree, model_specs\n"
+        "from repro_torch.launch.sharding import NO_AXES\n"
         "from repro_torch.serving.engine import ServeEngine\n"
         "cfg = get_smoke_config('llama3.2-1b')\n"
         "params = init_tree(model_specs(cfg), torch.Generator()"
         ".manual_seed(0), device='cpu')\n"
         "eng = ServeEngine(cfg, RunConfig(remat='none', attn_impl='dense'),"
-        " params, max_batch=2, max_seq=24, device='cpu')\n"
+        " params, NO_AXES, max_batch=2, max_seq=24, device='cpu')\n"
         "eng.generate(np.random.default_rng(0).integers(0, cfg.vocab_size,"
         " (2, 10)), max_new_tokens=6)\n"
         "tuner = tune.online(eng, window=3, device='cpu')\n"

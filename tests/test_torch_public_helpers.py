@@ -170,8 +170,6 @@ PER_FUNCTION = {
         ({"tile"}, set()),
     # the reference's body never reads it: the mesh's axis names decide
     ("repro_torch.launch.sharding", "make_axes"): ({"multi_pod"}, set()),
-    # ROADMAP item 32: every reference caller passes NO_AXES
-    ("repro_torch.serving.engine", "ServeEngine.__init__"): ({"ax"}, set()),
 }
 
 

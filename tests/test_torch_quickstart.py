@@ -291,6 +291,7 @@ def test_serve_families_equal_the_reference(arch, capsys):
     from repro.serving.engine import ServeEngine as RServe
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import serve
+    from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
     from repro_torch.models import from_jax, model_specs
     from repro_torch.serving.engine import ServeEngine
     serve.main(["--arch", arch, "--smoke", "--cost", "--device", "cpu"])
@@ -305,7 +306,8 @@ def test_serve_families_equal_the_reference(arch, capsys):
     kw = dict(max_batch=4, max_seq=16 + 32 + 4)
     serve.run_batch(args, ServeEngine(
         cfg, RunConfig(remat="none", attn_impl="dense",
-                       compute_dtype="float32"), params, device="cpu", **kw),
+                       compute_dtype="float32"), params, P_NO_AXES,
+                       device="cpu", **kw),
         cfg)
     got = capsys.readouterr().out.splitlines()
     r_serve.run_batch(args, RServe(

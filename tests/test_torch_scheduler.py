@@ -53,6 +53,7 @@ from repro_torch.core import arch as PA
 from repro_torch.core.cost_engine import cost_many as p_cost_many
 from repro_torch.core.trace import AddressTrace as PTrace
 from repro_torch.launch import serve as p_serve_cli
+from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
 from repro_torch.models import from_jax, model_specs
 from repro_torch.serving import kvcache as PKV
 from repro_torch.serving import scheduler as PS
@@ -98,7 +99,8 @@ def _engine(**kw):
     kw.setdefault("max_batch", 4)
     kw.setdefault("max_seq", 32)
     kw.setdefault("page_len", 8)
-    return ServeEngine(CFG, P_RC, PARAMS, kv_mode="paged", device="cpu",
+    return ServeEngine(CFG, P_RC, PARAMS, P_NO_AXES,
+                       kv_mode="paged", device="cpu",
                        **kw)
 
 
@@ -482,7 +484,7 @@ def test_first_ragged_step_logits_match_the_reference(r_engine):
 
 
 def test_run_scheduler_rejects_dense_and_requests_without_tokens(r_engine):
-    dense = ServeEngine(CFG, P_RC, PARAMS, max_batch=4, max_seq=32,
+    dense = ServeEngine(CFG, P_RC, PARAMS, P_NO_AXES, max_batch=4, max_seq=32,
                         kv_mode="dense", device="cpu")
     r_dense = RServe(RCFG, R_RC, R_PARAMS, NO_AXES, max_batch=4, max_seq=32,
                      kv_mode="dense")
@@ -749,7 +751,8 @@ def test_serve_schedule_cli_prints_the_references_lines(capsys):
         policy="seq-skew", cost=True, fault_bank=None, fault_tick=4)
     max_seq = 16 + 32 + 4                 # the CLIs' prompt + new + 4
     eng = ServeEngine(CFG, RunConfig(remat="none", attn_impl="dense"),
-                      PARAMS, max_batch=4, max_seq=max_seq, device="cpu")
+                      PARAMS, P_NO_AXES,
+                      max_batch=4, max_seq=max_seq, device="cpu")
     p_serve_cli.run_schedule(args, eng, CFG)
     got = capsys.readouterr().out
     r_eng = RServe(RCFG, RRun(remat="none", attn_impl="dense"), R_PARAMS,

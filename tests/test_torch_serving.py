@@ -25,6 +25,7 @@ from repro.serving.engine import ServeEngine as RServe
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import arch as PA
+from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
 from repro_torch.models import from_jax, model_specs
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServeEngine
@@ -59,7 +60,8 @@ def test_generate_tokens_equal_reference(kv_mode):
     rrc, prc = _rc("float32")
     want = RServe(RCFG, rrc, R_PARAMS, NO_AXES, kv_mode=kv_mode,
                   **KW).generate(PROMPTS, max_new_tokens=8).tokens
-    got = ServeEngine(CFG, prc, PARAMS, kv_mode=kv_mode, device="cpu",
+    got = ServeEngine(CFG, prc, PARAMS, P_NO_AXES,
+                      kv_mode=kv_mode, device="cpu",
                       **KW).generate(PROMPTS, max_new_tokens=8).tokens
     np.testing.assert_array_equal(got, want)
 
@@ -70,7 +72,8 @@ def test_paged_step_logits_match_reference():
     port's paged against its own dense path."""
     rrc, prc = _rc("float32")
     ref = RServe(RCFG, rrc, R_PARAMS, NO_AXES, kv_mode="paged", **KW)
-    eng = ServeEngine(CFG, prc, PARAMS, kv_mode="paged", device="cpu", **KW)
+    eng = ServeEngine(CFG, prc, PARAMS, P_NO_AXES,
+                      kv_mode="paged", device="cpu", **KW)
     plen, b = PROMPTS.shape[1], PROMPTS.shape[0]
     r_logits, r_cache = ref._prefill(ref.params, jnp.asarray(PROMPTS))
     r_pools, r_pages, r_ssm = ref._ingest_prefill(r_cache, plen, b)
@@ -111,7 +114,8 @@ def test_traces_equal_reference_and_cost_pins():
     ref = RServe(RCFG, rrc, R_PARAMS, NO_AXES, kv_mode="paged",
                  mem_arch="16B", **KW)
     ref.generate(PROMPTS, max_new_tokens=8)
-    eng = ServeEngine(CFG, prc, PARAMS, kv_mode="paged", mem_arch="16B",
+    eng = ServeEngine(CFG, prc, PARAMS, P_NO_AXES,
+                      kv_mode="paged", mem_arch="16B",
                       device="cpu", **KW)
     eng.generate(PROMPTS, max_new_tokens=8)
     step, full = eng.step_trace(), eng.serving_trace()
@@ -134,10 +138,12 @@ def test_traces_equal_reference_and_cost_pins():
 
 def test_dense_mode_records_no_traces():
     _, prc = _rc("float32")
-    eng = ServeEngine(CFG, prc, PARAMS, kv_mode="dense", device="cpu", **KW)
+    eng = ServeEngine(CFG, prc, PARAMS, P_NO_AXES,
+                      kv_mode="dense", device="cpu", **KW)
     eng.generate(PROMPTS, max_new_tokens=3)
     with pytest.raises(RuntimeError):
         eng.step_trace()
     with pytest.raises(ValueError):
-        ServeEngine(CFG, prc, PARAMS, kv_mode="paged", mem_arch="4R-1W",
+        ServeEngine(CFG, prc, PARAMS, P_NO_AXES,
+                    kv_mode="paged", mem_arch="4R-1W",
                     device="cpu", **KW)

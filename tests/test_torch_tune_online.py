@@ -249,6 +249,7 @@ def _engines():
     from repro.serving.engine import ServeEngine as RServe
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.sharding import NO_AXES as P_NO_AXES
     from repro_torch.models import from_jax, model_specs
     from repro_torch.serving.engine import ServeEngine
 
@@ -260,7 +261,7 @@ def _engines():
     prompts = np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=(3, 11)).astype(np.int32)
     eng = ServeEngine(cfg, RunConfig(remat="none", attn_impl="dense",
-                                     compute_dtype="float32"), params,
+                                     compute_dtype="float32"), params, P_NO_AXES,
                       device="cpu", **kw)
     ref = RServe(rcfg, RRun(remat="none", attn_impl="dense",
                             compute_dtype="float32"), r_params, NO_AXES,
